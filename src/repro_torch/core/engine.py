@@ -24,8 +24,12 @@ The ledger counts manifest bytes, so its peaks equal the reference's to
 the byte at equal schedules; the device allocator's own peak
 (``torch.cuda.max_memory_allocated``) is a separate, measured number.
 
+``page_size`` charges the single-request KV cache page by page as decode
+reaches new positions (``core/kv_pages.py``), and ``run_batch_round``
+serves the scheduler's paged pools and chunked-prefill windows.
+
 Not yet ported (they raise): speculative decoding (``DraftModel``,
-``SpecConfig``), paged KV serving, chunked prefill and expert streaming.
+``SpecConfig``) and expert streaming.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 from repro_torch.checkpoint.partition import (load_manifest, load_shard,
                                               tree_map)
 from repro_torch.core import telemetry as _tele
+from repro_torch.core.kv_pages import pages_for
 from repro_torch.core.modules import build_module_fns
 from repro_torch.core.prefetch import PrefetchRuntime
 from repro_torch.models.config import ModelConfig
@@ -313,8 +318,6 @@ class PipeloadEngine:
                  page_size: Optional[int] = None, device="cuda"):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
-        if page_size:
-            raise _not_ported("paged KV (page_size)")
         self.device = resolve_device(device)
         self.dir = Path(ckpt_dir)
         self.cfg = cfg
@@ -322,6 +325,9 @@ class PipeloadEngine:
         self.m = max(1, num_agents) if mode == "pipeload" else 1
         self.budget = budget_bytes
         self.pin = pin_window if mode == "pipeload" else 0
+        # paged KV: the cache's ledger bytes are charged in page_size-token
+        # pages as positions are reached (None = one dense reservation)
+        self.page_size = page_size if page_size and page_size > 0 else None
         self.manifest = load_manifest(ckpt_dir)
         self.fns = build_module_fns(cfg, attn_impl=attn_impl,
                                     device=self.device)
@@ -553,17 +559,36 @@ class PipeloadEngine:
         b, s0 = toks.shape
         total = s0 + new_tokens
         names = self.layer_names
-        cache_total = len(names) * self.cfg.cache_bytes(b, total)
+        n = len(names)
+        # paged accounting: the feasibility check covers the final page
+        # count (a single request cannot be preempted mid-generation)
+        ps = self.page_size
+        if ps:
+            cache_total = pages_for(total, ps) * n * self.cfg.cache_bytes(b,
+                                                                           ps)
+        else:
+            cache_total = n * self.cfg.cache_bytes(b, total)
         self._check_kv_budget(cache_total)
 
         caches: Dict[str, dict] = {}
         t0 = time.perf_counter()
         self._ensure_aux(ledger, events, t0)
-        # reserve the whole cache before the pipeline starts: the
-        # Inference Agent raises S_dest, so it must never park on S_stop
-        ledger.acquire(cache_total, owner="kv_pages")
-        events.append((time.perf_counter() - t0, "cache_reserve",
-                       str(cache_total)))
+        # reserve the cache bytes the NEXT round needs before its pipeline
+        # starts: the Inference Agent raises S_dest, so it must never park
+        # on S_stop.  Dense runs take everything here, paged runs grow
+        # page by page.
+        mapped = {"bytes": 0}
+
+        def ensure_slots(slots: int):
+            need = (pages_for(slots, ps) * n * self.cfg.cache_bytes(b, ps)
+                    if ps else cache_total)
+            if need > mapped["bytes"]:
+                ledger.acquire(need - mapped["bytes"], owner="kv_pages")
+                events.append((time.perf_counter() - t0, "cache_reserve",
+                               str(need - mapped["bytes"])))
+                mapped["bytes"] = need
+
+        ensure_slots(s0 if ps else total)
         x = self.fns["embed"](self._resident["embed"], toks)
 
         def prefill_apply(k, w, h):
@@ -609,6 +634,7 @@ class PipeloadEngine:
 
         for step in range(1, new_tokens):
             pos = s0 + step - 1          # cache slot of the token we feed
+            ensure_slots(pos + 1)        # paged: map the write page
             events.append((time.perf_counter() - t0, "token", str(step)))
             x = self.fns["embed"](self._resident["embed"], toks[:, -1:])
             if self.mode == "baseline":
@@ -625,12 +651,12 @@ class PipeloadEngine:
         self._sync()
         lat = time.perf_counter() - t0
         caches.clear()
-        ledger.release(cache_total, owner="kv_pages")
+        ledger.release(mapped["bytes"], owner="kv_pages")
         ledger.audit_check_drained("stream", "kv_pages")
         return toks, self._stats(ledger, events, lat, fsnap,
                                  new_tokens=new_tokens, prefill_s=prefill_s,
                                  decode_s=lat - prefill_s,
-                                 cache_bytes=cache_total, kv_cache=True)
+                                 cache_bytes=mapped["bytes"], kv_cache=True)
 
     # ------------------------------------------------------------------
     # Continuous-batching rounds (core/scheduler.py drives these)
@@ -638,50 +664,82 @@ class PipeloadEngine:
     def run_batch_round(self, ledger: _Ledger, events, t0, *,
                         decode_x=None, decode_caches: Optional[Dict] = None,
                         decode_pos=None, prefill_xs=(),
-                        prefill_total: int = 0, paged_pools=None,
-                        chunk_x=None):
+                        prefill_total: int = 0,
+                        paged_pools: Optional[Dict] = None,
+                        decode_tables=None, chunk_x=None, chunk_tables=None,
+                        chunk_pos=None, prefill_sink=None):
         """ONE pipeline round shared by every in-flight request: layer
-        ``k`` streams through memory once and is applied to the stacked
-        single-token states of all decoding requests (``decode_x``
-        (R, 1, D), per-layer caches with leading row dim R, RAGGED device
-        ``decode_pos`` (R,)) and to each joining request's cache-capturing
-        prefill (``prefill_xs``, caches padded to ``prefill_total``), then
-        destroyed.  Returns ``(decode_x', decode_caches', prefill_outs,
-        prefill_caches)``."""
+        ``k`` streams through memory once and is applied to
+
+          * the stacked single-token states of all decoding requests
+            (``decode_x`` (R, 1, D), RAGGED device ``decode_pos`` (R,)),
+            against per-layer dense caches with leading row dim R
+            (``decode_caches``) or, in paged mode, against ``paged_pools``
+            (per layer {k, v} with (P, page, KV, dh) leaves) through the
+            device block tables ``decode_tables`` (R, NB) int32;
+          * chunked-prefill windows (``chunk_x`` (Bc, C, D) at
+            ``chunk_pos`` (Bc,) through ``chunk_tables``), which write
+            their K/V into their requests' pages as they go;
+          * each joining request's cache-capturing prefill (``prefill_xs``,
+            caches padded to ``prefill_total``),
+
+        then destroyed.  Paged pools are written IN PLACE.  Returns
+        ``(decode_x', caches, prefill_outs, prefill_caches, chunk_x')``:
+        ``caches`` is ``paged_pools`` in paged mode, else the advanced
+        ``decode_caches``; ``chunk_x'`` is None when no chunks ran.  With
+        ``prefill_sink``, each layer's captured caches (one per prefill
+        job) go to ``prefill_sink(layer_name, caches)`` as soon as the
+        layer has run, and ``prefill_caches`` comes back empty: a paged
+        scheduler writes them into pages then, so no more than one
+        layer's dense capture is alive at a time."""
         if self.mode == "baseline":
             raise ValueError(
                 "run_batch_round needs a pipelined mode (pipeload / "
                 "pipeswitch); baseline keeps the model resident and has "
                 "no round to amortise")
-        if paged_pools is not None:
-            raise _not_ported("paged KV serving")
-        if chunk_x is not None:
-            raise _not_ported("chunked prefill")
         if decode_x is not None and decode_x.shape[1] > 1:
             raise _not_ported("stacked multi-token (speculative verify) "
                               "decode")
+        if chunk_x is not None and paged_pools is None:
+            raise ValueError(
+                "chunked prefill needs paged pools (chunks write K/V "
+                "through the block tables)")
         names = self.layer_names
         prefill_caches: List[Dict[str, dict]] = [{} for _ in prefill_xs]
 
         def apply_fn(k, w, state):
-            dx, pxs = state
-            if dx is not None:
+            dx, cx, pxs = state
+            if dx is not None and paged_pools is not None:
+                dx, paged_pools[names[k]] = self.fns["layer_decode_paged"](
+                    w, dx, paged_pools[names[k]], decode_tables, decode_pos)
+            elif dx is not None:
                 dx, decode_caches[names[k]] = self.fns["layer_decode"](
                     w, dx, decode_caches[names[k]], decode_pos)
-            nxt = []
-            for i, px in enumerate(pxs):
-                px, prefill_caches[i][names[k]] = self.fns["layer_cache"](
-                    w, px, prefill_total)
+            if cx is not None:
+                # chunk windows write their prompt slots into their own
+                # pages (a shared page gets the bytes a sibling wrote)
+                cx, paged_pools[names[k]] = self.fns["layer_verify_paged"](
+                    w, cx, paged_pools[names[k]], chunk_tables, chunk_pos)
+            nxt, captured = [], []
+            for px in pxs:
+                px, c = self.fns["layer_cache"](w, px, prefill_total)
                 nxt.append(px)
+                captured.append(c)
+            if prefill_sink is not None and captured:
+                prefill_sink(names[k], captured)
+            else:
+                for i, c in enumerate(captured):
+                    prefill_caches[i][names[k]] = c
             self._sync()
-            return dx, nxt
+            return dx, cx, nxt
 
         self._ensure_aux(ledger, events, t0)
-        dx, pxs = self._run_pipeline((decode_x, list(prefill_xs)), ledger,
-                                     events, t0,
-                                     destroy=self.mode == "pipeload",
-                                     apply_fn=apply_fn)
-        return dx, decode_caches, pxs, prefill_caches
+        dx, cx, pxs = self._run_pipeline((decode_x, chunk_x, list(prefill_xs)),
+                                         ledger, events, t0,
+                                         destroy=self.mode == "pipeload",
+                                         apply_fn=apply_fn)
+        caches = paged_pools if paged_pools is not None else decode_caches
+        return dx, caches, pxs, prefill_caches, cx
 
     def _kv_floor(self, cache_total: int) -> int:
         """Smallest budget that cannot deadlock a KV decode round holding

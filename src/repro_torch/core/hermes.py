@@ -80,31 +80,40 @@ class Hermes:
                       max_agents: Optional[int] = None,
                       max_pin: Optional[int] = None,
                       max_inflight: int = 1,
-                      quants: Optional[Sequence[Optional[str]]] = None
-                      ) -> List[GenPlanEntry]:
+                      quants: Optional[Sequence[Optional[str]]] = None,
+                      page_sizes: Sequence[int] = (),
+                      shared_prefix_len: int = 0,
+                      chunk_prefill: int = 0) -> List[GenPlanEntry]:
         """Generation-aware schedule: joint (num_agents, pin_window) with
         KV-cache bytes charged against the budget; ``max_inflight > 1``
-        also searches the continuous-batching in-flight count."""
+        also searches the continuous-batching in-flight count,
+        ``page_sizes`` the paged KV reservations (``shared_prefix_len``
+        leading prompt tokens shared across requests are charged once),
+        and ``chunk_prefill`` models chunk-joined prefill rounds."""
         cb = self.cfg.cache_bytes(batch, prompt_len + new_tokens)
         return plan_generate(self._profiles(quants), budgets,
                              new_tokens=new_tokens,
                              cache_bytes_per_layer=cb, max_agents=max_agents,
                              max_pin=max_pin, max_inflight=max_inflight,
-                             total_len=prompt_len + new_tokens)
+                             page_sizes=tuple(page_sizes),
+                             total_len=prompt_len + new_tokens,
+                             shared_prefix_len=shared_prefix_len,
+                             chunk_prefill=chunk_prefill)
 
     # ---- Execution Engine ----------------------------------------------
     def engine(self, *, mode: str = "pipeload",
                budget_bytes: Optional[int] = None,
                num_agents: Optional[int] = None,
                pin_window: int = 0,
-               attn_impl: Optional[str] = "auto") -> PipeloadEngine:
+               attn_impl: Optional[str] = "auto",
+               page_size: Optional[int] = None) -> PipeloadEngine:
         if num_agents is None and mode == "pipeload":
             num_agents = self.best_agents(budget_bytes)
         return PipeloadEngine(self.dir, self.cfg, mode=mode,
                               num_agents=num_agents or 1,
                               budget_bytes=budget_bytes,
                               pin_window=pin_window, attn_impl=attn_impl,
-                              device=self.device)
+                              page_size=page_size, device=self.device)
 
     def scheduler(self, *, budget_bytes: Optional[int] = None,
                   max_inflight: int = 4, prompt_len: int = 128,
@@ -112,16 +121,34 @@ class Hermes:
                   num_agents: Optional[int] = None,
                   pin_window: Optional[int] = None,
                   max_total_len: Optional[int] = None,
+                  page_sizes: Sequence[int] = (),
+                  shared_prefix_len: int = 0,
+                  prefix_cache: bool = True,
                   seed: Optional[int] = None,
+                  chunk_prefill: int = 0,
                   attn_impl: Optional[str] = "auto"):
         """Continuous-batching serving facade: plan the (num_agents,
         pin_window, inflight) triple for the budget, build the engine and
         wrap it in a ``BatchScheduler`` ready for ``submit()``/``run()``.
-        ``prompt_len``/``new_tokens`` describe the typical request."""
+        ``prompt_len``/``new_tokens`` describe the typical request.
+        ``page_sizes`` widens the plan over paged KV reservations
+        (``shared_prefix_len`` models the workload's common prompt
+        prefix, ``prefix_cache`` turns its sharing on) and the engine and
+        scheduler take the winning page size; ``chunk_prefill`` (needs
+        ``page_sizes``) joins long prompts into decode rounds."""
         from repro_torch.core.scheduler import BatchScheduler
+        if chunk_prefill and not page_sizes:
+            raise ValueError("chunk_prefill requires page_sizes (chunk "
+                             "rounds write through the paged KV kernel)")
         g = self.plan_generate([budget_bytes], prompt_len=prompt_len,
                                new_tokens=new_tokens,
-                               max_inflight=max_inflight)[0]
+                               max_inflight=max_inflight,
+                               page_sizes=page_sizes,
+                               # sharing off -> every page is private; the
+                               # plan must not assume prefix hits
+                               shared_prefix_len=(shared_prefix_len
+                                                  if prefix_cache else 0),
+                               chunk_prefill=chunk_prefill)[0]
         if not g.feasible:
             raise ValueError(
                 f"no feasible serving schedule for budget {budget_bytes}: "
@@ -134,8 +161,11 @@ class Hermes:
                                       else g.num_agents),
                           pin_window=(pin_window if pin_window is not None
                                       else g.pin_window),
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl,
+                          page_size=g.page_size or None)
         return BatchScheduler(eng, max_inflight=g.inflight,
                               max_total_len=(max_total_len
                                              or prompt_len + new_tokens),
-                              seed=seed)
+                              prefix_cache=prefix_cache, seed=seed,
+                              chunk_prefill=(chunk_prefill
+                                             if g.page_size else 0))

@@ -9,12 +9,15 @@ in two generation regimes:
   * **KV-cache incremental decode**: ``layer_cache`` is the prefill that
     also emits the layer's KV cache, allocated once at ``total_len`` slots
     so later single-token writes go in place, and ``layer_decode``
-    advances one token against it.
+    advances one token against it.  ``layer_decode_paged`` and
+    ``layer_verify_paged`` do the same against paged pools (one token,
+    or W stacked tokens, per request) through block tables.
 
-Prefill attention runs the hand-written flash-attention kernel and decode
-attention the flash-decoding kernel (``attn_impl="auto"`` picks them for a
-CUDA device and their plain versions on the CPU; ``None`` asks for the
-plain versions on any device).  There is no jit: every call runs eagerly
+Prefill attention runs the hand-written flash-attention kernel, decode
+attention the flash-decoding kernel and paged attention the paged decode
+and verify kernels (``attn_impl="auto"`` picks them for a CUDA device and
+their plain versions on the CPU; ``None`` asks for the plain versions on
+any device).  There is no jit: every call runs eagerly
 on the device its inputs live on.
 """
 from __future__ import annotations
@@ -27,7 +30,8 @@ from repro_torch.models.attention import KERNEL
 from repro_torch.models.common import rms_norm
 from repro_torch.models.config import DENSE, ModelConfig
 from repro_torch.models.dense_lm import (check_dense, layer_decode,
-                                         layer_prefill)
+                                         layer_decode_paged, layer_prefill,
+                                         layer_verify_paged)
 
 ENGINE_FAMILIES = (DENSE,)
 
@@ -73,8 +77,9 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
                      device="cuda") -> Dict[str, Callable]:
-    """{embed, layer, layer_cache, layer_decode, head} apply functions
-    (weights are arguments: the engine streams them)."""
+    """{embed, layer, layer_cache, layer_decode, layer_decode_paged,
+    [layer_verify_paged,] head, head_all} apply functions (weights are
+    arguments: the engine streams them)."""
     check_engine_family(cfg)
     impl = resolve_attn_impl(attn_impl, device)
 
@@ -98,12 +103,61 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
         ``pos`` is an int or a RAGGED (B,) device vector."""
         return layer_decode(weights, x, cfg, cache, pos, attn_impl=impl)
 
+    # Paged KV (core/kv_pages.py): cache leaves live in (P, page, ...) page
+    # pools and each request's sequence is a block table of page ids.
+    # Full-attention GQA takes the paged kernels; a sliding-window config
+    # gathers the rows' pages into the contiguous cache, runs the ordinary
+    # layer_decode and scatters the one written row back into its page.
+    gqa_paged = cfg.sliding_window is None
+
+    def layer_decode_paged_apply(weights, x, pools, tables, pos):
+        """One token per request against the paged cache: ``pools`` is
+        this layer's {k, v} with (P, page, KV, dh) leaves, written in
+        place; ``tables`` (B, NB) int32 on the device; ``pos`` (B,) ragged
+        write positions.  The write page must be private."""
+        b, nb = tables.shape
+        posv = pos.reshape(b)
+        if gqa_paged:
+            return layer_decode_paged(weights, x, cfg, pools, tables, posv,
+                                      attn_impl=impl)
+        ps = pools["k"].shape[1]
+        cache = {k: a[tables].reshape((b, nb * ps) + tuple(a.shape[2:]))
+                 for k, a in pools.items()}
+        out, cache = layer_decode(weights, x, cfg, cache, posv,
+                                  attn_impl=impl)
+        rows = torch.arange(b, device=x.device)
+        pids = tables[rows, posv // ps]
+        for k, a in pools.items():
+            a[pids, posv % ps] = cache[k][rows, posv].to(a.dtype)
+        return out, pools
+
+    def layer_verify_paged_apply(weights, x, pools, tables, pos):
+        """W stacked tokens per request (B, W, D) against the paged cache;
+        ``pos`` (B,) is the slot of each row's FIRST stacked token."""
+        return layer_verify_paged(weights, x, cfg, pools, tables,
+                                  pos.reshape(tables.shape[0]),
+                                  attn_impl=impl)
+
     def head_apply(weights, x):
         h = rms_norm(x, weights["final_norm"], cfg.norm_eps)
         if "lm_head" in weights:
             return (h[:, -1] @ weights["lm_head"]).float()
         return h[:, -1].float()
 
-    return {"embed": embed_apply, "layer": layer_apply,
-            "layer_cache": layer_cache_apply,
-            "layer_decode": layer_decode_apply, "head": head_apply}
+    def head_all_apply(weights, x):
+        """Logits for EVERY stacked position (B, W, V)."""
+        h = rms_norm(x, weights["final_norm"], cfg.norm_eps)
+        if "lm_head" in weights:
+            return (h @ weights["lm_head"]).float()
+        return h.float()
+
+    fns = {"embed": embed_apply, "layer": layer_apply,
+           "layer_cache": layer_cache_apply,
+           "layer_decode": layer_decode_apply,
+           "layer_decode_paged": layer_decode_paged_apply,
+           "head": head_apply, "head_all": head_all_apply}
+    if gqa_paged:
+        # the stacked path has no windowed variant; the key's presence is
+        # how callers test for it
+        fns["layer_verify_paged"] = layer_verify_paged_apply
+    return fns

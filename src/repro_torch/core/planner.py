@@ -58,14 +58,7 @@ import heapq
 import math
 from typing import Dict, List, Optional, Tuple
 
-
-def pages_for(tokens: int, page_size: int) -> int:
-    """Number of pages covering ``tokens`` token slots (the reference
-    imports it from ``core/kv_pages.py``, which waits for the paged
-    slice)."""
-    if tokens <= 0:
-        return 0
-    return -(-tokens // page_size)
+from repro_torch.core.kv_pages import pages_for
 
 
 @dataclasses.dataclass

@@ -5,8 +5,8 @@ into its own shared library with a plain C interface, loaded with
 ``ctypes``.  The sources build in parallel, one ``nvcc`` each, all
 started together.  Libraries land in ``build/repro_torch_kernels/`` at
 the repo root (``.gitignore`` lists ``build/``), named with a hash of
-their source, so an edited kernel rebuilds and an unchanged one is
-reused.
+their source and of the shared headers (``csrc/*.cuh``), so an edited
+kernel rebuilds and an unchanged one is reused.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_decode", "flash_attention")
+KERNELS = ("flash_decode", "flash_attention", "paged_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -48,6 +48,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared tile bodies
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

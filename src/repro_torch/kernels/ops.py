@@ -22,8 +22,11 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_gqa,
                                               flash_decode_partial)
+from repro_torch.kernels.paged_decode import (paged_flash_decode,
+                                              paged_flash_verify)
 
-LAUNCHES = {"flash_decode": 0, "flash_attention": 0}
+LAUNCHES = {"flash_decode": 0, "flash_attention": 0,
+            "paged_flash_decode": 0, "paged_flash_verify": 0}
 
 
 def reset_launches() -> None:
@@ -89,4 +92,26 @@ def attention_gqa(q, k, v, *, causal: bool = True,
     out = flash_attention_gqa(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def paged_decode(q, k_pages, v_pages, tables, lengths):
+    """Paged decode through per-row block tables, over the scheduler's
+    (P, page, KV, dh) pools in place (``ops.paged_decode``): q (B, KV, G,
+    dh), tables (B, NB) int32 (short rows padded with page 0), lengths
+    (B,) int32 live slots -> (B, KV, G, dh)."""
+    if not _on_cuda(q, k_pages, v_pages, tables, lengths):
+        return ref.paged_decode_ref(q, k_pages, v_pages, tables, lengths)
+    out = paged_flash_decode(q, k_pages, v_pages, tables, lengths)
+    LAUNCHES["paged_flash_decode"] += 1
+    return out
+
+
+def paged_verify(q, k_pages, v_pages, tables, lengths):
+    """Stacked W-query paged attention (``ops.paged_verify``): q (B, W, KV,
+    G, dh); query i of row b attends slots ``<= lengths[b] - W + i``."""
+    if not _on_cuda(q, k_pages, v_pages, tables, lengths):
+        return ref.paged_verify_ref(q, k_pages, v_pages, tables, lengths)
+    out = paged_flash_verify(q, k_pages, v_pages, tables, lengths)
+    LAUNCHES["paged_flash_verify"] += 1
     return out

@@ -108,3 +108,48 @@ def attention_gqa_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqp,bpkd->bqkgd", p, v.float())
     return out.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode / stacked-query verify through block tables
+# ---------------------------------------------------------------------------
+def _gather_pages(pages, tables):
+    """(P, page, KV, dh) pool rows of each table -> the logically
+    contiguous cache (B, NB * page, KV, dh)."""
+    b, nb = tables.shape
+    return pages[tables.long()].reshape((b, nb * pages.shape[1])
+                                        + tuple(pages.shape[2:]))
+
+
+def paged_decode_ref(q, k_pages, v_pages, tables, lengths):
+    """Densify the block-table gather, then the masked grouped softmax.
+    q: (B, KV, G, dh); pools: (P, page, KV, dh); tables: (B, NB) page ids;
+    lengths: (B,) live slots per row -> (B, KV, G, dh) in v's dtype."""
+    k = _gather_pages(k_pages, tables)
+    v = _gather_pages(v_pages, tables)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", q.float() * scale, k.float())
+    valid = (torch.arange(k.shape[1], device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, v.float()).to(v_pages.dtype)
+
+
+def paged_verify_ref(q, k_pages, v_pages, tables, lengths):
+    """W stacked queries per row: q (B, W, KV, G, dh); query ``i`` sits at
+    slot ``lengths[b] - W + i`` and attends slots up to it.  W=1 is
+    ``paged_decode_ref``.  -> (B, W, KV, G, dh) in v's dtype."""
+    w = q.shape[1]
+    k = _gather_pages(k_pages, tables)
+    v = _gather_pages(v_pages, tables)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bwkgd,bskd->bwkgs", q.float() * scale, k.float())
+    qpos = (lengths.to(q.device)[:, None] - w
+            + torch.arange(w, device=q.device)[None, :])           # (B, W)
+    valid = (torch.arange(k.shape[1], device=q.device)[None, None, :]
+             <= qpos[:, :, None])
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bwkgs,bskd->bwkgd", p, v.float()).to(v_pages.dtype)

@@ -10,13 +10,20 @@ memory budget, and serves the requests through the continuous-batching
 scheduler: each PIPELOAD round streams every layer ONCE and applies it to
 all in-flight requests.
 
+``--shared-prefix N`` makes every request's first N prompt tokens
+identical, and ``--page-size P`` adds the PAGED KV reservation
+(core/kv_pages.py) to the planner's search: requests map fixed-size cache
+pages through block tables and the radix prefix tree maps the shared
+prompt's pages once across the fleet (``--no-prefix-cache`` turns the
+sharing off).  ``--chunk-prefill C`` (needs ``--page-size``) splits
+prompts longer than C into page-aligned chunks joined into decode rounds.
+
 Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
 profile is cached as ``profile_torch_<device>.json``.  The flags of
-slices not yet ported (paged KV, quantization, speculation, the SLO tier,
-trace replay, autotune) exit with a "not yet ported in repro_torch"
-error.
+slices not yet ported (quantization, speculation, the SLO tier, trace
+replay, autotune) exit with a "not yet ported in repro_torch" error.
 """
 from __future__ import annotations
 
@@ -81,15 +88,17 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
         num_agents: int | None = None, pin_window: int | None = None,
         kv_cache: bool = True, max_inflight: int = 4,
         arrival_rate: float | None = None, seed: int = 0,
-        quant: str = "fp32", page_size: int = 0, shared_prefix: int = 0,
+        quant: str = "fp32", page_size: int = 0, prefix_cache: bool = True,
+        shared_prefix: int = 0, chunk_prefill: int = 0,
         trace_out: str | None = None, metrics_out: str | None = None,
         device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto"):
     """Serve ``requests`` seeded prompts; returns ``(outs, stats)``.
     ``attn_impl=None`` runs the kernels' plain PyTorch versions."""
     if quant != "fp32":
         _not_ported(f"--quant {quant}")
-    if page_size:
-        _not_ported("--page-size")
+    if chunk_prefill and not page_size:
+        raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
+                         "rounds write through the paged KV kernel)")
     tele.metrics().reset()
     if trace_out:
         tele.enable()
@@ -103,6 +112,8 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
     shared_prefix = max(0, min(shared_prefix, prompt_len))
     prompts = rng.integers(0, cfg.vocab_size, (requests, prompt_len))
     if shared_prefix:
+        # shared-system-prompt trace: every request opens with the same
+        # tokens (what the prefix tree maps once across the fleet)
         prompts[:, :shared_prefix] = prompts[0, :shared_prefix]
     total_len = prompt_len + new_tokens
 
@@ -134,7 +145,13 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
     g = hermes.plan_generate([budget], prompt_len=prompt_len,
                              new_tokens=new_tokens,
                              max_inflight=max_inflight,
-                             quants=("fp32",))[0]
+                             quants=("fp32",),
+                             page_sizes=(page_size,) if page_size else (),
+                             # with sharing off every page is private:
+                             # the plan must not assume hits
+                             shared_prefix_len=(shared_prefix
+                                                if prefix_cache else 0),
+                             chunk_prefill=chunk_prefill)[0]
     if not g.feasible:
         raise SystemExit(
             f"error: no feasible serving schedule for budget="
@@ -149,12 +166,17 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
           f"pin={pin}, inflight={g.inflight}, dtype={g.dtype}, predicted "
           f"{g.predicted_throughput_tps:.1f} tok/s aggregate, peak "
           f"{g.predicted_peak_bytes/2**20:.0f}MB "
-          f"(cache {g.cache_bytes/2**20:.1f}MB)")
+          f"(cache {g.cache_bytes/2**20:.1f}MB"
+          + (f", page size {g.page_size}" if g.page_size else "")
+          + (f", chunk {chunk_prefill}" if chunk_prefill else "") + ")")
     eng = hermes.engine(mode="pipeload", budget_bytes=budget,
                         num_agents=agents, pin_window=pin,
-                        attn_impl=attn_impl)
+                        attn_impl=attn_impl, page_size=g.page_size or None)
     sched = BatchScheduler(eng, max_inflight=g.inflight,
-                           max_total_len=total_len, seed=seed)
+                           max_total_len=total_len,
+                           prefix_cache=prefix_cache, seed=seed,
+                           chunk_prefill=(chunk_prefill if g.page_size
+                                          else 0))
     try:
         sched.warmup(prompt_lens=[prompt_len])
         arrivals = poisson_arrivals(requests, arrival_rate, rng)
@@ -185,6 +207,18 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
     if stats.retries or stats.faults_absorbed:
         rows["prefetch_retries"] = stats.retries
         rows["faults_absorbed"] = stats.faults_absorbed
+    if stats.page_size:
+        rows["page_size"] = stats.page_size
+        rows["page_allocs"] = (f"{stats.pages_allocated} "
+                               f"({stats.page_reuses} from the free "
+                               f"list, pool peak {stats.pool_pages_peak})")
+        rows["prefix_hit_pages"] = stats.prefix_hit_pages
+        rows["cow_copies"] = stats.cow_copies
+        rows["preemptions"] = stats.preemptions
+    if stats.chunk_size:
+        rows["chunk_prefill"] = (f"{stats.chunk_size}-token chunks, "
+                                 f"{stats.chunk_jobs} jobs joined into "
+                                 "decode rounds")
     print(tele.summary_table(rows, title="serve summary"))
     print(format_peak_breakdown(peak_breakdown_report(stats)))
     print(format_drift(drift_report(g, stats)))
@@ -222,10 +256,11 @@ def main(argv=None):
     ap.add_argument("--quant", default="fp32", choices=QUANT_CHOICES,
                     help="shard precision (only fp32 is ported)")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="paged KV page size (not yet ported; 0 = dense)")
+                    help="paged KV: cache page size in tokens added to "
+                    "the planner's search (0 = dense only)")
     ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="paged KV prefix sharing off (dense mode has "
-                    "none)")
+                    help="paged KV: disable radix-tree prompt-prefix "
+                    "page sharing")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="first N prompt tokens identical across requests")
     ap.add_argument("--draft-arch", default=None,
@@ -239,7 +274,9 @@ def main(argv=None):
     ap.add_argument("--tenants", type=int, default=0,
                     help="multi-tenant trace (not yet ported)")
     ap.add_argument("--chunk-prefill", type=int, default=0,
-                    help="chunked prefill (not yet ported)")
+                    help="split prompts longer than C tokens into "
+                    "page-aligned chunks joined into decode rounds "
+                    "(needs --page-size)")
     ap.add_argument("--slo-ttft-ms", type=float, default=None,
                     help="SLO tier (not yet ported)")
     ap.add_argument("--slo-tpot-ms", type=float, default=None,
@@ -253,13 +290,11 @@ def main(argv=None):
                     help="write the end-of-run metrics-registry snapshot")
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    unported = [("--page-size", args.page_size),
-                ("--quant", args.quant != "fp32"),
+    unported = [("--quant", args.quant != "fp32"),
                 ("--draft-arch", args.draft_arch),
                 ("--spec-depth", args.spec_depth),
                 ("--autotune", args.autotune), ("--trace", args.trace),
                 ("--tenants", args.tenants),
-                ("--chunk-prefill", args.chunk_prefill),
                 ("--slo-ttft-ms", args.slo_ttft_ms),
                 ("--slo-tpot-ms", args.slo_tpot_ms),
                 ("--slo-shed", args.slo_shed)]
@@ -271,7 +306,9 @@ def main(argv=None):
         reduced=not args.full, num_agents=args.num_agents,
         pin_window=args.pin_window, kv_cache=not args.no_kv_cache,
         max_inflight=args.max_inflight, arrival_rate=args.arrival_rate,
-        seed=args.seed, shared_prefix=args.shared_prefix,
+        seed=args.seed, page_size=args.page_size,
+        prefix_cache=not args.no_prefix_cache,
+        shared_prefix=args.shared_prefix, chunk_prefill=args.chunk_prefill,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
         device=args.device)
 

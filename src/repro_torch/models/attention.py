@@ -1,10 +1,12 @@
-"""GQA attention (full / sliding-window): prefill and single-token decode.
+"""GQA attention (full / sliding-window): prefill, single-token decode,
+and paged decode / stacked verify against page pools.
 
 PyTorch port of the GQA part of ``repro/models/attention.py``.  Prefill
-attention runs the hand-written flash-attention kernel and decode the
-flash-decoding kernel, both through ``kernels.ops`` (which takes their
-plain PyTorch versions for CPU tensors); ``attn_impl=None`` asks for the
-plain versions explicitly on any device.
+attention runs the hand-written flash-attention kernel, decode the
+flash-decoding kernel and paged attention the paged decode / verify
+kernels, all through ``kernels.ops`` (which takes their plain PyTorch
+versions for CPU tensors); ``attn_impl=None`` asks for the plain versions
+explicitly on any device.
 
 Decode keeps the ragged ``(B,)`` position vector on the device through
 the cache write and the valid mask: the only host round trip in a decode
@@ -156,3 +158,94 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
     out = out.reshape(b, 1, kv * g * dh) @ params["w_o"]
     return out, {"k": k_cache, "v": v_cache}
 
+
+
+# ===========================================================================
+# Paged decode / stacked verify against (P, page, KV, dh) page pools
+# ===========================================================================
+def _gather_cache(pool, tables):
+    """The rows' pages as the logically contiguous cache (B, NB*page, ...)."""
+    b, nb = tables.shape
+    return pool[tables].reshape((b, nb * pool.shape[1])
+                                + tuple(pool.shape[2:]))
+
+
+def gqa_decode_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
+                     attn_impl: Optional[str] = None):
+    """GQA decode against the PAGED cache: pools{k,v}: (P, page, KV, dh);
+    tables: (B, NB) int32 block tables on the device (short rows padded
+    with page 0); pos: (B,) device vector of ragged positions.
+
+    The new token's K/V is written IN PLACE into its page
+    (``tables[b, pos // page]``, slot ``pos % page``; the scheduler
+    copy-on-writes shared pages at the round boundary, so that page is
+    private).  ``attn_impl=KERNEL`` runs the paged decode kernel through
+    ``ops.paged_decode``; ``None`` gathers the row's pages into the
+    logically contiguous cache and runs the plain decode over it.  Full
+    causal attention only."""
+    b = x.shape[0]
+    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
+    page, nb = pools["k"].shape[1], tables.shape[1]
+    posv = pos.reshape(b)
+    pos_b = posv.reshape(b, 1)
+    q, k, v = _project_qkv(params, x, cfg)
+    q = common.apply_rope(q, pos_b, cfg.rope_theta)
+    k = common.apply_rope(k, pos_b, cfg.rope_theta)
+    pids = tables[torch.arange(b, device=x.device), posv // page]
+    pools["k"][pids, posv % page] = k[:, 0].to(pools["k"].dtype)
+    pools["v"][pids, posv % page] = v[:, 0].to(pools["v"].dtype)
+    qh = q.reshape(b, kv, g, dh).contiguous()
+    if attn_impl == KERNEL:
+        out = ops.paged_decode(qh, pools["k"], pools["v"], tables,
+                               (posv + 1).to(torch.int32))
+    else:
+        valid = torch.arange(nb * page, device=x.device)[None, :] <= pos_b
+        out = flash_decode(qh, _gather_cache(pools["k"], tables),
+                           _gather_cache(pools["v"], tables),
+                           valid.contiguous(), impl=None)
+    out = out.reshape(b, 1, kv * g * dh) @ params["w_o"]
+    return out, pools
+
+
+def gqa_verify_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
+                     attn_impl: Optional[str] = None):
+    """Stacked W-token GQA decode against the PAGED cache (speculative
+    verify, and chunked prefill at W = the chunk width).
+
+    ``x``: (B, W, D), W consecutive tokens per row; ``pos``: (B,) cache
+    slot of the FIRST stacked token.  All W tokens' K/V are written into
+    their pages in place first, then query i attends causally up to its
+    own slot ``pos + i``.  ``attn_impl=KERNEL`` runs the paged verify
+    kernel; ``None`` flattens (B, W) into the batch and runs the plain
+    decode over the gathered cache, as the reference's jnp path does."""
+    b, w, _ = x.shape
+    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
+    page, nb = pools["k"].shape[1], tables.shape[1]
+    posv = pos.reshape(b)
+    positions = posv[:, None] + torch.arange(w, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, cfg)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)[:, None]
+    pids = tables[rows, positions // page]                      # (B, W)
+    pools["k"][pids, positions % page] = k.to(pools["k"].dtype)
+    pools["v"][pids, positions % page] = v.to(pools["v"].dtype)
+    qh = q.reshape(b, w, kv, g, dh).contiguous()
+    if attn_impl == KERNEL:
+        out = ops.paged_verify(qh, pools["k"], pools["v"], tables,
+                               (posv + w).to(torch.int32))
+    else:
+        s_tot = nb * page
+        kc = _gather_cache(pools["k"], tables)
+        vc = _gather_cache(pools["v"], tables)
+        valid = (torch.arange(s_tot, device=x.device)[None, None, :]
+                 <= positions[:, :, None])                      # (B, W, S)
+        kf = kc[:, None].expand(b, w, s_tot, kv, dh).reshape(
+            b * w, s_tot, kv, dh)
+        vf = vc[:, None].expand(b, w, s_tot, kv, dh).reshape(
+            b * w, s_tot, kv, dh)
+        out = flash_decode(qh.reshape(b * w, kv, g, dh), kf, vf,
+                           valid.reshape(b * w, s_tot), impl=None)
+        out = out.reshape(b, w, kv, g, dh)
+    out = out.reshape(b, w, kv * g * dh) @ params["w_o"]
+    return out, pools

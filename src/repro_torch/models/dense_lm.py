@@ -83,3 +83,24 @@ def layer_decode(p, x, cfg: ModelConfig, cache, pos, *,
     a, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos,
                                attn_impl=attn_impl)
     return _ffn(p, x + a, cfg), cache
+
+
+def layer_decode_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
+                       attn_impl: Optional[str] = None):
+    """GQA decode against PAGED cache pools (core/kv_pages.py), the paged
+    sibling of ``layer_decode``; the pools are written in place."""
+    h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    a, pools = attn.gqa_decode_paged(p["attn"], h, cfg, pools, tables, pos,
+                                     attn_impl=attn_impl)
+    return _ffn(p, x + a, cfg), pools
+
+
+def layer_verify_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
+                       attn_impl: Optional[str] = None):
+    """Stacked W-token layer over PAGED pools (B, W, D), each token
+    attending causally up to its own slot: the W>1 sibling of
+    ``layer_decode_paged``."""
+    h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    a, pools = attn.gqa_verify_paged(p["attn"], h, cfg, pools, tables, pos,
+                                     attn_impl=attn_impl)
+    return _ffn(p, x + a, cfg), pools

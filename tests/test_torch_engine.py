@@ -116,9 +116,13 @@ def test_cuda_requested_without_card_raises(ckpt):
 
 
 def test_unported_options_raise(ckpt, toks):
+    """Paged KV is ported; speculative decoding and the stacked verify
+    decode round it needs still raise."""
     _, tcfg, path = ckpt
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PipeloadEngine(path, tcfg, page_size=4, device="cpu")
-    with PipeloadEngine(path, tcfg, device="cpu") as te:
+    with PipeloadEngine(path, tcfg, page_size=4, device="cpu") as te:
+        assert te.page_size == 4
         with pytest.raises(NotImplementedError, match="not yet ported"):
             te.run_generate(toks, 3, speculative=object())
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            te.run_batch_round(None, [], 0.0,
+                               decode_x=torch.zeros((1, 2, 128)))

@@ -125,12 +125,35 @@ def test_grouped_attention_matches_chunked_attention(sq, g, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_fully_masked_rows_match_chunked_attention():
+    """Sq > Sk with a window: rows 81..99 see no key at all, and both
+    packages give them the mean of V over all Sk keys."""
+    import jax.numpy as jnp
+    from repro.models.attention import chunked_attention
+    rng = np.random.default_rng(100)
+    q = _rand(rng, (1, 100, 2, 2, 32))
+    k, v = _rand(rng, (1, 50, 2, 32)), _rand(rng, (1, 50, 2, 32))
+    want = chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=32, block_q=20, block_k=10)
+    got = ops.attention_gqa(_t(q), _t(k), _t(v), causal=True, window=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got[0, 99, :, 0].numpy(), v[0].mean(0),
+                               **TOL)
+
+
 def test_cpu_path_counts_no_launches():
     ops.reset_launches()
     rng = np.random.default_rng(0)
     q, k, v = (_t(_rand(rng, (1, 8, 1, 1, 32))) for _ in range(3))
     ops.attention_gqa(q, k[:, :, :, 0], v[:, :, :, 0])
-    assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0}
+    pages = _t(_rand(rng, (3, 4, 1, 32)))
+    tables = torch.zeros((1, 2), dtype=torch.int32)
+    lengths = torch.tensor([5], dtype=torch.int32)
+    ops.paged_decode(q[:, 0], pages, pages, tables, lengths)
+    ops.paged_verify(q[:, :2], pages, pages, tables, lengths)
+    assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0,
+                            "paged_flash_decode": 0,
+                            "paged_flash_verify": 0}
 
 
 def test_mixed_devices_raise():
@@ -179,6 +202,71 @@ def test_cuda_attention_matches_plain(cuda, sq, kv, g, dh, window):
     assert ops.LAUNCHES["flash_attention"] == before + 1
     want = ref.attention_gqa_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_attention_fully_masked_rows(cuda):
+    """Sq=100 > Sk=50 with window 32: the kernel walks every key tile for
+    a block holding a row that sees no key, as the plain version does."""
+    gen = torch.Generator(device=cuda).manual_seed(100)
+    q = torch.randn((1, 100, 16, 1, 64), generator=gen, device=cuda)
+    k = torch.randn((1, 50, 16, 64), generator=gen, device=cuda)
+    v = torch.randn((1, 50, 16, 64), generator=gen, device=cuda)
+    got = ops.attention_gqa(q, k, v, causal=True, window=32)
+    want = ref.attention_gqa_ref(q, k, v, causal=True, window=32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _cuda_paged(cuda, seed, b, w, kv, g, dh, page, nb, lengths):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_pages = b * nb + 2
+    kp = torch.randn((n_pages, page, kv, dh), generator=gen, device=cuda)
+    vp = torch.randn((n_pages, page, kv, dh), generator=gen, device=cuda)
+    shape = (b, kv, g, dh) if w is None else (b, w, kv, g, dh)
+    q = torch.randn(shape, generator=gen, device=cuda)
+    # ragged rows: live pages are distinct, padded entries point at page 0
+    tables = torch.zeros((b, nb), dtype=torch.int32, device=cuda)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        tables[i, :used] = perm[i * nb:i * nb + used].to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("b,kv,g,dh,page,nb,lengths", [
+    (4, 16, 1, 64, 16, 10, [129, 140, 150, 160]),
+    (2, 4, 8, 128, 16, 8, [77, 128]),
+    (3, 2, 2, 32, 1, 40, [1, 17, 40]),
+    (3, 2, 2, 64, 5, 9, [3, 44, 45])])
+def test_cuda_paged_decode_matches_plain(cuda, b, kv, g, dh, page, nb,
+                                         lengths):
+    args = _cuda_paged(cuda, page * nb, b, None, kv, g, dh, page, nb,
+                       lengths)
+    before = ops.LAUNCHES["paged_flash_decode"]
+    got = ops.paged_decode(*args)
+    assert ops.LAUNCHES["paged_flash_decode"] == before + 1
+    torch.testing.assert_close(got, ref.paged_decode_ref(*args), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,w,kv,g,dh,page,nb,lengths", [
+    (1, 64, 16, 1, 64, 16, 10, [128]),
+    (2, 1, 4, 8, 128, 16, 8, [77, 128]),
+    (3, 3, 2, 2, 32, 5, 9, [3, 44, 45]),
+    (2, 70, 2, 2, 64, 1, 90, [70, 90])])
+def test_cuda_paged_verify_matches_plain(cuda, b, w, kv, g, dh, page, nb,
+                                         lengths):
+    args = _cuda_paged(cuda, page * nb + w, b, w, kv, g, dh, page, nb,
+                       lengths)
+    before = ops.LAUNCHES["paged_flash_verify"]
+    got = ops.paged_verify(*args)
+    assert ops.LAUNCHES["paged_flash_verify"] == before + 1
+    torch.testing.assert_close(got, ref.paged_verify_ref(*args), atol=1e-4,
+                               rtol=1e-4)
+    if w == 1:
+        torch.testing.assert_close(
+            got[:, 0], ops.paged_decode(args[0][:, 0].contiguous(),
+                                        *args[1:]), atol=1e-4, rtol=1e-4)
 
 
 def test_cuda_kernels_reject_other_dtypes(cuda):

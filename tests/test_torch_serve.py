@@ -80,7 +80,9 @@ def test_scheduler_matches_jax(ckpt, seed, pin):
     assert [p[:3] for p in tst.policy] == [p[:3] for p in jst.policy]
     assert sum(tst.peak_breakdown.values()) == tst.peak_bytes
     # CPU tensors take the plain versions, which launch nothing
-    assert tst.kernel_launches == {"flash_decode": 0, "flash_attention": 0}
+    assert tst.kernel_launches == {"flash_decode": 0, "flash_attention": 0,
+                                   "paged_flash_decode": 0,
+                                   "paged_flash_verify": 0}
     if pin == 0:
         assert tst.peak_breakdown == jst.peak_breakdown
 
@@ -103,12 +105,22 @@ def test_hermes_scheduler_facade(ckpt, tmp_path):
 
 
 def test_scheduler_rejects_unported_modes(ckpt):
+    """Paged KV and chunked prefill are ported; speculation and the SLO
+    tier still raise, and submit takes no SLO keywords (priorities,
+    tenants)."""
     _, tcfg, path = ckpt
     eng = PipeloadEngine(path, tcfg, device="cpu")
-    for kw in (dict(page_size=4), dict(chunk_prefill=8),
-               dict(spec_depth=2), dict(slo=object())):
+    for kw in (dict(draft=object()), dict(spec_depth=2),
+               dict(slo=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BatchScheduler(eng, **kw)
+    sched = BatchScheduler(eng, page_size=4, chunk_prefill=8)
+    assert (sched.page_size, sched.chunk) == (4, 8)
+    for kw in (dict(priority=1), dict(tenant="t1")):
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            sched.submit(np.arange(6), 2, **kw)
+    with pytest.raises(ValueError, match="needs paged KV"):
+        BatchScheduler(eng, chunk_prefill=8)
     eng.close()
 
 
@@ -123,7 +135,7 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "gpt2-base-smoke" / "profile_torch_cpu.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--page-size", "4"],
+@pytest.mark.parametrize("flags", [["--autotune"],
                                    ["--quant", "int8"],
                                    ["--draft-arch", "gpt2_base"],
                                    ["--tenants", "2"]])
