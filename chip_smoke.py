@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # one CUDA card, about ten minutes
+    python3 chip_smoke.py        # one CUDA card, about eight minutes
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,9 +10,14 @@ Phases, in order; any failure exits non-zero:
    ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel).
    TF32 is turned off.
 2. Every kernel against its plain PyTorch version on the card (fp32,
-   tolerance 1e-4 max abs error), with its time beside the plain
-   version's, one PyTorch library call's (SDPA; for the paged kernels on
-   K/V already gathered to dense, the gather not timed) and its bound.
+   tolerance 1e-4 max abs error; for quantized_matmul 1e-4 of the
+   output's largest magnitude), with its time beside the plain version's,
+   one PyTorch library call's (SDPA; for the paged kernels on K/V already
+   gathered to dense, the gather not timed; for quantized_matmul
+   ``torch.matmul`` on the weight dequantized to fp32 beforehand, not
+   timed) and its bound.  quantized_matmul runs at every shape the quant
+   phases give it (decode M=4, prefill M=128, the prefill's head M=1),
+   int8 and int4.
 3. The dense path at full width: a full-size gpt2_base checkpoint (24
    layers, d=1024, fp32, random weights from a numpy seed) served through
    ``repro_torch.launch.serve.run`` — 8 requests, 128-token prompts, 32 new
@@ -28,22 +33,45 @@ Phases, in order; any failure exits non-zero:
    shared, ``page_size=16``.  The planner must pick page size 16, the
    prefix tree must hit, and the serving loop must launch
    paged_flash_decode exactly once per layer per decode round.
-6. Phase 5 through the plain versions; tokens as in phase 4.
+6. Phase 5's first 4 requests through the plain versions; tokens as in
+   phase 4.
 7. The chunked-prefill path: the first 4 of phase 5's requests, 16 new
    tokens, ``chunk_prefill=64``.  Chunk jobs must run, flash_attention
    must not launch, paged_flash_verify must launch exactly once per layer
    per round with a chunker, and the tokens must equal phase 5's first
    ones (or first differ at a tie).
+8-9. The quant paths, int8 then int4: phase 3's checkpoint transcoded by
+   the port's ``ensure_quantized`` and served as phase 3 is (``--quant
+   int8`` / ``int4``) under a budget below the quantized checkpoint plus
+   its KV (300 / 250 MiB), so layers still stream and are destroyed.
+   quantized_matmul must launch exactly 145 times (24 layers x 6 linears
+   + the head) per decode round and per prefill, the attention kernels as
+   in phase 3; ``streamed_bytes`` must equal the quantized manifest bytes
+   of the shards loaded; the first 4 requests through the plain versions
+   must give the same tokens (tie rule); and one prompt's last-token
+   logits on int8 shards must be within 5% of the fp32 checkpoint's
+   (max |delta| over max |fp32 logit|, docs/quantization.md; the int4
+   figure is printed without a limit).
 
-Every serve's ledger peak must stay within the budget, and its device
+Every serve's ledger peak must stay within its budget, and its device
 allocator peak (``torch.cuda.max_memory_allocated``) within the budget
 plus, in paged mode, the page pool's bytes (freed pages keep their rows
-outside the ledger).
+outside the ledger).  On quantized shards the kernels must widen no
+weight to fp32 on the card (every call that could is counted), and their
+allocator peak must stay within the ledger peak plus 48 MiB: the planner
+fills the budget with ledger bytes, and beside them sit one prefill's
+activations (~6 MB) and the caching allocator's rounding (a reused block
+is not split when under 1 MiB would remain: up to 1 MiB for each
+resident weight tensor above 1 MiB, ~30 on the int4 path).  The plain
+versions widen one weight at a time, so their limit is the budget plus
+three times the largest weight's fp32 bytes.
 
 Then one JSON line with every kernel: launches (over the whole
 ``serve.run`` call of the path that runs it, and inside its serving loop
-as ``serve_launches``), error, times and bounds at the main path's shapes
-(the mean per launch where it runs the kernel at two: the chunk rounds).
+as ``serve_launches``; for quantized_matmul both quant paths), error,
+times and bounds at the main path's shapes (where it runs the kernel at
+several, the chunk rounds' two or quantized_matmul's 16, the mean per
+launch weighted by the serving loop's launches at each).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repo's ``src/repro_torch`` beside it, it exits 2 and prints
@@ -65,8 +93,14 @@ TOL = 1e-4               # fp32, TF32 off: max abs error kernel vs plain
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BUDGET_MB = 900                  # below gpt2_base's ~1.55 GiB of shards
+# below the quantized checkpoint (int8 ~391 MiB, int4 ~197 MiB) plus the
+# KV of 4 in flight (120 MiB), above its decode floor (~232 / ~176 MiB)
+QUANT_BUDGET_MB = {"int8": 300, "int4": 250}
+QUANT_ALLOC_SLACK = 48 * 2**20   # activations + allocator rounding (above)
+INT8_LOGIT_RTOL = 0.05           # docs/quantization.md
 TIE_GAP = 1e-4
 OVER_BUDGET = []                 # runs whose device allocator passed it
+WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
 
 
 def fail(msg: str) -> None:
@@ -308,7 +342,72 @@ def paged_cases(torch, ref, gen):
     ]
 
 
+def quant_shapes(cfg):
+    """Every (kind, M, K, N) the quant paths give quantized_matmul, with
+    its launches per decode round (kind "decode": M = the 4 in flight) or
+    per prefill (kind "prefill": M = the 128-token prompt, and M = 1 for
+    the head, which reads the last position only)."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    layer = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, cfg.d_ff),
+             (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.gated_mlp else [])
+    per_layer = {}
+    for kn in layer:
+        per_layer[kn] = per_layer.get(kn, 0) + cfg.num_layers
+    head = (d, cfg.padded_vocab)
+    out = []
+    for kind, m in (("decode", MAIN["max_inflight"]),
+                    ("prefill", MAIN["prompt_len"])):
+        out += [(kind, m, k, n, c) for (k, n), c in per_layer.items()]
+        out.append((kind, m if kind == "decode" else 1) + head + (1,))
+    return out
+
+
+def linears_per_pass(cfg) -> int:
+    """quantized_matmul launches per pass of the model: every linear of
+    every layer, and the head's."""
+    return sum(c for kind, *_, c in quant_shapes(cfg) if kind == "decode")
+
+
+def quant_case(torch, ref, gen, kind, m, k, n, count, bits):
+    """quantized_matmul at one shape against its plain version.  Library:
+    ``torch.matmul`` on the weight dequantized to fp32 beforehand (not
+    timed).  Bound: bytes of x, the quantized weight, the scales and the
+    output, or 2 M K N fp32 flops."""
+    from repro_torch.kernels import quant_matmul as qm
+    dev = "cuda"
+    x = torch.randn((m, k), generator=gen, device=dev)
+    rows = k if bits == 8 else (k + 1) // 2
+    if bits == 8:
+        w_q = torch.randint(-127, 128, (rows, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+    else:
+        w_q = torch.randint(0, 256, (rows, n), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    scale = torch.rand((n,), generator=gen, device=dev) / 64
+    run = lambda: qm.quant_matmul(x, w_q, scale, bits)  # noqa: E731
+    plain = lambda: ref.quant_matmul_ref(x, w_q, scale,  # noqa: E731
+                                         bits=bits)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    limit = TOL * want.abs().max().item()
+    ms = time_ms(torch, run)
+    plain_ms = time_ms(torch, plain)
+    w_deq = ref.dequant_ref(w_q, scale, bits=bits)[:k].contiguous()
+    lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
+    del w_deq
+    nbytes = 4 * (x.numel() + n + m * n) + w_q.numel()
+    b_ms, b_by = bound(nbytes, 2 * m * k * n)
+    return dict(kernel="quantized_matmul", bits=bits, kind=kind,
+                count=count, case=f"main path {kind} M={m} K={k} N={n} "
+                f"int{bits}", max_abs_err=err, limit=limit, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def phase_kernels(torch):
+    from repro_torch.configs import get
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
@@ -338,15 +437,17 @@ def phase_kernels(torch):
                        "window=32 (fully masked rows)", 1, 100, 16, 1, 64,
                        window=32, sk=50),
     ] + paged_cases(torch, ref, gen)
+    cases += [quant_case(torch, ref, gen, *shape, bits)
+              for bits in (8, 4) for shape in quant_shapes(get("gpt2_base"))]
     for c in cases:
         line = (f"  {c['kernel']:<16} {c['case']:<44} max_abs_err "
-                f"{c['max_abs_err']:.3e} (tol {TOL:g})")
+                f"{c['max_abs_err']:.3e} (tol {c.get('limit', TOL):.3g})")
         if "ms" in c:
             line += (f"  kernel_ms {c['ms']:.5f} plain_ms "
                      f"{c['plain_ms']:.5f} library_ms {c['library_ms']:.5f}"
                      f" bound_ms {c['bound_ms']:.5f} ({c['bound_by']})")
         print(line, flush=True)
-    bad = [c for c in cases if not c["max_abs_err"] <= TOL]
+    bad = [c for c in cases if not c["max_abs_err"] <= c.get("limit", TOL)]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return cases
@@ -361,10 +462,10 @@ PAGED = dict(page_size=16, shared_prefix=96)
 CHUNKED = dict(PAGED, requests=4, new_tokens=16, chunk_prefill=64)
 
 
-def serve(attn_impl, **kw):
+def serve(attn_impl, budget_mb, **kw):
     from repro_torch.launch import serve as serve_mod
     args = dict(MAIN, **kw)
-    return serve_mod.run("gpt2_base", budget_mb=BUDGET_MB, reduced=False,
+    return serve_mod.run("gpt2_base", budget_mb=budget_mb, reduced=False,
                          device="cuda", ckpt_root=CKPT_ROOT,
                          attn_impl=attn_impl, **args)
 
@@ -381,29 +482,37 @@ def check_outputs(outs, vocab: int, requests: int, total: int) -> None:
             fail(f"req{rid}: token ids outside [0, {vocab})")
 
 
-def tie_gap(torch, cfg, prefix) -> float:
+def ckpt_dir(cfg, quant: str = "fp32") -> Path:
+    """The checkpoint a path serves: phase 3's, or its ``quant`` sibling
+    (``Hermes.quantized``)."""
+    return CKPT_ROOT / (cfg.name if quant == "fp32"
+                        else f"{cfg.name}-{quant}")
+
+
+def tie_gap(torch, cfg, prefix, quant: str = "fp32") -> float:
     """Top-2 logit gap of the plain path's next-token logits after
     ``prefix`` (a full re-prefill of the prefix)."""
     from repro_torch.core import PipeloadEngine
-    ckpt = CKPT_ROOT / cfg.name
-    with PipeloadEngine(ckpt, cfg, mode="pipeload", num_agents=4,
+    with PipeloadEngine(ckpt_dir(cfg, quant), cfg, mode="pipeload",
+                        num_agents=4,
                         attn_impl=None) as eng:
         logits, _ = eng.run_single([list(map(int, prefix))])
     top2 = torch.topk(logits[0], 2).values
     return float(top2[0] - top2[1])
 
 
-def same_tokens(torch, cfg, outs, other, what: str, n: int = 0) -> str:
+def same_tokens(torch, cfg, outs, other, what: str, n: int = 0,
+                quant: str = "fp32") -> str:
     """Fail unless every request that both runs served has the same tokens
     (the first ``n``, or all), or tokens that first differ at a tie (top-2
-    gap below TIE_GAP)."""
+    gap below TIE_GAP on the ``quant`` checkpoint)."""
     ties = 0
     for rid in sorted(set(outs) & set(other)):
         toks = list(outs[rid][:n or len(outs[rid])])
         ref_toks = list(other[rid][:len(toks)])
         diff = [i for i in range(len(toks)) if toks[i] != ref_toks[i]]
         if diff:
-            gap = tie_gap(torch, cfg, toks[:diff[0]])
+            gap = tie_gap(torch, cfg, toks[:diff[0]], quant)
             print(f"{what}: req{rid} tokens differ first at {diff[0]}; "
                   f"plain top-2 logit gap there {gap:.3e}", flush=True)
             if gap >= TIE_GAP:
@@ -415,16 +524,12 @@ def same_tokens(torch, cfg, outs, other, what: str, n: int = 0) -> str:
     return verdict
 
 
-def expected_serve_launches(stats, n_layers: int, n_chunks: int = 0
-                            ) -> dict:
-    """Launches the serving loop must make, from its policy log: one
-    decode launch (flash_decode, or paged_flash_decode in paged mode) per
-    layer per round with a decoder in flight; one flash_attention per
-    layer per monolithic prefill; with chunked prefill, one
-    paged_flash_verify per layer per round with a chunker (a request
-    admitted at round a chunks in rounds a..a+n_chunks-1, then decodes;
-    a monolithic one decodes from a+1; a preempted one stops decoding at
-    its preemption round and a retired one after its retirement round)."""
+def serve_rounds(stats, n_chunks: int = 0):
+    """(decode rounds, chunk rounds, monolithic prefills) of a serving
+    loop, from its policy log: a request admitted at round a chunks in
+    rounds a..a+n_chunks-1, then decodes; a monolithic one decodes from
+    a+1; a preempted one stops decoding at its preemption round and a
+    retired one after its retirement round."""
     decode_rounds, chunk_rounds, prefills, start = set(), set(), 0, {}
     for kind, rid, r, _ in stats.policy:
         if kind == "admit":
@@ -441,15 +546,32 @@ def expected_serve_launches(stats, n_layers: int, n_chunks: int = 0
             decode_rounds.update(range(start.pop(rid), r))
         elif kind == "retire":
             decode_rounds.update(range(start.pop(rid), r + 1))
+    return decode_rounds, chunk_rounds, prefills
+
+
+def expected_serve_launches(stats, cfg, n_chunks: int = 0,
+                            quant: str = "fp32") -> dict:
+    """Launches the serving loop must make: one decode launch
+    (flash_decode, or paged_flash_decode in paged mode) per layer per
+    round with a decoder in flight; one flash_attention per layer per
+    monolithic prefill; with chunked prefill, one paged_flash_verify per
+    layer per round with a chunker; on quantized shards, one
+    quantized_matmul per linear per pass (decode round, chunk round or
+    prefill), the head's included."""
+    decode_rounds, chunk_rounds, prefills = serve_rounds(stats, n_chunks)
+    n_layers = cfg.num_layers
     want = dict.fromkeys(stats.kernel_launches, 0)
     want["paged_flash_decode" if stats.page_size else "flash_decode"] = (
         n_layers * len(decode_rounds))
     want["flash_attention"] = n_layers * prefills
     want["paged_flash_verify"] = n_layers * len(chunk_rounds)
+    if quant != "fp32":
+        want["quantized_matmul"] = linears_per_pass(cfg) * (
+            len(decode_rounds) + len(chunk_rounds) + prefills)
     return want
 
 
-def time_split(stats, cfg) -> str:
+def time_split(stats, cfg, quant: str = "fp32") -> str:
     """Where the main path's wall time went, from the run's own event
     log (loads are summed over the Loading Agents, which overlap) and the
     Layer Profiler's per-layer medians."""
@@ -460,7 +582,7 @@ def time_split(stats, cfg) -> str:
                for s, e in zip(st, spans[("load_end", key)]))
     comp = sum(e - s for (k, key), st in spans.items() if k == "comp_start"
                for s, e in zip(st, spans[("comp_end", key)]))
-    prof = json.loads((CKPT_ROOT / cfg.name /
+    prof = json.loads((ckpt_dir(cfg, quant) /
                        "profile_torch_cuda.json").read_text())
     return (f"time split: wall {stats.latency_s:.3f}s over {stats.rounds} "
             f"rounds; shard loads {load:.3f}s summed over agents; layer "
@@ -470,41 +592,87 @@ def time_split(stats, cfg) -> str:
             f"{prof['layer_t_decode'] * 1e3:.3f}ms")
 
 
-def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0, **kw):
+def watch_widening() -> None:
+    """Count every call that widens a quantized weight to fp32 on the card
+    (the plain versions' ``ref.dequant_ref`` and
+    ``QuantizedTensor.dequantize``) in ``WIDENED``: the kernels' path
+    must make none."""
+    from repro_torch.checkpoint.quant import QuantizedTensor
+    from repro_torch.kernels import ref
+    dequant_ref, dequantize = ref.dequant_ref, QuantizedTensor.dequantize
+
+    def counted_dequant_ref(w_q, scale, **kw):
+        WIDENED["cuda"] += w_q.is_cuda
+        return dequant_ref(w_q, scale, **kw)
+
+    def counted_dequantize(self):
+        WIDENED["cuda"] += self.q.is_cuda
+        return dequantize(self)
+
+    ref.dequant_ref = counted_dequant_ref
+    QuantizedTensor.dequantize = counted_dequantize
+
+
+def largest_weight_fp32_bytes(cfg) -> int:
+    return 4 * max(k * n for *_, k, n, _c in quant_shapes(cfg))
+
+
+def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
+             quant: str = "fp32", budget_mb: float = BUDGET_MB, **kw):
     """Serve one main path with every launch count set to 0 just before
     and read just after; check the serving loop's launches exactly and
     the outputs' shape.  Returns (outs, stats, serve.run launches)."""
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    widened0 = WIDENED["cuda"]
     t0 = time.perf_counter()
-    outs, stats = serve(attn_impl, **kw)
+    outs, stats = serve(attn_impl, budget_mb, quant=quant, **kw)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    widened = WIDENED["cuda"] - widened0
+    if quant != "fp32":
+        print(f"{label}: quantized weights widened to fp32 on the card: "
+              f"{widened} times", flush=True)
+        if (widened > 0) != (attn_impl is None):
+            fail(f"{label}: {widened} fp32 widenings of quantized weights "
+                 f"(the kernels must make none, the plain versions some)")
     alloc_peak = torch.cuda.max_memory_allocated()
     args = dict(MAIN, **kw)
     check_outputs(outs, cfg.padded_vocab, args["requests"],
                   args["prompt_len"] + args["new_tokens"])
-    if stats.peak_bytes > BUDGET_MB * 2**20:
+    budget = int(budget_mb * 2**20)
+    if stats.peak_bytes > budget:
         fail(f"{label}: ledger peak {stats.peak_bytes} above the budget")
     # the paged pools hold the mapped high-water mark of rows while the
     # ledger charges mapped pages only: rows on the free list (a retired
     # wave's) are device memory outside it, at most the pool's own bytes
-    limit = BUDGET_MB * 2**20 + (stats.cache_bytes_peak if stats.page_size
-                                 else 0)
+    limit = budget + (stats.cache_bytes_peak if stats.page_size else 0)
+    what = "the budget" + (" plus the paged pool's bytes"
+                           if stats.page_size else "")
+    if quant != "fp32" and attn_impl is None:
+        limit += 3 * largest_weight_fp32_bytes(cfg)
+        what += " plus 3x the largest weight's fp32 bytes (plain versions)"
+    elif quant != "fp32":
+        # the planner fills the budget with ledger bytes; beside them sit
+        # a prefill's activations and the caching allocator's rounding
+        limit = stats.peak_bytes + QUANT_ALLOC_SLACK
+        what = "the ledger peak plus 48 MiB"
     if alloc_peak > limit:
         # checked at the end, so the later paths still report
         how = "plain" if attn_impl is None else "kernels"
         OVER_BUDGET.append(f"{label} ({how}): torch.cuda.max_memory_"
-                           f"allocated {alloc_peak} above {limit} (the "
-                           f"budget plus the paged pool's bytes)")
+                           f"allocated {alloc_peak} above {limit} "
+                           f"({what})")
     if attn_impl is None:
         if any(launches.values()):
             fail(f"{label}: attn_impl=None launched kernels: {launches}")
         print(f"{label}: plain versions, rounds {stats.rounds}, "
-              f"{stats.tokens_per_s:.3f} tok/s, torch.cuda.max_memory_"
-              f"allocated {alloc_peak}, serve.run {wall:.1f}s", flush=True)
+              f"{stats.tokens_per_s:.3f} tok/s, ledger peak "
+              f"{stats.peak_bytes}, torch.cuda.max_memory_allocated "
+              f"{alloc_peak} (limit {limit}), serve.run {wall:.1f}s",
+              flush=True)
         return outs, stats, launches
-    want = expected_serve_launches(stats, cfg.num_layers, n_chunks)
+    want = expected_serve_launches(stats, cfg, n_chunks, quant)
     print(f"{label}: kernel launches: serve.run {json.dumps(launches)} "
           f"(profiling and warm-up included); serving loop "
           f"{json.dumps(stats.kernel_launches)}, expected "
@@ -514,12 +682,11 @@ def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0, **kw):
              f"{want}")
     print(f"{label}: rounds {stats.rounds}, {stats.tokens_per_s:.3f} tok/s "
           f"aggregate, ledger peak {stats.peak_bytes} bytes (budget "
-          f"{BUDGET_MB * 2**20}), breakdown "
-          f"{json.dumps(stats.peak_breakdown)}, "
-          f"torch.cuda.max_memory_allocated {alloc_peak}, shard loads "
-          f"{stats.loads}, streamed {stats.streamed_bytes / 2**20:.1f} MB, "
-          f"serve.run {wall:.1f}s", flush=True)
-    print(f"{label}: {time_split(stats, cfg)}", flush=True)
+          f"{budget}), breakdown {json.dumps(stats.peak_breakdown)}, "
+          f"torch.cuda.max_memory_allocated {alloc_peak} (limit {limit}: "
+          f"{what}), shard loads {stats.loads}, streamed "
+          f"{stats.streamed_bytes} B, serve.run {wall:.1f}s", flush=True)
+    print(f"{label}: {time_split(stats, cfg, quant)}", flush=True)
     return outs, stats, launches
 
 
@@ -538,6 +705,8 @@ def phase_main(torch, ops):
     outs, stats, launches = run_path(torch, ops, cfg, "dense", "auto")
     if not (launches["flash_decode"] and launches["flash_attention"]):
         fail(f"a kernel of the dense path never launched: {launches}")
+    if launches["quantized_matmul"]:
+        fail(f"fp32 shards launched quantized_matmul: {launches}")
     # the first wave only: the script's time limit is shared by every path
     outs_plain, _, _ = run_path(torch, ops, cfg, "dense", None,
                                 requests=MAIN["max_inflight"])
@@ -564,7 +733,9 @@ def phase_paged(torch, ops, cfg, dense_stats):
           f"{stats.pool_pages_peak} pages; kv_pages at the ledger peak "
           f"{stats.peak_breakdown.get('kv_pages', 0)} B (dense phase "
           f"{dense_stats.peak_breakdown.get('kv_pages', 0)} B)", flush=True)
-    outs_plain, _, _ = run_path(torch, ops, cfg, "paged", None, **PAGED)
+    # the first wave only, as in the dense phase
+    outs_plain, _, _ = run_path(torch, ops, cfg, "paged", None,
+                                **dict(PAGED, requests=MAIN["max_inflight"]))
     same_tokens(torch, cfg, outs, outs_plain, "paged kernel vs plain "
                 "greedy tokens")
     return outs, launches, stats
@@ -590,6 +761,86 @@ def phase_chunked(torch, ops, cfg, paged_outs):
     same_tokens(torch, cfg, outs, paged_outs, "chunked vs paged greedy "
                 "tokens", n=n + CHUNKED["new_tokens"])
     return launches, stats
+
+
+def last_logits(torch, cfg, quant: str, prompt):
+    """One prompt's last-token logits through the kernels."""
+    from repro_torch.core import PipeloadEngine
+    with PipeloadEngine(ckpt_dir(cfg, quant), cfg, mode="pipeload",
+                        num_agents=4) as eng:
+        logits, _ = eng.run_single([prompt])
+    return logits[0]
+
+
+def phase_quant(torch, ops, cfg, quant: str, fp32_logits, prompt):
+    """Phases 8-9: the dense path on ``quant`` shards, kernels then plain,
+    and the logit error against the fp32 checkpoint."""
+    from repro_torch.checkpoint import load_manifest
+    budget_mb = QUANT_BUDGET_MB[quant]
+    budget = int(budget_mb * 2**20)
+    outs, stats, launches = run_path(torch, ops, cfg, quant, "auto",
+                                     quant=quant, budget_mb=budget_mb)
+    man = load_manifest(ckpt_dir(cfg, quant))
+    sizes = {s["name"]: s["bytes"] for s in man["shards"]}
+    kv = MAIN["max_inflight"] * cfg.num_layers * cfg.cache_bytes(
+        1, MAIN["prompt_len"] + MAIN["new_tokens"])
+    print(f"{quant}: manifest total {man['total_bytes']} B (layers "
+          f"{man['layer_bytes']}, per layer "
+          f"{man['layer_bytes'] // cfg.num_layers}), fp32 "
+          f"{sum(s['fp_bytes'] for s in man['shards'])} B; KV for "
+          f"{MAIN['max_inflight']} in flight {kv} B; budget {budget} B",
+          flush=True)
+    if man["quant"] != quant or budget >= man["total_bytes"] + kv:
+        fail(f"{quant}: the budget must sit below the {quant} checkpoint "
+             f"plus its KV, so layers stream")
+    if stats.loads <= len(sizes):
+        fail(f"{quant}: {stats.loads} shard loads: layers did not stream")
+    loaded = sum(sizes[key] for _, kind, key in stats.events
+                 if kind == "load_end")
+    if stats.streamed_bytes != loaded:
+        fail(f"{quant}: streamed_bytes {stats.streamed_bytes} != the "
+             f"{quant} manifest bytes of the loads {loaded}")
+    if not launches["quantized_matmul"]:
+        fail(f"{quant}: quantized_matmul never launched: {launches}")
+    outs_plain, _, _ = run_path(torch, ops, cfg, quant, None, quant=quant,
+                                budget_mb=budget_mb,
+                                requests=MAIN["max_inflight"])
+    same_tokens(torch, cfg, outs, outs_plain, f"{quant} kernel vs plain "
+                "greedy tokens", quant=quant)
+    logits = last_logits(torch, cfg, quant, prompt)
+    rel = ((logits - fp32_logits).abs().max()
+           / fp32_logits.abs().max()).item()
+    if quant == "int8":
+        print(f"{quant}: last-token logits vs fp32: max |delta| / max "
+              f"|fp32| = {rel:.5f} (limit {INT8_LOGIT_RTOL})", flush=True)
+        if not rel <= INT8_LOGIT_RTOL:
+            fail(f"{quant}: logit error {rel} above {INT8_LOGIT_RTOL}")
+    else:
+        print(f"{quant}: last-token logits vs fp32: max |delta| / max "
+              f"|fp32| = {rel:.5f} (no limit)", flush=True)
+    return launches, stats
+
+
+def quant_row(cases, quant_runs):
+    """quantized_matmul's numbers for the kernels line: the mean per
+    launch over the quant paths' serving loops, each shape weighted by
+    its launches there (per decode round or per prefill, times their
+    count in that path)."""
+    weights = {}
+    for bits, stats in quant_runs.items():
+        decode_rounds, _, prefills = serve_rounds(stats)
+        weights[bits] = {"decode": len(decode_rounds), "prefill": prefills}
+    mains = [c for c in cases if c["kernel"] == "quantized_matmul"]
+    w = [c["count"] * weights[c["bits"]][c["kind"]] for c in mains]
+    mean = lambda key: (sum(wi * c[key] for wi, c in zip(w, mains))  # noqa
+                        / sum(w))
+    row = {k: mean(k) for k in ("ms", "plain_ms", "library_ms",
+                                "bound_ms")}
+    row["bound_by"] = max(zip(w, mains),
+                          key=lambda p: p[0] * p[1]["bound_ms"])[1][
+                              "bound_by"]
+    row["max_abs_err"] = max(c["max_abs_err"] for c in mains)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +884,18 @@ def main() -> int:
                                                           dense_stats)
     chunk_launches, chunk_stats = phase_chunked(torch, ops, cfg, paged_outs)
 
+    # ---- phases 8-9: the quant paths
+    import numpy as np
+    watch_widening()
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MAIN["prompt_len"]).tolist()
+    fp32_logits = last_logits(torch, cfg, "fp32", prompt)
+    quant_launches, quant_stats = {}, {}
+    for quant in ("int8", "int4"):
+        bits = 8 if quant == "int8" else 4
+        quant_launches[bits], quant_stats[bits] = phase_quant(
+            torch, ops, cfg, quant, fp32_logits, prompt)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -669,6 +932,16 @@ def main() -> int:
             "bound_ms": mean("bound_ms"),
             "bound_by": max(mains, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": mean("library_ms")})
+    # quantized_matmul: launches from both quant paths
+    kernels.append(dict(
+        name="quantized_matmul", route="cuda",
+        source=csrc + "quant_matmul.cu",
+        replaces="src/repro/kernels/streamed_matmul.py:101",
+        launches=sum(ln["quantized_matmul"]
+                     for ln in quant_launches.values()),
+        serve_launches=sum(st.kernel_launches["quantized_matmul"]
+                           for st in quant_stats.values()),
+        **quant_row(cases, quant_stats)))
     print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi)

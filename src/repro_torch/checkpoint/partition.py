@@ -15,17 +15,27 @@ Weights keep the reference's ``(in, out)`` layout, so every manifest
 
 The writer is numpy-only: it needs no model framework at all, which is
 what lets a checkpoint be written on a machine that has only the port.
-Full-precision shards only; a quantized manifest raises.
+
+``quant="int8" | "int4"`` writes per-channel-scaled integer shards
+(``checkpoint/quant.py``): 2-D matmul weights are stored as integer
+payload + f32 scales, 1-D params keep the checkpoint dtype, and every
+manifest ``bytes`` figure is the *quantized* size, so the planner, the
+engine's ledger and the KV decode floor shrink without opening a shard.
+``requantize``/``ensure_quantized`` transcode a full-precision
+checkpoint shard by shard.  ``load_shard`` restores quantized arrays as
+``QuantizedTensor`` leaves.  Expert-split (MoE) manifests raise: that
+slice is not ported.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import quant as qz
 from repro_torch.models.config import DENSE, ModelConfig
 
 # Families this partitioner (and the port's engine) understand.
@@ -71,16 +81,34 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
-                kind: str, index: int, dtype: str) -> dict:
-    np.savez(path / f"{name}.npz", **flat)
-    nbytes = int(sum(a.nbytes for a in flat.values()))
-    return {"name": name, "kind": kind, "index": index, "bytes": nbytes,
-            "dtype": dtype}
+                kind: str, index: int, quant: Optional[str],
+                base_dtype: str) -> dict:
+    """Write one (possibly quantized) shard and return its manifest row;
+    ``bytes`` counts every stored array, ``__meta__``/``__dtype__``
+    entries included, as the reference does."""
+    fp_bytes = int(sum(a.nbytes for a in flat.values()))
+    stored = qz.quantize_flat(flat, quant)
+    np.savez(path / f"{name}.npz", **stored)
+    nbytes = int(sum(np.asarray(a).nbytes for a in stored.values()))
+    row = {"name": name, "kind": kind, "index": index, "bytes": nbytes,
+           "dtype": quant or base_dtype}
+    if quant:
+        row["fp_bytes"] = fp_bytes
+        row["scale_bytes"] = int(sum(
+            np.asarray(a).nbytes for k, a in stored.items()
+            if k.endswith(".__scale__")))
+        row["n_quantized"] = sum(1 for k in stored if k.endswith(".__q__"))
+    return row
 
 
-def partition_and_save(params: dict, cfg: ModelConfig, path) -> dict:
+def partition_and_save(params: dict, cfg: ModelConfig, path, *,
+                       quant: Optional[str] = None) -> dict:
     """Split a dense param tree (stacked ``layers``, leading dim L) into
-    shards.  Leaves may be numpy arrays or torch tensors."""
+    shards.  Leaves may be numpy arrays or torch tensors.  ``quant`` in
+    {None, "int8", "int4"} selects the shard precision."""
+    if quant is not None and quant not in qz.QUANT_SCHEMES:
+        raise ValueError(f"unknown quant {quant!r}; choose from "
+                         f"{sorted(qz.QUANT_SCHEMES)}")
     if cfg.family not in PARTITION_FAMILIES:
         raise _not_ported(f"partitioning model family '{cfg.family}' "
                           f"({cfg.name})")
@@ -90,7 +118,7 @@ def partition_and_save(params: dict, cfg: ModelConfig, path) -> dict:
 
     def save(name: str, tree: dict, kind: str, index: int = -1):
         shards.append(_save_shard(path, name, _flatten(tree), kind, index,
-                                  cfg.dtype))
+                                  quant, cfg.dtype))
 
     save("embed", {"embed": params["embed"]}, "embed")
     stacked = params["layers"]
@@ -101,24 +129,77 @@ def partition_and_save(params: dict, cfg: ModelConfig, path) -> dict:
         head_tree["lm_head"] = params["lm_head"]
     save("head", head_tree, "head")
 
+    manifest = _build_manifest(cfg.name, cfg.num_layers, cfg.dtype, shards,
+                               quant)
+    (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    return manifest
+
+
+def _build_manifest(model: str, num_layers: int, dtype: str,
+                    shards: List[dict], quant: Optional[str]) -> dict:
     manifest = {
-        "model": cfg.name,
-        "num_layers": cfg.num_layers,
-        "dtype": cfg.dtype,
-        "quant": None,
+        "model": model,
+        "num_layers": num_layers,
+        "dtype": dtype,
+        "quant": quant,
         "shards": shards,
         "total_bytes": int(sum(s["bytes"] for s in shards)),
         "layer_bytes": int(sum(s["bytes"] for s in shards
                                if s["kind"] == "layer")),
     }
-    (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    if quant:
+        manifest["quant_scheme"] = qz.SCHEME
+        manifest["quant_bits"] = qz.QUANT_SCHEMES[quant][0]
     return manifest
+
+
+def requantize(src, dst, quant: str) -> dict:
+    """Re-write a full-precision partitioned checkpoint as quantized
+    shards, one shard at a time (peak host memory = one shard).  The
+    manifest records the source's byte total so ``ensure_quantized`` can
+    detect a stale transcode."""
+    if quant not in qz.QUANT_SCHEMES:
+        raise ValueError(f"unknown quant {quant!r}; choose from "
+                         f"{sorted(qz.QUANT_SCHEMES)}")
+    src, dst = Path(src), Path(dst)
+    src_man = load_manifest(src)
+    if src_man.get("quant"):
+        raise ValueError(
+            f"requantize needs a full-precision source checkpoint; "
+            f"{src} is already {src_man['quant']}")
+    dst.mkdir(parents=True, exist_ok=True)
+    shards = []
+    for s in src_man["shards"]:
+        with np.load(src / f"{s['name']}.npz") as z:
+            flat = {k: z[k] for k in z.files}
+        shards.append(_save_shard(dst, s["name"], flat, s["kind"],
+                                  s["index"], quant, src_man["dtype"]))
+    manifest = _build_manifest(src_man["model"], src_man["num_layers"],
+                               src_man["dtype"], shards, quant)
+    manifest["source_total_bytes"] = src_man["total_bytes"]
+    (dst / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    return manifest
+
+
+def ensure_quantized(src, dst, quant: str) -> Path:
+    """Transcode ``src`` into quantized shards at ``dst`` unless a CURRENT
+    transcode already sits there: the existing manifest carries the right
+    ``quant`` tag and the source's byte total.  Without the check, a
+    source re-partitioned in place would leave derived shards serving
+    the old weights."""
+    src, dst = Path(src), Path(dst)
+    if (dst / "manifest.json").exists():
+        dst_man = load_manifest(dst)
+        if (dst_man.get("quant") == quant
+                and dst_man.get("source_total_bytes")
+                == load_manifest(src)["total_bytes"]):
+            return dst
+    requantize(src, dst, quant)
+    return dst
 
 
 def load_manifest(path) -> dict:
     manifest = json.loads((Path(path) / "manifest.json").read_text())
-    if manifest.get("quant"):
-        raise _not_ported(f"quantized checkpoints ({manifest['quant']})")
     if manifest.get("expert_split"):
         raise _not_ported("expert-split MoE checkpoints")
     return manifest
@@ -129,10 +210,11 @@ def shard_names(manifest: dict) -> List[str]:
 
 
 def load_shard(path, name: str) -> dict:
-    """Real disk read -> nested dict of numpy arrays."""
+    """Real disk read -> nested dict of numpy arrays (quantized entries
+    come back as QuantizedTensor leaves on the CPU)."""
     with np.load(Path(path) / f"{name}.npz") as z:
         flat = {k: z[k] for k in z.files}   # forces the read
-    return _unflatten(flat)
+    return qz.restore_tree(_unflatten(flat))
 
 
 def from_jax_params(tree, device="cuda") -> dict:

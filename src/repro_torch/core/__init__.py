@@ -1,6 +1,6 @@
 """Hermes core, PyTorch port: the slices ported so far (dense and paged
-continuous batching, chunked prefill).  Only what is ported is exported
-here."""
+continuous batching, chunked prefill, quantized weight streaming).  Only
+what is ported is exported here."""
 from repro_torch.core.engine import MODES, PipeloadEngine, RunStats  # noqa: F401
 from repro_torch.core.hermes import Hermes  # noqa: F401
 from repro_torch.core.planner import (GenPlanEntry, PlanEntry,  # noqa: F401

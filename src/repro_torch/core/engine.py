@@ -24,6 +24,12 @@ The ledger counts manifest bytes, so its peaks equal the reference's to
 the byte at equal schedules; the device allocator's own peak
 (``torch.cuda.max_memory_allocated``) is a separate, measured number.
 
+Quantized checkpoints (int8/int4 shards, ``checkpoint/quant.py``) flow
+through unchanged: manifest bytes are the quantized sizes, so the ledger,
+``S_stop``, the KV decode floor and ``streamed_bytes`` all shrink, and
+``QuantizedTensor`` leaves move disk -> pinned host -> device like any
+other leaf and stay quantized on the device.
+
 ``page_size`` charges the single-request KV cache page by page as decode
 reaches new positions (``core/kv_pages.py``), and ``run_batch_round``
 serves the scheduler's paged pools and chunked-prefill windows.
@@ -45,6 +51,7 @@ import torch
 
 from repro_torch.checkpoint.partition import (load_manifest, load_shard,
                                               tree_map)
+from repro_torch.checkpoint.quant import as_tensor
 from repro_torch.core import telemetry as _tele
 from repro_torch.core.kv_pages import pages_for
 from repro_torch.core.modules import build_module_fns
@@ -90,7 +97,7 @@ class RunStats:
     peak_bytes: int
     events: List[Tuple[float, str, str]]
     loads: int = 0
-    streamed_bytes: int = 0   # disk bytes read
+    streamed_bytes: int = 0   # disk bytes read (quantized shards shrink it)
     # generation extras (0 for single-pass runs)
     new_tokens: int = 0
     prefill_s: float = 0.0
@@ -387,13 +394,15 @@ class PipeloadEngine:
     def _load(self, name: str) -> dict:
         """Disk -> host -> device ("memory" tier).  On CUDA the copy runs
         from pinned memory on this loader thread's own stream and is
-        complete before the shard is returned (and so published)."""
-        host = load_shard(self.dir, name)
+        complete before the shard is returned (and so published).
+        QuantizedTensor leaves move their payload and scales the same
+        way."""
+        host = tree_map(as_tensor, load_shard(self.dir, name))
         if self.device.type != "cuda":
-            return tree_map(torch.from_numpy, host)
+            return host
         stream = self._side_stream()
         with torch.cuda.stream(stream):
-            dev = tree_map(lambda a: torch.from_numpy(a).pin_memory().to(
+            dev = tree_map(lambda a: a.pin_memory().to(
                 self.device, non_blocking=True), host)
         stream.synchronize()
         # allocated on the side stream, read on the compute stream: the

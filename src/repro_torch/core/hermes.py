@@ -1,11 +1,14 @@
 """Hermes framework facade (paper §IV): Layer Profiler -> Pipeline Planner
 -> Execution Engine, wired together.  PyTorch port of
-``repro/core/hermes.py`` (full-precision checkpoints).
+``repro/core/hermes.py``.
 
     hermes = Hermes(ckpt_dir, cfg, device="cuda")
     profile = hermes.profile()                  # §IV-1
     schedule = hermes.plan([b1, b2, None])      # §IV-2
     sched = hermes.scheduler(budget_bytes=b1)   # continuous batching
+    h8 = hermes.quantized("int8")               # sibling int8 checkpoint
+    g = hermes.plan_generate([b1], quants=("fp32", "int8", "int4"))[0]
+    engine = hermes.quantized(g.dtype).engine(...)   # g.dtype = winner
 
 The profile is cached in the checkpoint directory as
 ``profile_torch_<device>.json``, so it never collides with the JAX
@@ -17,6 +20,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+from repro_torch.checkpoint.partition import ensure_quantized
 from repro_torch.core.engine import PipeloadEngine, resolve_device
 from repro_torch.core.planner import (GenPlanEntry, PlanEntry, plan,
                                       plan_generate)
@@ -34,6 +38,7 @@ class Hermes:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._profile: Optional[Dict] = None
+        self._variants: Dict[str, "Hermes"] = {}
 
     # ---- Layer Profiler ------------------------------------------------
     def profile_path(self) -> Path:
@@ -52,17 +57,30 @@ class Hermes:
         save_profile(self._profile, cache)
         return self._profile
 
+    # ---- Quantized checkpoint variants ---------------------------------
+    def quantized(self, quant: Optional[str]) -> "Hermes":
+        """Hermes over the ``quant`` variant of this checkpoint.  The
+        sibling directory ``<dir>-<quant>`` is transcoded once and reused,
+        with its own cached profile, and transcoded again if the source
+        changed underneath it (``checkpoint.ensure_quantized``)."""
+        if quant in (None, FP_LABEL):
+            return self
+        if quant not in self._variants:
+            dst = self.dir.parent / f"{self.dir.name}-{quant}"
+            ensure_quantized(self.dir, dst, quant)
+            self._variants[quant] = Hermes(dst, self.cfg,
+                                           device=self.device)
+        return self._variants[quant]
+
     def _profiles(self, quants: Optional[Sequence[Optional[str]]]):
         """The profile argument the planner takes: one profile, or
-        ``{dtype: profile}`` when a dtype search was asked for (only the
-        checkpoint's own precision is ported)."""
+        ``{dtype: profile}`` (one Layer Profiler run per shard dtype, each
+        on its own checkpoint variant, all at the profiler's default
+        shape) when a dtype search was asked for."""
         if quants is None:
             return self.profile()
         labels = [q or FP_LABEL for q in quants]
-        if any(lb != FP_LABEL for lb in labels):
-            raise NotImplementedError("quantized shard streaming is not yet "
-                                      "ported in repro_torch")
-        return {FP_LABEL: self.profile()}
+        return {lb: self.quantized(lb).profile() for lb in labels}
 
     # ---- Pipeline Planner ----------------------------------------------
     def plan(self, budgets: List[Optional[int]],
@@ -89,7 +107,9 @@ class Hermes:
         also searches the continuous-batching in-flight count,
         ``page_sizes`` the paged KV reservations (``shared_prefix_len``
         leading prompt tokens shared across requests are charged once),
-        and ``chunk_prefill`` models chunk-joined prefill rounds."""
+        and ``chunk_prefill`` models chunk-joined prefill rounds;
+        ``quants`` widens the search over shard dtype (KV pages keep the
+        model dtype, so the cache bytes are shared)."""
         cb = self.cfg.cache_bytes(batch, prompt_len + new_tokens)
         return plan_generate(self._profiles(quants), budgets,
                              new_tokens=new_tokens,
@@ -126,7 +146,8 @@ class Hermes:
                   prefix_cache: bool = True,
                   seed: Optional[int] = None,
                   chunk_prefill: int = 0,
-                  attn_impl: Optional[str] = "auto"):
+                  attn_impl: Optional[str] = "auto",
+                  quants: Optional[Sequence[Optional[str]]] = None):
         """Continuous-batching serving facade: plan the (num_agents,
         pin_window, inflight) triple for the budget, build the engine and
         wrap it in a ``BatchScheduler`` ready for ``submit()``/``run()``.
@@ -135,14 +156,16 @@ class Hermes:
         (``shared_prefix_len`` models the workload's common prompt
         prefix, ``prefix_cache`` turns its sharing on) and the engine and
         scheduler take the winning page size; ``chunk_prefill`` (needs
-        ``page_sizes``) joins long prompts into decode rounds."""
+        ``page_sizes``) joins long prompts into decode rounds; ``quants``
+        widens the plan over shard dtype and the engine is built on the
+        winning checkpoint variant."""
         from repro_torch.core.scheduler import BatchScheduler
         if chunk_prefill and not page_sizes:
             raise ValueError("chunk_prefill requires page_sizes (chunk "
                              "rounds write through the paged KV kernel)")
         g = self.plan_generate([budget_bytes], prompt_len=prompt_len,
                                new_tokens=new_tokens,
-                               max_inflight=max_inflight,
+                               max_inflight=max_inflight, quants=quants,
                                page_sizes=page_sizes,
                                # sharing off -> every page is private; the
                                # plan must not assume prefix hits
@@ -156,7 +179,8 @@ class Hermes:
                 f"bytes ({g.cache_bytes} of KV cache at inflight="
                 f"{g.inflight}); raise the budget or shrink "
                 f"prompt/new_tokens")
-        eng = self.engine(mode="pipeload", budget_bytes=budget_bytes,
+        host = self.quantized(g.dtype) if quants is not None else self
+        eng = host.engine(mode="pipeload", budget_bytes=budget_bytes,
                           num_agents=(num_agents if num_agents is not None
                                       else g.num_agents),
                           pin_window=(pin_window if pin_window is not None

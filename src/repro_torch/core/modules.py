@@ -14,11 +14,18 @@ in two generation regimes:
     or W stacked tokens, per request) through block tables.
 
 Prefill attention runs the hand-written flash-attention kernel, decode
-attention the flash-decoding kernel and paged attention the paged decode
-and verify kernels (``attn_impl="auto"`` picks them for a CUDA device and
-their plain versions on the CPU; ``None`` asks for the plain versions on
-any device).  There is no jit: every call runs eagerly
-on the device its inputs live on.
+attention the flash-decoding kernel, paged attention the paged decode
+and verify kernels, and every linear layer of an int8/int4 shard the
+dequantizing matmul kernel (``attn_impl="auto"`` picks them for a CUDA
+device and their plain versions on the CPU; ``None`` asks for the plain
+versions on any device).  There is no jit: every call runs eagerly on the
+device its inputs live on.
+
+Quantized checkpoints arrive as weight trees whose 2-D matmul weights are
+``QuantizedTensor`` leaves, and stay so: the reference dequantizes whole
+trees inside its jit, the port multiplies by the quantized form
+(``common.linear``) and gathers embedding rows from it (``take_rows``), so
+no fp32 copy of a quantized weight is built.
 """
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint.quant import is_quantized
 from repro_torch.models.attention import KERNEL
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import linear, rms_norm
 from repro_torch.models.config import DENSE, ModelConfig
 from repro_torch.models.dense_lm import (check_dense, layer_decode,
                                          layer_decode_paged, layer_prefill,
@@ -84,7 +92,10 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
     impl = resolve_attn_impl(attn_impl, device)
 
     def embed_apply(weights, tokens):
-        return weights["embed"][tokens]
+        emb = weights["embed"]
+        if is_quantized(emb):
+            return emb.take_rows(tokens)
+        return emb[tokens]
 
     def layer_apply(weights, x):
         out, _ = layer_prefill(weights, x, cfg, _positions(x),
@@ -141,14 +152,14 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
     def head_apply(weights, x):
         h = rms_norm(x, weights["final_norm"], cfg.norm_eps)
         if "lm_head" in weights:
-            return (h[:, -1] @ weights["lm_head"]).float()
+            return linear(h[:, -1], weights["lm_head"], impl).float()
         return h[:, -1].float()
 
     def head_all_apply(weights, x):
         """Logits for EVERY stacked position (B, W, V)."""
         h = rms_norm(x, weights["final_norm"], cfg.norm_eps)
         if "lm_head" in weights:
-            return (h @ weights["lm_head"]).float()
+            return linear(h, weights["lm_head"], impl).float()
         return h.float()
 
     fns = {"embed": embed_apply, "layer": layer_apply,

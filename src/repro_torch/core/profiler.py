@@ -6,7 +6,10 @@ Loading Agents use), compute time, one-token decode time against a KV
 cache (feeds the generation-aware planner) and byte size.  Every timed
 region ends in a compute-stream synchronise, so ``t_comp``/``t_decode``
 measure the device work and not the kernel launches.  The profile feeds
-the Pipeline Planner.
+the Pipeline Planner.  On an int8/int4 checkpoint the shards are the
+quantized ones and the layers run the quantized matmul, so the timings
+are that variant's own; the profile's ``quant`` and per-shard ``dtype``
+tag it for the planner's dtype search.
 """
 from __future__ import annotations
 

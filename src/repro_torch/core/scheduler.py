@@ -601,9 +601,11 @@ class BatchScheduler:
             return
         idx = torch.as_tensor(keep, dtype=torch.long,
                               device=self.engine.device)
-        self._caches = {name: {k: a.index_select(0, idx)
-                               for k, a in c.items()}
-                        for name, c in self._caches.items()}
+        # layer by layer, so each layer's old rows are freed as soon as
+        # its kept rows are copied: the copy is never all layers at once
+        for name, c in self._caches.items():
+            self._caches[name] = {k: a.index_select(0, idx)
+                                  for k, a in c.items()}
 
     def _append_rows(self, new_caches: List[Dict[str, dict]]):
         stacks = ([self._caches] if self._caches is not None else []) \
@@ -613,9 +615,16 @@ class BatchScheduler:
         if len(stacks) == 1:
             self._caches = stacks[0]
             return
-        self._caches = {name: {k: torch.cat([s[name][k] for s in stacks])
-                               for k in stacks[0][name]}
-                        for name in stacks[0]}
+        # layer by layer, dropping each layer's old rows and prefill
+        # captures once merged: the merge holds at most one layer's cache
+        # twice, not the whole KV reservation
+        merged = {}
+        for name in list(stacks[0]):
+            merged[name] = {k: torch.cat([s[name][k] for s in stacks])
+                            for k in stacks[0][name]}
+            for s in stacks:
+                del s[name]
+        self._caches = merged
 
     def _first_token(self, req: Request) -> None:
         if req.generated == 0 and req.first_token_round < 0:

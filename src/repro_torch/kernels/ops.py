@@ -24,9 +24,11 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_partial)
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_verify)
+from repro_torch.kernels.quant_matmul import quant_matmul as _quant_matmul
 
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0,
-            "paged_flash_decode": 0, "paged_flash_verify": 0}
+            "paged_flash_decode": 0, "paged_flash_verify": 0,
+            "quantized_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -114,4 +116,15 @@ def paged_verify(q, k_pages, v_pages, tables, lengths):
         return ref.paged_verify_ref(q, k_pages, v_pages, tables, lengths)
     out = paged_flash_verify(q, k_pages, v_pages, tables, lengths)
     LAUNCHES["paged_flash_verify"] += 1
+    return out
+
+
+def quant_matmul(x, w_q, scale, bits: int = 8):
+    """x (M, K) @ (w_q dequantized, times ``scale`` per column) -> (M, N)
+    in x's dtype (``ops.quant_matmul``): w_q int8 (K, N) for ``bits=8``,
+    nibble-packed uint8 (ceil(K/2), N) for ``bits=4``; scale f32 (N,)."""
+    if not _on_cuda(x, w_q, scale):
+        return ref.quant_matmul_ref(x, w_q, scale, bits=bits)
+    out = _quant_matmul(x, w_q, scale, bits)
+    LAUNCHES["quantized_matmul"] += 1
     return out

@@ -153,3 +153,32 @@ def paged_verify_ref(q, k_pages, v_pages, tables, lengths):
                     torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bwkgs,bskd->bwkgd", p, v.float()).to(v_pages.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dequantizing matmul over int8 / int4 per-channel-scaled weights
+# ---------------------------------------------------------------------------
+def dequant_ref(w_q, scale, *, bits: int = 8):
+    """Per-channel dequantization matching ``checkpoint/quant.py``: int8
+    (K, N) values, or int4 nibble-packed uint8 (K/2, N) with row 2i in the
+    low nibble and 2i+1 in the high nibble, sign-extended.  Kept apart
+    from ``quant.unpack_int4`` on purpose: an independent copy of the
+    layout to hold the kernel against."""
+    if bits == 8:
+        q = w_q.float()
+    else:
+        p = w_q.to(torch.uint8)
+        lo = (p & 0xF).to(torch.int8)
+        hi = ((p >> 4) & 0xF).to(torch.int8)
+        lo = torch.where(lo > 7, lo - 16, lo)
+        hi = torch.where(hi > 7, hi - 16, hi)
+        q = torch.stack([lo, hi], dim=1).reshape(
+            (2 * p.shape[0],) + tuple(p.shape[1:])).float()
+    return q * scale[None, :].float()
+
+
+def quant_matmul_ref(x, w_q, scale, *, bits: int = 8):
+    """x (M, K) @ dequant_ref(w_q, scale) -> (M, N) in x's dtype, in f32;
+    an odd K (int4) drops the padding row."""
+    w = dequant_ref(w_q, scale, bits=bits)
+    return (x.float() @ w[:x.shape[-1]]).to(x.dtype)

@@ -10,6 +10,11 @@ memory budget, and serves the requests through the continuous-batching
 scheduler: each PIPELOAD round streams every layer ONCE and applies it to
 all in-flight requests.
 
+``--quant int8|int4`` serves int8/int4 shards of the checkpoint (a
+sibling directory, transcoded once), every linear layer through the
+dequantizing matmul kernel; ``--quant auto`` lets the planner pick the
+shard dtype jointly with the schedule.
+
 ``--shared-prefix N`` makes every request's first N prompt tokens
 identical, and ``--page-size P`` adds the PAGED KV reservation
 (core/kv_pages.py) to the planner's search: requests map fixed-size cache
@@ -22,8 +27,8 @@ Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
 profile is cached as ``profile_torch_<device>.json``.  The flags of
-slices not yet ported (quantization, speculation, the SLO tier, trace
-replay, autotune) exit with a "not yet ported in repro_torch" error.
+slices not yet ported (speculation, the SLO tier, trace replay,
+autotune) exit with a "not yet ported in repro_torch" error.
 """
 from __future__ import annotations
 
@@ -94,8 +99,6 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
         device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto"):
     """Serve ``requests`` seeded prompts; returns ``(outs, stats)``.
     ``attn_impl=None`` runs the kernels' plain PyTorch versions."""
-    if quant != "fp32":
-        _not_ported(f"--quant {quant}")
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")
@@ -107,6 +110,9 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
         cfg = cfg.reduced().with_(num_layers=8)
     ckpt = ensure_checkpoint(cfg, root=ckpt_root)
     hermes = Hermes(ckpt, cfg, device=device)
+    # fixed dtype = a one-entry search; "auto" lets the planner pick the
+    # shard precision jointly with the schedule
+    quants = ("fp32", "int8", "int4") if quant == "auto" else (quant,)
     budget = int(budget_mb * 2**20) if budget_mb else None
     rng = np.random.default_rng(seed)
     shared_prefix = max(0, min(shared_prefix, prompt_len))
@@ -119,10 +125,11 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
 
     if not kv_cache:
         # paper's engine (§V-B2): sequential re-prefill
-        plan = hermes.plan([budget], quants=("fp32",))[0]
+        plan = hermes.plan([budget], quants=quants)[0]
+        hermes = hermes.quantized(plan.dtype)
         agents, pin = num_agents or plan.num_agents, pin_window or 0
         print(f"planner: budget={budget_mb}MB -> {agents} agents, "
-              f"predicted latency {plan.predicted_latency_s*1e3:.0f}ms, "
+              f"dtype={plan.dtype}, predicted latency {plan.predicted_latency_s*1e3:.0f}ms, "
               f"peak {plan.predicted_peak_bytes/2**20:.0f}MB")
         with hermes.engine(mode="pipeload", budget_bytes=budget,
                            num_agents=agents, pin_window=pin,
@@ -145,7 +152,7 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
     g = hermes.plan_generate([budget], prompt_len=prompt_len,
                              new_tokens=new_tokens,
                              max_inflight=max_inflight,
-                             quants=("fp32",),
+                             quants=quants,
                              page_sizes=(page_size,) if page_size else (),
                              # with sharing off every page is private:
                              # the plan must not assume hits
@@ -160,6 +167,7 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
             f"{g.cache_bytes/2**20:.1f}MB KV cache at inflight="
             f"{g.inflight}); raise the budget, shrink "
             f"prompt/new-tokens, or pass --no-kv-cache")
+    hermes = hermes.quantized(g.dtype)
     agents = num_agents or g.num_agents
     pin = g.pin_window if pin_window is None else pin_window
     print(f"planner(serve): budget={budget_mb}MB -> {agents} agents, "
@@ -254,7 +262,8 @@ def main(argv=None):
     ap.add_argument("--no-kv-cache", action="store_true",
                     help="paper's per-token re-prefill engine (§V-B2)")
     ap.add_argument("--quant", default="fp32", choices=QUANT_CHOICES,
-                    help="shard precision (only fp32 is ported)")
+                    help="shard precision; 'auto' = planner searches "
+                    "dtype jointly with the schedule")
     ap.add_argument("--page-size", type=int, default=0,
                     help="paged KV: cache page size in tokens added to "
                     "the planner's search (0 = dense only)")
@@ -290,8 +299,7 @@ def main(argv=None):
                     help="write the end-of-run metrics-registry snapshot")
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    unported = [("--quant", args.quant != "fp32"),
-                ("--draft-arch", args.draft_arch),
+    unported = [("--draft-arch", args.draft_arch),
                 ("--spec-depth", args.spec_depth),
                 ("--autotune", args.autotune), ("--trace", args.trace),
                 ("--tenants", args.tenants),
@@ -306,7 +314,7 @@ def main(argv=None):
         reduced=not args.full, num_agents=args.num_agents,
         pin_window=args.pin_window, kv_cache=not args.no_kv_cache,
         max_inflight=args.max_inflight, arrival_rate=args.arrival_rate,
-        seed=args.seed, page_size=args.page_size,
+        seed=args.seed, quant=args.quant, page_size=args.page_size,
         prefix_cache=not args.no_prefix_cache,
         shared_prefix=args.shared_prefix, chunk_prefill=args.chunk_prefill,
         trace_out=args.trace_out, metrics_out=args.metrics_out,

@@ -6,7 +6,9 @@ attention runs the hand-written flash-attention kernel, decode the
 flash-decoding kernel and paged attention the paged decode / verify
 kernels, all through ``kernels.ops`` (which takes their plain PyTorch
 versions for CPU tensors); ``attn_impl=None`` asks for the plain versions
-explicitly on any device.
+explicitly on any device.  The projections go through ``common.linear``
+with the same ``attn_impl``, which runs the quantized matmul kernel for an
+int8/int4 weight.
 
 Decode keeps the ragged ``(B,)`` position vector on the device through
 the cache write and the valid mask: the only host round trip in a decode
@@ -23,7 +25,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
-KERNEL = "cuda"   # attn_impl value selecting the hand-written kernels
+KERNEL = common.KERNEL   # attn_impl value selecting the hand-written kernels
 
 
 # ===========================================================================
@@ -85,12 +87,12 @@ def cache_update(cache, new, pos):
 # ===========================================================================
 # GQA block: prefill + decode
 # ===========================================================================
-def _project_qkv(params, x, cfg: ModelConfig):
+def _project_qkv(params, x, cfg: ModelConfig, impl: Optional[str] = None):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["w_q"]
-    k = x @ params["w_k"]
-    v = x @ params["w_v"]
+    q = common.linear(x, params["w_q"], impl)
+    k = common.linear(x, params["w_k"], impl)
+    v = common.linear(x, params["w_v"], impl)
     if cfg.qkv_bias:
         q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
     return (q.reshape(b, s, h, dh), k.reshape(b, s, kv, dh),
@@ -110,14 +112,15 @@ def gqa_prefill(params, x, cfg: ModelConfig, positions, *, causal=True,
     """x: (B,S,D) -> (out (B,S,D), cache | None)."""
     b, s, _ = x.shape
     kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, attn_impl)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     qg = q.reshape(b, s, kv, g, dh)
     out = prefill_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=cfg.sliding_window,
                             impl=attn_impl)
-    out = out.reshape(b, s, kv * g * dh) @ params["w_o"]
+    out = common.linear(out.reshape(b, s, kv * g * dh), params["w_o"],
+                        attn_impl)
     cache = {"k": k, "v": v} if make_cache else None
     return out, cache
 
@@ -145,7 +148,7 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
     else:
         pos_b = torch.full((b, 1), int(pos), dtype=torch.long,
                            device=x.device)
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, attn_impl)
     q = common.apply_rope(q, pos_b, cfg.rope_theta)
     k = common.apply_rope(k, pos_b, cfg.rope_theta)
     s_cache = cache["k"].shape[1]
@@ -155,7 +158,8 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
     valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache).contiguous()
     qh = q.reshape(b, kv, g, dh).contiguous()
     out = flash_decode(qh, k_cache, v_cache, valid, impl=attn_impl)
-    out = out.reshape(b, 1, kv * g * dh) @ params["w_o"]
+    out = common.linear(out.reshape(b, 1, kv * g * dh), params["w_o"],
+                        attn_impl)
     return out, {"k": k_cache, "v": v_cache}
 
 
@@ -188,7 +192,7 @@ def gqa_decode_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
     page, nb = pools["k"].shape[1], tables.shape[1]
     posv = pos.reshape(b)
     pos_b = posv.reshape(b, 1)
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, attn_impl)
     q = common.apply_rope(q, pos_b, cfg.rope_theta)
     k = common.apply_rope(k, pos_b, cfg.rope_theta)
     pids = tables[torch.arange(b, device=x.device), posv // page]
@@ -203,7 +207,8 @@ def gqa_decode_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
         out = flash_decode(qh, _gather_cache(pools["k"], tables),
                            _gather_cache(pools["v"], tables),
                            valid.contiguous(), impl=None)
-    out = out.reshape(b, 1, kv * g * dh) @ params["w_o"]
+    out = common.linear(out.reshape(b, 1, kv * g * dh), params["w_o"],
+                        attn_impl)
     return out, pools
 
 
@@ -223,7 +228,7 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
     page, nb = pools["k"].shape[1], tables.shape[1]
     posv = pos.reshape(b)
     positions = posv[:, None] + torch.arange(w, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, attn_impl)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     rows = torch.arange(b, device=x.device)[:, None]
@@ -247,5 +252,6 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
         out = flash_decode(qh.reshape(b * w, kv, g, dh), kf, vf,
                            valid.reshape(b * w, s_tot), impl=None)
         out = out.reshape(b, w, kv, g, dh)
-    out = out.reshape(b, w, kv * g * dh) @ params["w_o"]
+    out = common.linear(out.reshape(b, w, kv * g * dh), params["w_o"],
+                        attn_impl)
     return out, pools

@@ -8,14 +8,25 @@ Weights keep the reference's ``(in, out)`` layout (``x @ W``).
 Initialisers draw from an explicit ``numpy.random.Generator`` and return
 numpy arrays: a checkpoint written from a seed is the same bytes on any
 machine, with or without a GPU.
+
+Every weight product goes through ``linear``: a plain weight is ``x @ w``;
+a quantized one (``checkpoint/quant.QuantizedTensor``, from an int8/int4
+shard) runs the dequantizing matmul kernel, so no fp32 copy of the weight
+is built.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.checkpoint.quant import QuantizedTensor
+from repro_torch.kernels import ops, ref
+
+KERNEL = "cuda"   # impl value selecting the hand-written kernels
 
 
 # ---------------------------------------------------------------------------
@@ -43,6 +54,24 @@ def mlp_init(rng: np.random.Generator, d_model: int, d_ff: int, dtype,
     if gated:
         p["w_gate"] = dense_init(rng, d_model, d_ff, dtype)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Linear layers
+# ---------------------------------------------------------------------------
+def linear(x: torch.Tensor, w, impl: Optional[str] = None) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)``.  A ``QuantizedTensor`` weight flattens x
+    to (M, K) and takes ``ops.quant_matmul`` with ``impl=KERNEL`` (the
+    kernel on the card, its plain version on the CPU) or the plain
+    version with ``impl=None``, as the attention functions do."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if impl == KERNEL:
+        out = ops.quant_matmul(x2, w.q, w.scale, w.bits)
+    else:
+        out = ref.quant_matmul_ref(x2, w.q, w.scale, bits=w.bits)
+    return out.reshape(tuple(x.shape[:-1]) + (out.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +111,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU when gated, else GELU)
 # ---------------------------------------------------------------------------
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor,
+              impl: Optional[str] = None) -> torch.Tensor:
     if "w_gate" in params:
-        gate = F.silu(x @ params["w_gate"])
-        return (gate * (x @ params["w_up"])) @ params["w_down"]
+        gate = F.silu(linear(x, params["w_gate"], impl))
+        return linear(gate * linear(x, params["w_up"], impl),
+                      params["w_down"], impl)
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
+    return linear(F.gelu(linear(x, params["w_up"], impl), approximate="tanh"),
+                  params["w_down"], impl)

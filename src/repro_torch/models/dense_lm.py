@@ -63,9 +63,9 @@ def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
 # ===========================================================================
 # Layer application
 # ===========================================================================
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig, impl: Optional[str]):
     h = common.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + common.mlp_apply(p["mlp"], h)
+    return x + common.mlp_apply(p["mlp"], h, impl)
 
 
 def layer_prefill(p, x, cfg: ModelConfig, positions, *, make_cache,
@@ -74,7 +74,7 @@ def layer_prefill(p, x, cfg: ModelConfig, positions, *, make_cache,
     a, cache = attn.gqa_prefill(p["attn"], h, cfg, positions,
                                 causal=cfg.causal, make_cache=make_cache,
                                 attn_impl=attn_impl)
-    return _ffn(p, x + a, cfg), cache
+    return _ffn(p, x + a, cfg, attn_impl), cache
 
 
 def layer_decode(p, x, cfg: ModelConfig, cache, pos, *,
@@ -82,7 +82,7 @@ def layer_decode(p, x, cfg: ModelConfig, cache, pos, *,
     h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     a, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos,
                                attn_impl=attn_impl)
-    return _ffn(p, x + a, cfg), cache
+    return _ffn(p, x + a, cfg, attn_impl), cache
 
 
 def layer_decode_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
@@ -92,7 +92,7 @@ def layer_decode_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
     h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     a, pools = attn.gqa_decode_paged(p["attn"], h, cfg, pools, tables, pos,
                                      attn_impl=attn_impl)
-    return _ffn(p, x + a, cfg), pools
+    return _ffn(p, x + a, cfg, attn_impl), pools
 
 
 def layer_verify_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
@@ -103,4 +103,4 @@ def layer_verify_paged(p, x, cfg: ModelConfig, pools, tables, pos, *,
     h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     a, pools = attn.gqa_verify_paged(p["attn"], h, cfg, pools, tables, pos,
                                      attn_impl=attn_impl)
-    return _ffn(p, x + a, cfg), pools
+    return _ffn(p, x + a, cfg, attn_impl), pools

@@ -81,8 +81,12 @@ def test_numpy_init_is_seeded_and_has_reference_shapes():
         assert x.shape == r.shape and x.dtype == r.dtype
 
 
-def test_quantized_manifest_not_ported(jax_ckpt, tmp_path):
-    _, _, path, _ = jax_ckpt
-    jax_partition.requantize(path, tmp_path, "int8")
+def test_quantized_manifest_not_ported(tmp_path):
+    """Quantized dense checkpoints are ported (tests/test_torch_quant.py);
+    a quantized EXPERT-SPLIT (MoE) manifest is not, and still raises."""
+    (tmp_path / "manifest.json").write_text(json.dumps(
+        {"model": "qwen3_moe_30b_a3b", "num_layers": 1, "dtype": "float32",
+         "quant": "int8", "expert_split": True, "shards": [],
+         "total_bytes": 0, "layer_bytes": 0}))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tp.load_manifest(tmp_path)

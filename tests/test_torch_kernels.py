@@ -151,9 +151,12 @@ def test_cpu_path_counts_no_launches():
     lengths = torch.tensor([5], dtype=torch.int32)
     ops.paged_decode(q[:, 0], pages, pages, tables, lengths)
     ops.paged_verify(q[:, :2], pages, pages, tables, lengths)
+    w8 = torch.ones((32, 8), dtype=torch.int8)
+    ops.quant_matmul(q[0, :, 0, 0], w8, torch.ones(8), 8)
     assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0,
                             "paged_flash_decode": 0,
-                            "paged_flash_verify": 0}
+                            "paged_flash_verify": 0,
+                            "quantized_matmul": 0}
 
 
 def test_mixed_devices_raise():
@@ -275,3 +278,46 @@ def test_cuda_kernels_reject_other_dtypes(cuda):
     valid = torch.ones((1, 8), device=cuda, dtype=torch.bool)
     with pytest.raises(TypeError, match="float32"):
         ops.decode_gqa(q, kc, kc, valid)
+
+
+def _cuda_quant(cuda, seed, m, k, n, bits):
+    """x (M, K) and a random int8 / packed-int4 weight with per-column
+    scales, on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    rows = k if bits == 8 else (k + 1) // 2
+    if bits == 8:
+        w_q = torch.randint(-127, 128, (rows, n), generator=gen, device=cuda,
+                            dtype=torch.int8)
+    else:
+        w_q = torch.randint(0, 256, (rows, n), generator=gen, device=cuda,
+                            dtype=torch.uint8)
+    scale = torch.rand((n,), generator=gen, device=cuda) / 64
+    return x, w_q, scale
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 1024), (4, 1024, 4096),
+                                   (4, 4096, 1024), (3, 1024, 51200),
+                                   (128, 1024, 1024), (128, 4096, 1024),
+                                   (2, 200, 40), (7, 66, 33), (5, 1, 16)])
+def test_cuda_quant_matmul_matches_plain(cuda, m, k, n, bits):
+    """The main path's shapes (decode M <= 4, prefill M = 128) and ragged
+    ones (N not a multiple of 16, odd K, M between the two kernels)."""
+    x, w_q, scale = _cuda_quant(cuda, m * k + n, m, k, n, bits)
+    before = ops.LAUNCHES["quantized_matmul"]
+    got = ops.quant_matmul(x, w_q, scale, bits)
+    assert ops.LAUNCHES["quantized_matmul"] == before + 1
+    want = ref.quant_matmul_ref(x, w_q, scale, bits=bits)
+    tol = 1e-4 * want.abs().max().item()     # 1e-4 of the output's scale
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_cuda_quant_matmul_rejects_what_it_does_not_take(cuda):
+    x, w_q, scale = _cuda_quant(cuda, 0, 2, 64, 32, 8)
+    with pytest.raises(TypeError, match="int8"):
+        ops.quant_matmul(x, w_q.view(torch.uint8), scale, 8)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.quant_matmul(x, w_q.view(torch.uint8), scale, 4)
+    with pytest.raises(ValueError, match="on the CPU or all on one CUDA"):
+        ops.quant_matmul(x.cpu(), w_q, scale, 8)
