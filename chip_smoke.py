@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # one CUDA card, about eight minutes
+    python3 chip_smoke.py        # one CUDA card, about ten minutes
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,14 +10,21 @@ Phases, in order; any failure exits non-zero:
    ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel).
    TF32 is turned off.
 2. Every kernel against its plain PyTorch version on the card (fp32,
-   tolerance 1e-4 max abs error; for quantized_matmul 1e-4 of the
-   output's largest magnitude), with its time beside the plain version's,
+   tolerance 1e-4 max abs error; for quantized_matmul and streamed_matmul
+   1e-4 of the output's largest magnitude; fp16 / bf16 inputs 2e-3 /
+   1.6e-2 of it), with its time beside the plain version's,
    one PyTorch library call's (SDPA; for the paged kernels on K/V already
    gathered to dense, the gather not timed; for quantized_matmul
    ``torch.matmul`` on the weight dequantized to fp32 beforehand, not
    timed) and its bound.  quantized_matmul runs at every shape the quant
    phases give it (decode M=4, prefill M=128, the prefill's head M=1),
-   int8 and int4.
+   int8 and int4.  fp16 and bf16 cases, and head_dim 256, at the fp16
+   phases' shapes (gpt_j decode and prefill, vit_large's non-causal
+   prefill, the paged kernels, quantized_matmul at gpt_j's MLP width).
+   streamed_matmul at gpt2_base's autotune shape (256 x 1024 @ 1024 x
+   4096, fp32, TF32 off) at every tile the autotune sweep times, and at
+   the reference's sweep shapes in fp32 and bf16; library
+   ``torch.matmul``.
 3. The dense path at full width: a full-size gpt2_base checkpoint (24
    layers, d=1024, fp32, random weights from a numpy seed) served through
    ``repro_torch.launch.serve.run`` — 8 requests, 128-token prompts, 32 new
@@ -53,6 +60,23 @@ Phases, in order; any failure exits non-zero:
    (max |delta| over max |fp32 logit|, docs/quantization.md; the int4
    figure is printed without a limit).
 
+10. Kernel autotune: phase 5's first 4 requests served with
+   ``autotune=True`` (``serve --autotune``) and a fresh cache file
+   (``build/chip_smoke_autotune.json``), so the sweep runs: streamed_matmul
+   must launch exactly (candidate tiles) x 4 times (a warm-up and 3 timed
+   calls each), the serving loop's launches must follow the tuned
+   paged-decode route, a second ``Hermes.autotune`` must hit the cache
+   with no launch, and the tokens must be phase 5's (tie rule).
+11. gpt_j at full width (d 4096, 16 heads x 256, d_ff 16384, fp16), depth
+   cut to 4 of 28 layers, 2 requests of 64 + 8 tokens under 1600 MiB
+   (below its ~2.45 GB of shards), kernels then plain versions: launches
+   exact, tokens equal (tie rule: top-2 gap within 2e-3 of the largest
+   logit).
+12. vit_large at full size (24 fp16 layers, non-causal) through
+   ``PipeloadEngine.run_single`` on 2 x 197 tokens under 300 MiB, kernels
+   then plain: flash_attention once per layer, logits within 2e-3 of the
+   plain run's largest and the same argmax.
+
 Every serve's ledger peak must stay within its budget, and its device
 allocator peak (``torch.cuda.max_memory_allocated``) within the budget
 plus, in paged mode, the page pool's bytes (freed pages keep their rows
@@ -68,10 +92,12 @@ three times the largest weight's fp32 bytes.
 
 Then one JSON line with every kernel: launches (over the whole
 ``serve.run`` call of the path that runs it, and inside its serving loop
-as ``serve_launches``; for quantized_matmul both quant paths), error,
+as ``serve_launches``; for quantized_matmul both quant paths; for
+streamed_matmul the autotune phase's sweep), fp32 error,
 times and bounds at the main path's shapes (where it runs the kernel at
 several, the chunk rounds' two or quantized_matmul's 16, the mean per
-launch weighted by the serving loop's launches at each).
+launch weighted by the serving loop's launches at each; streamed_matmul
+at the autotune shape and the tile the sweep chose).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repo's ``src/repro_torch`` beside it, it exits 2 and prints
@@ -90,8 +116,13 @@ SRC = ROOT / "src"
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpts"
 
 TOL = 1e-4               # fp32, TF32 off: max abs error kernel vs plain
+# fp16 / bf16 inputs: max abs error over the output's largest magnitude
+# (kernel and plain version round one fp32 result to the storage type)
+HALF_RTOL = {"float16": 2e-3, "bfloat16": 1.6e-2}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# H100 SXM peak operations per second by input type: fp32 outside the
+# tensor cores, fp16 / bf16 dense tensor-core rate
+PEAK_FLOPS = {"float32": 67e12, "float16": 989e12, "bfloat16": 989e12}
 BUDGET_MB = 900                  # below gpt2_base's ~1.55 GiB of shards
 # below the quantized checkpoint (int8 ~391 MiB, int4 ~197 MiB) plus the
 # KV of 4 in flight (120 MiB), above its decode floor (~232 / ~176 MiB)
@@ -99,6 +130,24 @@ QUANT_BUDGET_MB = {"int8": 300, "int4": 250}
 QUANT_ALLOC_SLACK = 48 * 2**20   # activations + allocator rounding (above)
 INT8_LOGIT_RTOL = 0.05           # docs/quantization.md
 TIE_GAP = 1e-4
+# fp16 checkpoints: a tie is a top-2 gap within two units in fp16's last
+# place of the largest logit (kernel and plain paths round the same fp32
+# sums to fp16 after summing in another order)
+TIE_RTOL_HALF = 2e-3
+AUTOTUNE_CACHE = ROOT / "build" / "chip_smoke_autotune.json"
+# the paged phase's first 4 requests at its own shape, so the planner
+# sees what it saw there and serves page size 16
+AUTOTUNE = dict(requests=4, page_size=16, shared_prefix=96)
+# gpt_j at full width (d 4096, 16 heads x 256, d_ff 16384, vocab 50400 ->
+# 51200, fp16), depth cut to 4 of 28 layers: ~403 MB per layer, ~2.45 GB
+# of shards; the budget holds the embed and head (~839 MB) and two layers
+GPTJ_LAYERS = 4
+GPTJ = dict(requests=2, prompt_len=64, new_tokens=8, max_inflight=2)
+GPTJ_BUDGET_MB = 1600
+# vit_large at full size: 24 fp16 layers of ~25 MB, non-causal, batch 2 x
+# 197 tokens (196 patches + class token) through run_single, streamed
+# under a budget below its ~605 MB
+VIT = dict(batch=2, seq=197, budget_mb=300, agents=2)
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
 
@@ -127,29 +176,45 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, dtype: str = "float32"):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
-    and fp32 operations over the CUDA-core peak."""
+    and operations over the card's peak for the inputs' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def decode_case(torch, fd, ref, gen, name, b, s, kv, g, dh, lengths=None):
+def dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def error(got, want):
+    """(max abs error, its limit): TOL in fp32, else ``HALF_RTOL`` of the
+    output's largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    name = dtype_name(want)
+    if name == "float32":
+        return err, TOL
+    return err, HALF_RTOL[name] * want.float().abs().max().item()
+
+
+def decode_case(torch, fd, ref, gen, name, b, s, kv, g, dh, lengths=None,
+                dtype=None):
     dev = "cuda"
-    q = torch.randn((b, kv, g, dh), generator=gen, device=dev)
-    k = torch.randn((b, s, kv, dh), generator=gen, device=dev)
-    v = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    dtype = dtype or torch.float32
+    q = torch.randn((b, kv, g, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(dtype)
     lengths = lengths or [s] * b
     lens = torch.tensor(lengths, device=dev)
     valid = torch.arange(s, device=dev)[None, :] < lens[:, None]
     got = fd.flash_decode_gqa(q, k, v, valid)
     want = ref.decode_gqa_ref(q, k, v, valid)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    err, limit = error(got, want)
     ms = time_ms(torch, lambda: fd.flash_decode_gqa(q, k, v, valid))
     plain_ms = time_ms(torch, lambda: ref.decode_gqa_ref(q, k, v, valid))
     # library yardstick: SDPA over the same grouped cache and mask
@@ -160,12 +225,13 @@ def decode_case(torch, fd, ref, gen, name, b, s, kv, g, dh, lengths=None):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask))
     n_valid = int(sum(lengths))
-    nbytes = 4 * (q.numel() + 2 * n_valid * kv * dh + q.numel()) + b * s
+    nbytes = (q.element_size() * (q.numel() + 2 * n_valid * kv * dh
+                                  + q.numel()) + b * s)
     flops = 4 * n_valid * kv * g * dh
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(kernel="flash_decode", case=name, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    return dict(kernel="flash_decode", case=name, max_abs_err=err,
+                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def partial_case(torch, fd, ref, gen):
@@ -192,51 +258,81 @@ def partial_case(torch, fd, ref, gen):
     err = max((got - want).abs().max().item(),
               (o1 / l1 - ro / rl).abs().max().item(),
               (m1 - rm).abs().max().item())
-    return dict(kernel="flash_decode", case="partials over two halves "
-                "of S=512, combined", max_abs_err=err)
+    combined = dict(kernel="flash_decode_partial", dtype="float32",
+                    case="partials over two halves of S=512, combined",
+                    max_abs_err=err)
+    # the unnormalised partials at the dense path's decode shape, timed
+    b, s, kv, g, dh = 4, 160, 16, 1, 64
+    q = torch.randn((b, kv, g, dh), generator=gen, device="cuda")
+    k = torch.randn((b, s, kv, dh), generator=gen, device="cuda")
+    v = torch.randn((b, s, kv, dh), generator=gen, device="cuda")
+    valid = torch.ones((b, s), dtype=torch.bool, device="cuda")
+    run = lambda: fd.flash_decode_gqa(q, k, v, valid,  # noqa: E731
+                                      normalize=False)
+    plain = lambda: ref.decode_gqa_partial_ref(q, k, v, valid)  # noqa: E731
+    (o1, m1, l1), (ro, rm, rl) = run(), plain()
+    torch.cuda.synchronize()
+    err = max((o1 / l1[..., None] - ro / rl[..., None]).abs().max().item(),
+              (m1 - rm).abs().max().item())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (q.reshape(b, kv * g, 1, dh), k.transpose(1, 2),
+                  v.transpose(1, 2))
+    nbytes = 4 * (q.numel() + 2 * b * s * kv * dh + q.numel()
+                  + 2 * b * kv * g) + b * s
+    b_ms, b_by = bound(nbytes, 4 * b * s * kv * g * dh)
+    timed = dict(kernel="flash_decode_partial", dtype="float32",
+                 case=f"main path B={b} S={s} KV={kv} G={g} dh={dh} "
+                 "unnormalised", max_abs_err=err, ms=time_ms(torch, run),
+                 plain_ms=time_ms(torch, plain),
+                 library_ms=time_ms(torch, lambda: sdpa(qs, ks, vs)),
+                 bound_ms=b_ms, bound_by=b_by)
+    return [combined, timed]
 
 
 def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
-                   sk=None):
+                   sk=None, dtype=None, causal=True):
     dev = "cuda"
     sk = sk or s
-    q = torch.randn((b, s, kv, g, dh), generator=gen, device=dev)
-    k = torch.randn((b, sk, kv, dh), generator=gen, device=dev)
-    v = torch.randn((b, sk, kv, dh), generator=gen, device=dev)
-    run = lambda: fa.flash_attention_gqa(q, k, v, causal=True,  # noqa: E731
+    dtype = dtype or torch.float32
+    q = torch.randn((b, s, kv, g, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, kv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, kv, dh), generator=gen, device=dev).to(dtype)
+    run = lambda: fa.flash_attention_gqa(q, k, v, causal=causal,  # noqa: E731
                                          window=window)
     got = run()
-    want = ref.attention_gqa_ref(q, k, v, causal=True, window=window)
+    want = ref.attention_gqa_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    err, limit = error(got, want)
     ms = time_ms(torch, run)
     plain_ms = time_ms(torch, lambda: ref.attention_gqa_ref(
-        q, k, v, causal=True, window=window))
+        q, k, v, causal=causal, window=window))
     qs = q.reshape(b, s, kv * g, dh).transpose(1, 2)
     ks = k.transpose(1, 2).repeat_interleave(g, dim=1)
     vs = v.transpose(1, 2).repeat_interleave(g, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q_ids = torch.arange(s, device=dev)[:, None]
     k_ids = torch.arange(sk, device=dev)[None, :]
-    ok = k_ids <= q_ids
+    ok = (k_ids <= q_ids) if causal else torch.ones_like(k_ids <= q_ids)
     if window is not None:
         ok &= k_ids > q_ids - window
-    if window is None and sk == s:
+    if not causal and window is None:
+        lib = lambda: sdpa(qs, ks, vs)  # noqa: E731
+    elif window is None and sk == s:
         lib = lambda: sdpa(qs, ks, vs, is_causal=True)  # noqa: E731
     else:
         lib = lambda: sdpa(qs, ks, vs, attn_mask=ok)  # noqa: E731
     lib_ms = time_ms(torch, lib)
     pairs = int(ok.sum().item())
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * pairs * b * kv * g * dh
-    b_ms, b_by = bound(nbytes, flops)
-    return dict(kernel="flash_attention", case=name, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    return dict(kernel="flash_attention", case=name, max_abs_err=err,
+                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def paged_inputs(torch, gen, b, w, kv, g, dh, page, nb, lengths, shared=0,
-                 rows=None, mapped=None):
+                 rows=None, mapped=None, dtype=None):
     """A paged pool and block tables as the scheduler builds them: each
     row maps ``mapped`` pages (by default those its length covers), the
     first ``shared`` of them one prefix mapped by every row, the others
@@ -247,10 +343,13 @@ def paged_inputs(torch, gen, b, w, kv, g, dh, page, nb, lengths, shared=0,
     used = [mapped or -(-n // page) for n in lengths]
     live = shared + sum(u - shared for u in used)
     rows = rows or live
-    kp = torch.randn((rows, page, kv, dh), generator=gen, device=dev)
-    vp = torch.randn((rows, page, kv, dh), generator=gen, device=dev)
+    dtype = dtype or torch.float32
+    kp = torch.randn((rows, page, kv, dh), generator=gen, device=dev).to(
+        dtype)
+    vp = torch.randn((rows, page, kv, dh), generator=gen, device=dev).to(
+        dtype)
     shape = (b, kv, g, dh) if w is None else (b, w, kv, g, dh)
-    q = torch.randn(shape, generator=gen, device=dev)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(rows, generator=gen, device=dev).tolist()
     prefix, own = perm[:shared], iter(perm[shared:])
     tables = torch.zeros((b, nb), dtype=torch.int32)
@@ -262,7 +361,7 @@ def paged_inputs(torch, gen, b, w, kv, g, dh, page, nb, lengths, shared=0,
 
 
 def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
-               shared=0, rows=None, mapped=None):
+               shared=0, rows=None, mapped=None, dtype=None):
     """Paged decode (``w`` None) or verify (W = ``w``) against its plain
     version.  Library: one SDPA call on K/V already gathered to dense and
     broadcast to the q heads (the gather is not timed).  Bound: bytes of
@@ -272,17 +371,17 @@ def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
     from repro_torch.kernels import paged_decode as pd
     q, kp, vp, tables, lens = paged_inputs(torch, gen, b, w, kv, g, dh,
                                            page, nb, lengths, shared, rows,
-                                           mapped)
+                                           mapped, dtype)
     kern = pd.paged_flash_decode if w is None else pd.paged_flash_verify
     plain = ref.paged_decode_ref if w is None else ref.paged_verify_ref
     got = kern(q, kp, vp, tables, lens)
     want = plain(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    err, limit = error(got, want)
     if w == 1:    # one stacked query is paged decode
         dec = pd.paged_flash_decode(q[:, 0].contiguous(), kp, vp, tables,
                                     lens)
-        err = max(err, (got[:, 0] - dec).abs().max().item())
+        err = max(err, error(got[:, 0], dec)[0])
     ms = time_ms(torch, lambda: kern(q, kp, vp, tables, lens))
     plain_ms = time_ms(torch, lambda: plain(q, kp, vp, tables, lens))
     s_tot = nb * page
@@ -300,13 +399,13 @@ def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
     tab = tables.tolist()
     slots = {(tab[i][s // page], s % page)
              for i, n in enumerate(lengths) for s in range(n)}
-    nbytes = (4 * (2 * q.numel() + 2 * len(slots) * kv * dh)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * len(slots) * kv * dh)
               + 4 * (tables.numel() + b))
-    b_ms, b_by = bound(nbytes, 4 * pairs * kv * g * dh)
+    b_ms, b_by = bound(nbytes, 4 * pairs * kv * g * dh, dtype_name(q))
     return dict(kernel="paged_flash_decode" if w is None
                 else "paged_flash_verify", case=name, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def paged_cases(torch, ref, gen):
@@ -369,14 +468,15 @@ def linears_per_pass(cfg) -> int:
     return sum(c for kind, *_, c in quant_shapes(cfg) if kind == "decode")
 
 
-def quant_case(torch, ref, gen, kind, m, k, n, count, bits):
+def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
     """quantized_matmul at one shape against its plain version.  Library:
     ``torch.matmul`` on the weight dequantized to fp32 beforehand (not
     timed).  Bound: bytes of x, the quantized weight, the scales and the
     output, or 2 M K N fp32 flops."""
     from repro_torch.kernels import quant_matmul as qm
     dev = "cuda"
-    x = torch.randn((m, k), generator=gen, device=dev)
+    dtype = dtype or torch.float32
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     rows = k if bits == 8 else (k + 1) // 2
     if bits == 8:
         w_q = torch.randint(-127, 128, (rows, n), generator=gen, device=dev,
@@ -390,20 +490,113 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits):
                                          bits=bits)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    limit = TOL * want.abs().max().item()
+    err, limit = error(got, want)
+    if dtype == torch.float32:      # 1e-4 of the output's scale
+        limit = TOL * want.abs().max().item()
     ms = time_ms(torch, run)
     plain_ms = time_ms(torch, plain)
-    w_deq = ref.dequant_ref(w_q, scale, bits=bits)[:k].contiguous()
+    w_deq = ref.dequant_ref(w_q, scale, bits=bits)[:k].to(dtype).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
     del w_deq
-    nbytes = 4 * (x.numel() + n + m * n) + w_q.numel()
-    b_ms, b_by = bound(nbytes, 2 * m * k * n)
+    nbytes = x.element_size() * (x.numel() + m * n) + 4 * n + w_q.numel()
+    b_ms, b_by = bound(nbytes, 2 * m * k * n, dtype_name(x))
+    main = "main path " if dtype == torch.float32 else ""
     return dict(kernel="quantized_matmul", bits=bits, kind=kind,
-                count=count, case=f"main path {kind} M={m} K={k} N={n} "
-                f"int{bits}", max_abs_err=err, limit=limit, ms=ms,
+                count=count, dtype=dtype_name(x), case=f"{main}{kind} M={m} K={k} N={n} "
+                f"int{bits} {dtype_name(x)}", max_abs_err=err, limit=limit,
+                ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def half_cases(torch, fd, fa, ref, gen):
+    """fp16 / bf16 and head_dim 256, at the fp16 phases' shapes: gpt_j's
+    decode (2 rows of up to 72 slots) and per-request prefill (64 tokens,
+    dh 256), vit_large's non-causal prefill (2 x 197 tokens, dh 64), the
+    paged kernels at dh 256 and quantized_matmul at gpt_j's MLP width."""
+    cases = [
+        decode_case(torch, fd, ref, gen, "dh=256 B=2 S=72 KV=16 G=1 "
+                    "float32", 2, 72, 16, 1, 256, lengths=[72, 69]),
+        attention_case(torch, fa, ref, gen, "dh=256 B=1 S=64 H=16 causal "
+                       "float32", 1, 64, 16, 1, 256)]
+    for name in HALF_RTOL:
+        dt = getattr(torch, name)
+        cases += [
+            decode_case(torch, fd, ref, gen, f"gpt_j decode B=2 S=72 KV=16 "
+                        f"G=1 dh=256 {name}", 2, 72, 16, 1, 256,
+                        lengths=[72, 69], dtype=dt),
+            attention_case(torch, fa, ref, gen, f"gpt_j prefill B=1 S=64 "
+                           f"H=16 dh=256 causal {name}", 1, 64, 16, 1, 256,
+                           dtype=dt),
+            attention_case(torch, fa, ref, gen, f"vit_large B=2 S=197 H=16 "
+                           f"dh=64 non-causal {name}", 2, 197, 16, 1, 64,
+                           dtype=dt, causal=False),
+            paged_case(torch, ref, gen, f"B=2 KV=16 G=1 dh=256 page=16 NB=5 "
+                       f"{name}", 2, None, 16, 1, 256, 16, 5, [65, 72],
+                       dtype=dt),
+            paged_case(torch, ref, gen, f"B=2 W=64 KV=16 G=1 dh=256 page=16 "
+                       f"NB=5 {name}", 2, 64, 16, 1, 256, 16, 5, [64, 72],
+                       dtype=dt)]
+        cases += [quant_case(torch, ref, gen, kind, m, 4096, 16384, 0, bits,
+                             dt)
+                  for bits in (8, 4)
+                  for kind, m in (("decode", 2), ("prefill", 64))]
+    return cases
+
+
+def autotune_shape(cfg):
+    """The shape ``tune_for_model`` times the streamed matmul at: 256
+    tokens x d_model @ d_model x d_ff."""
+    return 256, cfg.d_model, cfg.d_ff
+
+
+def matmul_cases(torch, ref, gen, cfg):
+    """streamed_matmul against matmul_ref: at gpt2_base's autotune shape
+    (fp32, TF32 off) at every tile the sweep times, with its time at
+    each; and at the reference's sweep shapes in fp32 and bf16.  Library:
+    ``torch.matmul`` (fp32, TF32 off).  Bound: fp32 operations (2 M K N)
+    or the bytes of x, w and the output."""
+    from repro_torch.kernels import streamed_matmul as sm
+    from repro_torch.kernels.autotune import _tile_candidates
+    m, k, n = autotune_shape(cfg)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    want = ref.matmul_ref(x, w)
+    plain_ms = time_ms(torch, lambda: ref.matmul_ref(x, w))
+    lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+    b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
+    cases = []
+    for tile in _tile_candidates(m, k, n, None):
+        run = lambda t=tile: sm.streamed_matmul(  # noqa: E731
+            x, w, block_m=t[0], block_n=t[1], block_k=t[2])
+        got = run()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        cases.append(dict(
+            kernel="streamed_matmul", tile=list(tile), dtype="float32",
+            case=f"autotune M={m} K={k} N={n} float32 tile "
+            f"{tile[0]}x{tile[1]}x{tile[2]}", max_abs_err=err,
+            limit=TOL * want.abs().max().item(), ms=time_ms(torch, run),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by))
+    for name in ("float32", "bfloat16"):
+        for m, k, n, bm, bn, bk in ((128, 128, 128, 128, 128, 128),
+                                    (256, 512, 128, 128, 128, 128),
+                                    (384, 256, 512, 128, 256, 256)):
+            dt = getattr(torch, name)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            w = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+            got = sm.streamed_matmul(x, w, block_m=bm, block_n=bn,
+                                     block_k=bk)
+            want = ref.matmul_ref(x, w)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            cases.append(dict(
+                kernel="streamed_matmul", dtype=name, max_abs_err=err,
+                limit=(TOL if name == "float32" else HALF_RTOL[name]) * scale,
+                case=f"sweep M={m} K={k} N={n} tile {bm}x{bn}x{bk} {name}"))
+    return cases
 
 
 def phase_kernels(torch):
@@ -421,7 +614,7 @@ def phase_kernels(torch):
         decode_case(torch, fd, ref, gen, "ragged S=1000 B=4 KV=16 G=1 "
                     "dh=64", 4, 1000, 16, 1, 64,
                     lengths=[1, 333, 640, 1000]),
-        partial_case(torch, fd, ref, gen),
+        *partial_case(torch, fd, ref, gen),
         # the scheduler prefills each admitted request on its own
         attention_case(torch, fa, ref, gen, "main path B=1 S=128 H=16 "
                        "dh=64 causal", 1, 128, 16, 1, 64),
@@ -439,8 +632,10 @@ def phase_kernels(torch):
     ] + paged_cases(torch, ref, gen)
     cases += [quant_case(torch, ref, gen, *shape, bits)
               for bits in (8, 4) for shape in quant_shapes(get("gpt2_base"))]
+    cases += half_cases(torch, fd, fa, ref, gen)
+    cases += matmul_cases(torch, ref, gen, get("gpt2_base"))
     for c in cases:
-        line = (f"  {c['kernel']:<16} {c['case']:<44} max_abs_err "
+        line = (f"  {c['kernel']:<18} {c['case']:<44} max_abs_err "
                 f"{c['max_abs_err']:.3e} (tol {c.get('limit', TOL):.3g})")
         if "ms" in c:
             line += (f"  kernel_ms {c['ms']:.5f} plain_ms "
@@ -462,10 +657,10 @@ PAGED = dict(page_size=16, shared_prefix=96)
 CHUNKED = dict(PAGED, requests=4, new_tokens=16, chunk_prefill=64)
 
 
-def serve(attn_impl, budget_mb, **kw):
+def serve(attn_impl, budget_mb, arch="gpt2_base", **kw):
     from repro_torch.launch import serve as serve_mod
     args = dict(MAIN, **kw)
-    return serve_mod.run("gpt2_base", budget_mb=budget_mb, reduced=False,
+    return serve_mod.run(arch, budget_mb=budget_mb, reduced=False,
                          device="cuda", ckpt_root=CKPT_ROOT,
                          attn_impl=attn_impl, **args)
 
@@ -489,16 +684,20 @@ def ckpt_dir(cfg, quant: str = "fp32") -> Path:
                         else f"{cfg.name}-{quant}")
 
 
-def tie_gap(torch, cfg, prefix, quant: str = "fp32") -> float:
-    """Top-2 logit gap of the plain path's next-token logits after
-    ``prefix`` (a full re-prefill of the prefix)."""
+def tie_gap(torch, cfg, prefix, quant: str = "fp32"):
+    """(top-2 logit gap, the gap below which it is a tie) of the plain
+    path's next-token logits after ``prefix`` (a full re-prefill of the
+    prefix): TIE_GAP, or on an fp16 checkpoint TIE_RTOL_HALF of the
+    largest |logit|."""
     from repro_torch.core import PipeloadEngine
     with PipeloadEngine(ckpt_dir(cfg, quant), cfg, mode="pipeload",
                         num_agents=4,
                         attn_impl=None) as eng:
         logits, _ = eng.run_single([list(map(int, prefix))])
-    top2 = torch.topk(logits[0], 2).values
-    return float(top2[0] - top2[1])
+    top2 = torch.topk(logits[0].float(), 2).values
+    limit = (TIE_GAP if cfg.dtype == "float32"
+             else TIE_RTOL_HALF * logits[0].float().abs().max().item())
+    return float(top2[0] - top2[1]), limit
 
 
 def same_tokens(torch, cfg, outs, other, what: str, n: int = 0,
@@ -512,10 +711,11 @@ def same_tokens(torch, cfg, outs, other, what: str, n: int = 0,
         ref_toks = list(other[rid][:len(toks)])
         diff = [i for i in range(len(toks)) if toks[i] != ref_toks[i]]
         if diff:
-            gap = tie_gap(torch, cfg, toks[:diff[0]], quant)
+            gap, limit = tie_gap(torch, cfg, toks[:diff[0]], quant)
             print(f"{what}: req{rid} tokens differ first at {diff[0]}; "
-                  f"plain top-2 logit gap there {gap:.3e}", flush=True)
-            if gap >= TIE_GAP:
+                  f"plain top-2 logit gap there {gap:.3e} (tie below "
+                  f"{limit:.3e})", flush=True)
+            if gap >= limit:
                 fail(f"{what}: req{rid} greedy tokens differ at step "
                      f"{diff[0]} (gap {gap:.3e})")
             ties += 1
@@ -552,16 +752,20 @@ def serve_rounds(stats, n_chunks: int = 0):
 def expected_serve_launches(stats, cfg, n_chunks: int = 0,
                             quant: str = "fp32") -> dict:
     """Launches the serving loop must make: one decode launch
-    (flash_decode, or paged_flash_decode in paged mode) per layer per
+    (flash_decode, or paged_flash_decode in paged mode unless autotune
+    chose the "gather" route) per layer per
     round with a decoder in flight; one flash_attention per layer per
     monolithic prefill; with chunked prefill, one paged_flash_verify per
     layer per round with a chunker; on quantized shards, one
     quantized_matmul per linear per pass (decode round, chunk round or
     prefill), the head's included."""
+    from repro_torch.kernels import ops
     decode_rounds, chunk_rounds, prefills = serve_rounds(stats, n_chunks)
     n_layers = cfg.num_layers
     want = dict.fromkeys(stats.kernel_launches, 0)
-    want["paged_flash_decode" if stats.page_size else "flash_decode"] = (
+    # autotune's "gather" route decodes paged KV through flash_decode
+    paged = stats.page_size and ops.tuned_paged_impl() != "gather"
+    want["paged_flash_decode" if paged else "flash_decode"] = (
         n_layers * len(decode_rounds))
     want["flash_attention"] = n_layers * prefills
     want["paged_flash_verify"] = n_layers * len(chunk_rounds)
@@ -830,7 +1034,8 @@ def quant_row(cases, quant_runs):
     for bits, stats in quant_runs.items():
         decode_rounds, _, prefills = serve_rounds(stats)
         weights[bits] = {"decode": len(decode_rounds), "prefill": prefills}
-    mains = [c for c in cases if c["kernel"] == "quantized_matmul"]
+    mains = [c for c in cases if c["kernel"] == "quantized_matmul"
+             and c["case"].startswith("main")]
     w = [c["count"] * weights[c["bits"]][c["kind"]] for c in mains]
     mean = lambda key: (sum(wi * c[key] for wi, c in zip(w, mains))  # noqa
                         / sum(w))
@@ -841,6 +1046,161 @@ def quant_row(cases, quant_runs):
                               "bound_by"]
     row["max_abs_err"] = max(c["max_abs_err"] for c in mains)
     return row
+
+
+def phase_autotune(torch, ops, cfg, paged_outs):
+    """Phase 10: ``serve --autotune`` at page size 16 on phase 3's
+    checkpoint, with a fresh cache file so the sweep runs: the streamed
+    matmul launches exactly once per candidate tile per timed call
+    (``_median_time``'s warm-up and its 3 repeats); a second
+    ``Hermes.autotune`` hits the cache and launches nothing; the tokens
+    are the paged phase's for the same requests (tie rule)."""
+    import os
+    from repro_torch.core import Hermes
+    from repro_torch.kernels import autotune
+    AUTOTUNE_CACHE.unlink(missing_ok=True)
+    os.environ[autotune.CACHE_ENV] = str(AUTOTUNE_CACHE)
+    outs, stats, launches = run_path(torch, ops, cfg, "autotune", "auto",
+                                     autotune=True, **AUTOTUNE)
+    if stats.page_size != AUTOTUNE["page_size"]:
+        fail(f"autotune: the planner served page size {stats.page_size}")
+    from repro_torch.kernels.streamed_matmul import cta_tile
+    impl = ops.tuned_paged_impl()
+    m, k, n = autotune_shape(cfg)
+    cands = autotune._tile_candidates(m, k, n, None)
+    if len({cta_tile(*t) for t in cands}) != len(cands):
+        fail("autotune: two candidate tiles select one launch")
+    sweep = len(cands) * (3 + 1)
+    entries = json.loads(AUTOTUNE_CACHE.read_text())["entries"]
+    arch = autotune.device_arch("cuda")
+    mat = entries[f"matmul|{arch}|float32|page=-"]
+    paged = entries.get(f"paged_decode|{arch}|float32|page="
+                        f"{AUTOTUNE['page_size']}")
+    if mat["shape"] != [m, k, n] or paged is None:
+        fail(f"autotune: the cache lacks the expected entries: {entries}")
+    launch = cta_tile(mat["block_m"], mat["block_n"], mat["block_k"])
+    print(f"autotune: {AUTOTUNE_CACHE.name} -> matmul tiles "
+          f"{mat['block_m']}x{mat['block_n']}x{mat['block_k']} (blocks of "
+          f"{launch[0]}x{launch[1]} outputs in {launch[2]}x{launch[3]} "
+          f"register tiles, {launch[4]}-row K stages; {len(cands)} distinct "
+          f"launches timed; {mat['t_us']:.1f} us at {mat['shape']}), paged "
+          f"route "
+          f"{paged['impl']} ({paged['t_us']:.1f} us, the other "
+          f"{paged['t_us_other']:.1f} us); streamed_matmul launches in the "
+          f"sweep {launches['streamed_matmul']} (expected {sweep})",
+          flush=True)
+    if launches["streamed_matmul"] != sweep:
+        fail(f"autotune: {launches['streamed_matmul']} streamed_matmul "
+             f"launches, expected {sweep}")
+    if impl != paged["impl"]:
+        fail(f"autotune: the tuned route {impl} is not the cache's")
+    ops.reset_launches()
+    again = Hermes(ckpt_dir(cfg), cfg, device="cuda").autotune(
+        page_size=AUTOTUNE["page_size"])
+    if ops.LAUNCHES["streamed_matmul"] or again["matmul"] != mat:
+        fail(f"autotune: the second call did not hit the cache "
+             f"({ops.LAUNCHES['streamed_matmul']} streamed_matmul "
+             f"launches)")
+    print("autotune: second Hermes.autotune hit the cache, 0 "
+          "streamed_matmul launches", flush=True)
+    same_tokens(torch, cfg, outs, paged_outs, "autotune vs paged greedy "
+                "tokens")
+    ops.set_tuned()
+    return launches, stats, mat
+
+
+def phase_gptj(torch, ops):
+    """Phase 11: gpt_j at full width, fp16, head_dim 256, depth cut to
+    GPTJ_LAYERS, served under a budget below its shards (kernels, then
+    the plain versions; tokens by the tie rule)."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import ensure_checkpoint
+    cfg = get("gpt_j").with_(num_layers=GPTJ_LAYERS,
+                             name=f"gpt-j-{GPTJ_LAYERS}layers")
+    t0 = time.perf_counter()
+    path = ensure_checkpoint(cfg, root=CKPT_ROOT)
+    man = load_manifest(path)
+    print(f"gpt_j: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.head_dim} heads, d_ff {cfg.d_ff}, "
+          f"{cfg.dtype}; {man['total_bytes']} B of shards (layers "
+          f"{man['layer_bytes']}), written in "
+          f"{time.perf_counter() - t0:.1f}s; budget {GPTJ_BUDGET_MB} MiB",
+          flush=True)
+    if GPTJ_BUDGET_MB * 2**20 >= man["total_bytes"]:
+        fail("gpt_j: the budget must sit below the checkpoint")
+    (path / "profile_torch_cuda.json").unlink(missing_ok=True)
+    kw = dict(GPTJ, arch=cfg, budget_mb=GPTJ_BUDGET_MB)
+    outs, stats, launches = run_path(torch, ops, cfg, "gpt_j", "auto", **kw)
+    if not (launches["flash_decode"] and launches["flash_attention"]):
+        fail(f"gpt_j: a kernel never launched: {launches}")
+    if stats.loads <= len(man["shards"]):
+        fail(f"gpt_j: {stats.loads} shard loads: layers did not stream")
+    outs_plain, _, _ = run_path(torch, ops, cfg, "gpt_j", None, **kw)
+    same_tokens(torch, cfg, outs, outs_plain, "gpt_j kernel vs plain "
+                "greedy tokens")
+    return launches, stats
+
+
+def phase_vit(torch, ops):
+    """Phase 12: vit_large at full size (24 fp16 layers, non-causal)
+    through ``PipeloadEngine.run_single``, kernels then plain versions:
+    flash_attention once per layer, logits within HALF_RTOL["float16"] of
+    the plain run's largest and the same argmax."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.core import PipeloadEngine
+    from repro_torch.launch.serve import ensure_checkpoint
+    cfg = get("vit_large")
+    t0 = time.perf_counter()
+    path = ensure_checkpoint(cfg, root=CKPT_ROOT)
+    print(f"vit_large: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.dtype}, causal={cfg.causal}, written in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (VIT["batch"], VIT["seq"]))
+    budget = VIT["budget_mb"] * 2**20
+    runs = {}
+    for impl in ("auto", None):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with PipeloadEngine(path, cfg, mode="pipeload",
+                            num_agents=VIT["agents"], budget_bytes=budget,
+                            attn_impl=impl) as eng:
+            t0 = time.perf_counter()
+            logits, st = eng.run_single(tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        alloc = torch.cuda.max_memory_allocated()
+        how = "kernels" if impl else "plain"
+        print(f"vit_large ({how}): run_single {wall:.3f}s, ledger peak "
+              f"{st.peak_bytes} (budget {budget}), shard loads {st.loads}, "
+              f"torch.cuda.max_memory_allocated {alloc}, launches "
+              f"{json.dumps(launches)}", flush=True)
+        want = dict.fromkeys(launches, 0)
+        if impl:
+            want["flash_attention"] = cfg.num_layers
+        if launches != want:
+            fail(f"vit_large ({how}): launches {launches} != {want}")
+        if st.peak_bytes > budget or alloc > budget:
+            fail(f"vit_large ({how}): peak above the budget")
+        if st.loads < cfg.num_layers:
+            fail(f"vit_large ({how}): {st.loads} shard loads")
+        runs[how] = logits.float(), launches
+    got, want = runs["kernels"][0], runs["plain"][0]
+    if got.shape != (VIT["batch"], cfg.padded_vocab) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"vit_large: logits {tuple(got.shape)} not finite or not "
+             f"(batch, vocab)")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    print(f"vit_large: kernel vs plain logits max |delta| / max |plain| = "
+          f"{rel:.3e} (limit {HALF_RTOL['float16']}), argmax equal "
+          f"{same}", flush=True)
+    if not (rel <= HALF_RTOL["float16"] and same):
+        fail("vit_large: kernel logits disagree with the plain run's")
+    return runs["kernels"][1]
 
 
 # ---------------------------------------------------------------------------
@@ -896,11 +1256,23 @@ def main() -> int:
         quant_launches[bits], quant_stats[bits] = phase_quant(
             torch, ops, cfg, quant, fp32_logits, prompt)
 
+    # ---- phase 10: kernel autotune; 11-12: the fp16 models
+    tune_launches, tune_stats, tuned = phase_autotune(torch, ops, cfg,
+                                                      paged_outs)
+    phase_gptj(torch, ops)
+    phase_vit(torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
+    # name: (source, TPU kernel, launch key, the path's launches, stats);
+    # flash_decode_partial and flash_decode are one CUDA kernel (the
+    # partials unnormalised), one launch key
     meta = {
+        "flash_decode_partial": (csrc + "flash_decode.cu",
+                                 "src/repro/kernels/flash_decode.py:57",
+                                 dense_launches, dense_stats),
         "flash_decode": (csrc + "flash_decode.cu",
-                         "src/repro/kernels/flash_decode.py:57",
+                         "src/repro/kernels/flash_decode.py:98",
                          dense_launches, dense_stats),
         "flash_attention": (csrc + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:62",
@@ -917,16 +1289,19 @@ def main() -> int:
              + "; ".join(OVER_BUDGET))
     kernels = []
     for kname, (source, replaces, launches, stats) in meta.items():
-        mine = [c for c in cases if c["kernel"] == kname]
+        key = "flash_decode" if kname == "flash_decode_partial" else kname
+        mine = [c for c in cases if c["kernel"] == kname
+                and c["dtype"] == "float32"]
         # the main path's shapes; where it launches the kernel at several
         # (the chunk rounds), each takes an equal share of its launches,
         # so the numbers are their mean per launch
         mains = [c for c in mine if c["case"].startswith("main")]
-        mean = lambda key: sum(c[key] for c in mains) / len(mains)  # noqa
+        mean = lambda f: sum(c[f] for c in mains) / len(mains)  # noqa
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
-            "serve_launches": stats.kernel_launches[kname],
+            "replaces": replaces, "launch_key": key,
+            "launches": launches[key],
+            "serve_launches": stats.kernel_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -942,6 +1317,21 @@ def main() -> int:
         serve_launches=sum(st.kernel_launches["quantized_matmul"]
                            for st in quant_stats.values()),
         **quant_row(cases, quant_stats)))
+    # streamed_matmul: the autotune sweep's launches; its time at the tile
+    # the sweep chose, at the shape it tuned
+    tile = [tuned["block_m"], tuned["block_n"], tuned["block_k"]]
+    mm = [c for c in cases if c["kernel"] == "streamed_matmul"]
+    best = [c for c in mm if c.get("tile") == tile][0]
+    kernels.append(dict(
+        name="streamed_matmul", route="cuda",
+        source=csrc + "streamed_matmul.cu",
+        replaces="src/repro/kernels/streamed_matmul.py:46",
+        launches=tune_launches["streamed_matmul"],
+        serve_launches=tune_stats.kernel_launches["streamed_matmul"],
+        max_abs_err=max(c["max_abs_err"] for c in mm
+                        if c["dtype"] == "float32"),
+        **{k: best[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}))
     print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi)

@@ -9,6 +9,7 @@
     h8 = hermes.quantized("int8")               # sibling int8 checkpoint
     g = hermes.plan_generate([b1], quants=("fp32", "int8", "int4"))[0]
     engine = hermes.quantized(g.dtype).engine(...)   # g.dtype = winner
+    sel = hermes.autotune(page_size=16)         # kernel tiles / routes
 
 The profile is cached in the checkpoint directory as
 ``profile_torch_<device>.json``, so it never collides with the JAX
@@ -56,6 +57,22 @@ class Hermes:
                                       seq=seq, device=self.device)
         save_profile(self._profile, cache)
         return self._profile
+
+    # ---- Kernel autotune (kernels/autotune.py) -------------------------
+    def autotune(self, *, page_size: Optional[int] = None,
+                 quant: Optional[str] = None, tokens: int = 256,
+                 force: bool = False, cache_path=None) -> Dict:
+        """Per-device kernel tile / route selection, seeded by this
+        checkpoint's (or its ``quant`` variant's) Layer Profiler run and
+        cached to disk (repeat runs skip the timing sweep).  Applies the
+        winners as the kernel wrappers' process-wide defaults and returns
+        them."""
+        from repro_torch.kernels.autotune import tune_for_model
+        host = self.quantized(quant) if quant else self
+        return tune_for_model(self.cfg, host.profile(),
+                              page_size=page_size, quant=quant,
+                              tokens=tokens, force=force,
+                              cache_path=cache_path, device=self.device)
 
     # ---- Quantized checkpoint variants ---------------------------------
     def quantized(self, quant: Optional[str]) -> "Hermes":
@@ -147,7 +164,8 @@ class Hermes:
                   seed: Optional[int] = None,
                   chunk_prefill: int = 0,
                   attn_impl: Optional[str] = "auto",
-                  quants: Optional[Sequence[Optional[str]]] = None):
+                  quants: Optional[Sequence[Optional[str]]] = None,
+                  autotune: bool = False):
         """Continuous-batching serving facade: plan the (num_agents,
         pin_window, inflight) triple for the budget, build the engine and
         wrap it in a ``BatchScheduler`` ready for ``submit()``/``run()``.
@@ -158,7 +176,8 @@ class Hermes:
         scheduler take the winning page size; ``chunk_prefill`` (needs
         ``page_sizes``) joins long prompts into decode rounds; ``quants``
         widens the plan over shard dtype and the engine is built on the
-        winning checkpoint variant."""
+        winning checkpoint variant; ``autotune`` tunes the kernels for the
+        winning (dtype, page size) after planning (``Hermes.autotune``)."""
         from repro_torch.core.scheduler import BatchScheduler
         if chunk_prefill and not page_sizes:
             raise ValueError("chunk_prefill requires page_sizes (chunk "
@@ -180,6 +199,12 @@ class Hermes:
                 f"{g.inflight}); raise the budget or shrink "
                 f"prompt/new_tokens")
         host = self.quantized(g.dtype) if quants is not None else self
+        if autotune:
+            # after planning: the winning (dtype, page size) keys the
+            # autotune cache, so the kernels are tuned for what serves
+            self.autotune(page_size=g.page_size or None,
+                          quant=(g.dtype if quants is not None
+                                 and g.dtype != FP_LABEL else None))
         eng = host.engine(mode="pipeload", budget_bytes=budget_bytes,
                           num_agents=(num_agents if num_agents is not None
                                       else g.num_agents),

@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_decode", "flash_attention", "paged_decode",
-           "quant_matmul")
+           "quant_matmul", "streamed_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"

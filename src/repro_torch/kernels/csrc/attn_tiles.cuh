@@ -1,4 +1,5 @@
-// Tile bodies shared by the attention kernels, fp32.
+// Tile bodies shared by the attention kernels, for fp32, fp16 and bf16
+// inputs with fp32 arithmetic.
 //
 // Every kernel here computes scores q.k * scale, masked scores -1e30, an
 // online softmax over key tiles and acc / max(l, 1e-30), as the Pallas
@@ -6,7 +7,13 @@
 // (a dense (B, S, KV, dh) cache, or a paged (P, page, KV, dh) pool read
 // through a block table) and in which keys a query row may see.  Those
 // two things are the template arguments below; the loads, the softmax and
-// the products are written once:
+// the products are written once.  The storage type T (float, __half or
+// __nv_bfloat16) is the Src / Tile's: every load is converted to fp32 in
+// registers, shared memory holds fp32, scores, probabilities and
+// accumulators are fp32 (the probabilities stay fp32 for the PV product,
+// as the plain versions in kernels/ref.py keep them), and only the
+// normalised output is rounded to T.  Unnormalised (o, m, l) partials are
+// fp32 whatever T is.
 //
 //  * decode_kernel<Src>: one query token per (b, kv head, q head in the
 //    group), one block per (S-split, kv head, b), 128 threads.  Each K/V
@@ -20,20 +27,21 @@
 //    paged_decode.cu (paged verify) instantiate it.
 //
 // Src (decode) provides:
-//   const float* k, * v               pool / cache base pointers
-//   static constexpr bool kVec4       load rows as float4 (dh % 4 == 0,
-//                                     16-byte aligned rows)
+//   using T                           storage type of q, k, v and out
+//   const T* k, * v                   pool / cache base pointers
+//   static constexpr bool kVec4       load rows 4 elements at a time
+//                                     (dh % 4 == 0, 4-element aligned rows)
 //   int length(int b)                 slots of row b to walk
-//   size_t row(int b, int s, int kvh) float offset of slot s's K/V row
+//   size_t row(int b, int s, int kvh) element offset of slot s's K/V row
 //   bool ok(int b, int s)             unmasked?
 // Tile (attend_tile) provides:
-//   const float* k, * v; static constexpr bool kVec4
+//   using T; const T* k, * v; static constexpr bool kVec4
 //   int kt_begin, kt_end              key tiles to walk
 //   int n_keys                        keys below it are read; the rest
 //                                     weigh exactly 0
-//   const float* q_row(int r)         block-local query row r (nullptr:
-//   float* out_row(int r)             past the rows, not written)
-//   size_t key_row(int slot)          float offset of the key's K/V row
+//   const T* q_row(int r)             block-local query row r (nullptr:
+//   T* out_row(int r)                 past the rows, not written)
+//   size_t key_row(int slot)          element offset of the key's K/V row
 //   bool allowed(int r, int slot)     unmasked?
 #pragma once
 
@@ -41,9 +49,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace attn {
 
 constexpr float kNegInf = -1e30f;
+
+using namespace elem;
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -67,13 +79,16 @@ inline size_t decode_smem_bytes(int G, int dh) {
           (size_t)G * kDecTile + (size_t)G * dh + 3 * (size_t)G);
 }
 
-// Writes, per (split, b, kv, g): o (dh floats) and, unless `normalize`, m
-// and l.  Normalising divides o by max(l, 1e-30).
-template <class Src>
+// Writes, per (split, b, kv, g): o (dh values of OutT) and, unless
+// `normalize`, m and l.  Normalising divides o by max(l, 1e-30).  OutT is
+// float for partials and Src::T for a normalised output.
+template <class Src, class OutT>
 __global__ void __launch_bounds__(kDecThreads)
-decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
-              float* __restrict__ m_out, float* __restrict__ l_out, int B,
-              int KV, int G, int dh, int chunk, float scale, int normalize) {
+decode_kernel(Src src, const typename Src::T* __restrict__ q,
+              OutT* __restrict__ o_out, float* __restrict__ m_out,
+              float* __restrict__ l_out, int B, int KV, int G, int dh,
+              int chunk, float scale, int normalize) {
+  using T = typename Src::T;
   extern __shared__ float smem[];
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int ks = dh + 1;             // padded K row: conflict-free reads
@@ -89,9 +104,9 @@ decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = kDecThreads / 32;
-  const float* qb = q + (size_t)(b * KV + kvh) * gd;
+  const T* qb = q + (size_t)(b * KV + kvh) * gd;
   for (int i = tid; i < gd; i += kDecThreads) {
-    q_s[i] = qb[i] * scale;
+    q_s[i] = ld(qb + i) * scale;
     acc_s[i] = 0.f;
   }
   for (int g = tid; g < G; g += kDecThreads) {
@@ -110,8 +125,8 @@ decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
       for (int i = tid; i < n * d4; i += kDecThreads) {
         const int j = i / d4, c = (i - j * d4) * 4;
         const size_t off = src.row(b, t0 + j, kvh) + c;
-        const float4 kk = __ldg(reinterpret_cast<const float4*>(src.k + off));
-        const float4 vv = __ldg(reinterpret_cast<const float4*>(src.v + off));
+        const float4 kk = ld4(src.k + off);
+        const float4 vv = ld4(src.v + off);
         float* kr = k_s + j * ks + c;
         kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
         float* vr = v_s + j * dh + c;
@@ -121,8 +136,8 @@ decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
       for (int i = tid; i < n * dh; i += kDecThreads) {
         const int j = i / dh, d = i - j * dh;
         const size_t off = src.row(b, t0 + j, kvh) + d;
-        k_s[j * ks + d] = __ldg(src.k + off);
-        v_s[j * dh + d] = __ldg(src.v + off);
+        k_s[j * ks + d] = ld(src.k + off);
+        v_s[j * dh + d] = ld(src.v + off);
       }
     }
     __syncthreads();
@@ -179,7 +194,7 @@ decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
     const int g = i / dh;
     float a = acc_s[i];
     if (normalize) a /= fmaxf(l_s[g], 1e-30f);
-    o_out[head * gd + i] = a;
+    o_out[head * gd + i] = from_f32<OutT>(a);
   }
   if (!normalize) {
     for (int g = tid; g < G; g += kDecThreads) {
@@ -192,11 +207,13 @@ decode_kernel(Src src, const float* __restrict__ q, float* __restrict__ o_out,
 // One block per (b, kv, g) row: merges n_split partials laid out
 // (n_split, rows, ...) the way the sharded decode combines shards.  A split
 // past the row's length has l = 0 and m = -1e30, so it weighs exactly 0.
-// With m_out (and l_out) NULL it writes o / max(l, 1e-30).
+// With m_out (and l_out) NULL it writes o / max(l, 1e-30) as OutT, else
+// the merged fp32 partials.
+template <class OutT>
 __global__ void combine_kernel(const float* __restrict__ po,
                                const float* __restrict__ pm,
                                const float* __restrict__ pl,
-                               float* __restrict__ o_out,
+                               OutT* __restrict__ o_out,
                                float* __restrict__ m_out,
                                float* __restrict__ l_out, int rows, int dh,
                                int n_split) {
@@ -210,7 +227,8 @@ __global__ void combine_kernel(const float* __restrict__ po,
     float o = 0.f;
     for (int i = 0; i < n_split; ++i)
       o += po[((size_t)i * rows + r) * dh + d] * expf(pm[(size_t)i * rows + r] - m_star);
-    o_out[(size_t)r * dh + d] = m_out ? o : o / fmaxf(l_star, 1e-30f);
+    o_out[(size_t)r * dh + d] =
+        from_f32<OutT>(m_out ? o : o / fmaxf(l_star, 1e-30f));
   }
   if (m_out && threadIdx.x == 0) {
     m_out[r] = m_star;
@@ -218,37 +236,60 @@ __global__ void combine_kernel(const float* __restrict__ po,
   }
 }
 
+// Sets the dynamic shared memory a kernel needs when it is above the
+// 48 KB that needs no opt-in.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Launches decode_kernel over (n_split, KV, B) and, with n_split > 1,
-// combine_kernel.  part_o/m/l hold (n_split, B, KV, G[, dh]) partials;
-// out_m/out_l NULL means normalise.  chunk: slots per split (a multiple of
-// the tile, chunk * n_split covering every row's length).
+// combine_kernel.  part_o/m/l hold fp32 (n_split, B, KV, G[, dh])
+// partials; out_m/out_l NULL means normalise into out_o as Src::T, else
+// out_o, out_m, out_l receive the fp32 partials.  chunk: slots per split
+// (a multiple of the tile, chunk * n_split covering every row's length).
 template <class Src>
-int launch_decode(const Src& src, const float* q, float* part_o,
-                  float* part_m, float* part_l, float* out_o, float* out_m,
+int launch_decode(const Src& src, const typename Src::T* q, float* part_o,
+                  float* part_m, float* part_l, void* out_o, float* out_m,
                   float* out_l, int B, int KV, int G, int dh, int n_split,
                   int chunk, float scale, cudaStream_t st) {
+  using T = typename Src::T;
   const size_t smem = decode_smem_bytes(G, dh);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const dim3 grid(n_split, KV, B);
-  const int normalize = out_m == nullptr;
-  if (n_split == 1) {
-    decode_kernel<Src><<<grid, kDecThreads, smem, st>>>(
-        src, q, out_o, out_m, out_l, B, KV, G, dh, chunk, scale, normalize);
+  const bool normalize = out_m == nullptr;
+  cudaError_t e;
+  if (n_split == 1 && normalize) {
+    e = allow_smem(decode_kernel<Src, T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    decode_kernel<Src, T><<<grid, kDecThreads, smem, st>>>(
+        src, q, static_cast<T*>(out_o), nullptr, nullptr, B, KV, G, dh,
+        chunk, scale, 1);
     return (int)cudaGetLastError();
   }
-  decode_kernel<Src><<<grid, kDecThreads, smem, st>>>(
+  e = allow_smem(decode_kernel<Src, float>, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (n_split == 1) {
+    decode_kernel<Src, float><<<grid, kDecThreads, smem, st>>>(
+        src, q, static_cast<float*>(out_o), out_m, out_l, B, KV, G, dh,
+        chunk, scale, 0);
+    return (int)cudaGetLastError();
+  }
+  decode_kernel<Src, float><<<grid, kDecThreads, smem, st>>>(
       src, q, part_o, part_m, part_l, B, KV, G, dh, chunk, scale, 0);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int rows = B * KV * G;
   const int threads = dh < 128 ? dh : 128;
-  combine_kernel<<<rows, threads, 0, st>>>(part_o, part_m, part_l, out_o,
-                                           out_m, out_l, rows, dh, n_split);
+  if (normalize)
+    combine_kernel<T><<<rows, threads, 0, st>>>(
+        part_o, part_m, part_l, static_cast<T*>(out_o), nullptr, nullptr,
+        rows, dh, n_split);
+  else
+    combine_kernel<float><<<rows, threads, 0, st>>>(
+        part_o, part_m, part_l, static_cast<float*>(out_o), out_m, out_l,
+        rows, dh, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -268,6 +309,7 @@ constexpr size_t tile_smem_bytes() {
 
 template <int DH, class Tile>
 __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
+  using T = typename Tile::T;
   constexpr int QS = DH + 1, KS = DH + 1, SS = kBK + 1, NC = DH / 16;
   constexpr int D4 = DH / 4;
   constexpr int kLoads = Tile::kVec4 ? kBK * D4 : kBK * DH;
@@ -282,8 +324,8 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   for (int i = tid; i < kBQ * DH; i += kTileThreads) {
     const int r = i / DH, d = i - r * DH;
-    const float* qr = t.q_row(r);
-    q_s[r * QS + d] = qr ? qr[d] * scale : 0.f;
+    const T* qr = t.q_row(r);
+    q_s[r * QS + d] = qr ? ld(qr + d) * scale : 0.f;
   }
 
   const int srow = tid >> 2, spart = tid & 3;  // softmax: 4 threads per row
@@ -303,8 +345,8 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
         float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
         if (k0 + j < t.n_keys) {
           const size_t off = t.key_row(k0 + j) + c;
-          kk = __ldg(reinterpret_cast<const float4*>(t.k + off));
-          vv = __ldg(reinterpret_cast<const float4*>(t.v + off));
+          kk = ld4(t.k + off);
+          vv = ld4(t.v + off);
         }
         float* kr = k_s + j * KS + c;
         kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
@@ -314,8 +356,8 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
         const int j = i / DH, d = i - j * DH;
         const bool in = k0 + j < t.n_keys;
         const size_t off = in ? t.key_row(k0 + j) + d : 0;
-        k_s[j * KS + d] = in ? __ldg(t.k + off) : 0.f;
-        v_s[j * DH + d] = in ? __ldg(t.v + off) : 0.f;
+        k_s[j * KS + d] = in ? ld(t.k + off) : 0.f;
+        v_s[j * DH + d] = in ? ld(t.v + off) : 0.f;
       }
     }
     __syncthreads();
@@ -401,19 +443,23 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    float* o = t.out_row(r);
+    T* o = t.out_row(r);
     if (!o) continue;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
   }
 }
 
-// Sets the tile kernel's shared memory and launches it on `grid`.
+// Sets the tile kernel's shared memory and launches it on `grid`.  Staging
+// is fp32 whatever the storage type: at DH = 256 that is
+// tile_smem_bytes<256>() = 214,272 B, under the 232,448 B a block may opt
+// into on an H100, so one block fits on an SM.
 template <int DH, class... Params, class... Args>
 int launch_tiles(void (*kernel)(Params...), dim3 grid, cudaStream_t st,
                  Args... args) {
   const size_t smem = tile_smem_bytes<DH>();
+  static_assert(tile_smem_bytes<DH>() <= 232448, "tile over the smem limit");
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -1,5 +1,7 @@
-// Causal (optionally sliding-window) flash attention for prefill, in the
-// grouped-query layout, fp32.
+// Causal (optionally sliding-window) or non-causal flash attention for
+// prefill, in the grouped-query layout, for fp32, fp16 and bf16 inputs
+// (fp32 arithmetic, output in the inputs' type), head_dim 32, 64, 128 or
+// 256.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py ::
 // flash_attention (kernel body _flash_kernel).  It computes the same
@@ -11,9 +13,9 @@
 // What bounds it on the H100: operations.  A 64-row query tile reuses each
 // key/value row 64 times, so at prefill lengths the flops (4 * dh per
 // unmasked query-key pair) outweigh the bytes.  It runs in full fp32 on the
-// CUDA cores (67 TFLOP/s peak): tensor cores would mean TF32, which breaks
-// fp32 parity with the reference.  A tensor-core (wgmma) design is later
-// work.
+// CUDA cores (67 TFLOP/s peak) whatever the storage type: tensor cores
+// would mean TF32 for fp32 inputs, which breaks fp32 parity with the
+// reference.  A tensor-core (wgmma) design for fp16 / bf16 is later work.
 //
 // What the design does about it:
 //  * The Pallas kernel walks all Sk/256 key tiles of every query tile.  Here
@@ -25,7 +27,10 @@
 //    has, so K/V are never broadcast to the G query heads.
 //  * 256 threads compute the 64x64 score tile and the 64 x dh output tile
 //    as 4 x 4 and 4 x (dh / 16) register micro-tiles; shared rows are padded
-//    so column reads do not collide in a bank.  That body is attn_tiles.cuh's
+//    so column reads do not collide in a bank.  Q, K and V are staged in
+//    shared memory as fp32 whatever the storage type: at dh = 256 that is
+//    214,272 B, under the H100's 232,448 B per-block limit (one block per
+//    SM), and 64 fp32 accumulators per thread.  That body is attn_tiles.cuh's
 //    attend_tile, shared with the paged verify; this file supplies the
 //    dense addressing, the causal / window mask and the tile range.
 //  * Any Sq / Sk is allowed: rows past Sq are not written and keys past Sk
@@ -40,22 +45,23 @@ namespace {
 
 // One (b, kv head, q head in group, 64-row query tile) of a dense causal /
 // windowed prefill; attn_tiles.cuh's attend_tile walks its key tiles.
-template <int DH>
+template <int DH, class Elem>
 struct CausalTile {
+  using T = Elem;
   static constexpr bool kVec4 = false;
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   size_t q_base, kv_base;   // offsets of (b, row 0, this head)
   size_t q_stride, k_stride;
   int Sq, q0, qa0;          // qa0: absolute position of row q0
   int causal, window;
   int kt_begin, kt_end, n_keys;
-  __device__ const float* q_row(int r) const {
+  __device__ const T* q_row(int r) const {
     return q0 + r < Sq ? q + q_base + (size_t)(q0 + r) * q_stride : nullptr;
   }
-  __device__ float* out_row(int r) const {
+  __device__ T* out_row(int r) const {
     return q0 + r < Sq ? out + q_base + (size_t)(q0 + r) * q_stride : nullptr;
   }
   __device__ size_t key_row(int slot) const {
@@ -71,15 +77,15 @@ struct CausalTile {
 };
 
 // grid (ceil(Sq / 64), KV * G, B)
-template <int DH>
+template <int DH, class T>
 __global__ void __launch_bounds__(attn::kTileThreads)
-attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ out, int Sq,
-            int Sk, int KV, int G, int causal, int window, int q_offset,
+attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+            int KV, int G, int causal, int window, int q_offset,
             float scale) {
   using attn::kBK;
   using attn::kBQ;
-  CausalTile<DH> t;
+  CausalTile<DH, T> t;
   const int q0 = blockIdx.x * kBQ;
   const int kvh = blockIdx.y / G, g = blockIdx.y - (blockIdx.y / G) * G;
   const int b = blockIdx.z;
@@ -103,33 +109,41 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   attn::attend_tile<DH>(t, scale);
 }
 
-template <int DH>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
+template <int DH, class T>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int KV, int G, int causal, int window, int q_offset,
            float scale, cudaStream_t st) {
   const dim3 grid((Sq + attn::kBQ - 1) / attn::kBQ, KV * G, B);
-  return attn::launch_tiles<DH>(attn_kernel<DH>, grid, st, q, k, v, out, Sq,
-                                Sk, KV, G, causal, window, q_offset, scale);
+  return attn::launch_tiles<DH>(
+      attn_kernel<DH, T>, grid, st, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+      Sq, Sk, KV, G, causal, window, q_offset, scale);
 }
 
 }  // namespace
 
-// q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh); out like q; all contiguous.
-// window <= 0 means no window.  dh must be 32, 64 or 128.
-extern "C" int repro_flash_attention_f32(const float* q, const float* k,
-                                         const float* v, float* out, int B,
-                                         int Sq, int Sk, int KV, int G, int dh,
-                                         int causal, int window, int q_offset,
-                                         float scale, void* stream) {
+// q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh); out like q; all contiguous and
+// of the storage type `dtype` (attn::DType).  window <= 0 means no window.
+// dh must be 32, 64, 128 or 256.
+extern "C" int repro_flash_attention(const void* q, const void* k,
+                                     const void* v, void* out, int B, int Sq,
+                                     int Sk, int KV, int G, int dh, int causal,
+                                     int window, int q_offset, float scale,
+                                     int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32:
-      return launch<32>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
-    case 64:
-      return launch<64>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
-    case 128:
-      return launch<128>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return elem::with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    switch (dh) {
+      case 32:
+        return launch<32, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+      case 64:
+        return launch<64, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+      case 128:
+        return launch<128, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+      case 256:
+        return launch<256, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
 }

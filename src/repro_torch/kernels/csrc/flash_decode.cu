@@ -1,5 +1,6 @@
 // Flash decoding for one query token per sequence against a dense KV cache,
-// in the grouped-query layout, fp32.
+// in the grouped-query layout, for fp32, fp16 and bf16 caches (fp32
+// arithmetic; output in the cache's type, partials in fp32).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py ::
 // flash_decode_partial / flash_decode (kernel body _decode_kernel).  It
@@ -8,8 +9,9 @@
 // (o, m, l) partials or o / max(l, 1e-30).
 //
 // What bounds it on the H100: bytes.  Each key/value row is used by G query
-// heads for 2*G*dh flops per 8*dh bytes, far below the card's ~20 flop/byte
-// fp32 balance point, so the least time is the cache read at 3.35 TB/s.
+// heads for 2*G*dh flops per 2*dh*sizeof(T) bytes, far below the card's
+// ~20 flop/byte fp32 balance point, so the least time is the cache read at
+// 3.35 TB/s.
 //
 // What the design does about it:
 //  * The Pallas call site broadcasts the grouped cache to G copies before
@@ -25,17 +27,19 @@
 //    (the TPU kernel's S % block_k assertion does not apply).
 // The tile body is attn_tiles.cuh's decode_kernel, shared with the paged
 // decode; this file supplies the dense cache's addressing and valid mask.
-// Loads are plain coalesced fp32 reads and the dot products run on the
-// CUDA cores; a TMA/cp.async pipeline is later work.
+// Loads are plain coalesced reads converted to fp32 in registers and the
+// dot products run on the CUDA cores; a TMA/cp.async pipeline is later work.
 #include "attn_tiles.cuh"
 
 namespace {
 
 // Slot s of row b at (B, S, KV, dh); any dh, so scalar loads.
+template <class Elem>
 struct DenseKV {
+  using T = Elem;
   static constexpr bool kVec4 = false;
-  const float* k;
-  const float* v;
+  const T* k;
+  const T* v;
   const uint8_t* valid;   // (B, S)
   int S, KV, dh;
   __device__ int length(int) const { return S; }
@@ -47,17 +51,24 @@ struct DenseKV {
 
 }  // namespace
 
-// q (B, KV, G, dh); k, v (B, S, KV, dh); valid (B, S) bytes, all contiguous.
-// out_o (B, KV, G, dh).  out_m, out_l (B, KV, G), or both NULL to normalise.
-// With n_split > 1, part_o/m/l hold (n_split, B, KV, G[, dh]) partials.
-// chunk: keys per split (a multiple of the tile, chunk * n_split >= S).
-extern "C" int repro_flash_decode_f32(
-    const float* q, const float* k, const float* v, const uint8_t* valid,
-    float* part_o, float* part_m, float* part_l, float* out_o, float* out_m,
+// q (B, KV, G, dh); k, v (B, S, KV, dh); valid (B, S) bytes, all contiguous;
+// q, k, v of the storage type `dtype` (attn::DType).  out_o (B, KV, G, dh)
+// of that type when out_m and out_l are both NULL (normalise), else fp32
+// unnormalised o with fp32 m, l (B, KV, G).  With n_split > 1,
+// part_o/m/l hold fp32 (n_split, B, KV, G[, dh]) partials.  chunk: keys
+// per split (a multiple of the tile, chunk * n_split >= S).
+extern "C" int repro_flash_decode(
+    const void* q, const void* k, const void* v, const uint8_t* valid,
+    float* part_o, float* part_m, float* part_l, void* out_o, float* out_m,
     float* out_l, int B, int S, int KV, int G, int dh, int n_split, int chunk,
-    float scale, void* stream) {
-  const DenseKV src{k, v, valid, S, KV, dh};
-  return attn::launch_decode(src, q, part_o, part_m, part_l, out_o, out_m,
-                             out_l, B, KV, G, dh, n_split, chunk, scale,
-                             static_cast<cudaStream_t>(stream));
+    float scale, int dtype, void* stream) {
+  return elem::with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    const DenseKV<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
+                         valid, S, KV, dh};
+    return attn::launch_decode(src, static_cast<const T*>(q), part_o, part_m,
+                               part_l, out_o, out_m, out_l, B, KV, G, dh,
+                               n_split, chunk, scale,
+                               static_cast<cudaStream_t>(stream));
+  });
 }

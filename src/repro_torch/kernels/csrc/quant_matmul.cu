@@ -1,5 +1,6 @@
-// Dequantizing matrix product for int8 / int4 weight shards, fp32:
-//   out (M, N) = x (M, K) @ (q (K, N) * scale (N,)), accumulated in fp32.
+// Dequantizing matrix product for int8 / int4 weight shards:
+//   out (M, N) = x (M, K) @ (q (K, N) * scale (N,)), accumulated in fp32,
+// x and out fp32, fp16 or bf16 (one type), scale fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/streamed_matmul.py ::
 // quantized_matmul (kernel body _quant_matmul_kernel, _dequant_tile).  It
@@ -9,8 +10,9 @@
 // The scale is applied once per output column to the fp32 accumulator
 // (sum_k x[m,k] q[k,n]) * s[n], not per tile to the weight as the Pallas
 // body does: the two agree within fp32 rounding.  Any M, N and K are
-// taken (the TPU kernel's 256/256/512 divisibility does not apply); for
-// 4 bits an odd K's padding nibble meets x = 0.
+// taken (the launcher applies the TPU kernel's divisibility contract only
+// to tiles a caller asks for); for 4 bits an odd K's padding nibble meets
+// x = 0.
 //
 // What bounds it on the H100:
 //  * Decode (M = B <= 4): bytes.  Each weight byte feeds 2 * M flops (int8)
@@ -31,16 +33,24 @@
 //    most SMs idle, so the launcher also splits K across blocks; the
 //    splits' partial sums go to a workspace and finalize_kernel adds them
 //    in a fixed order (no atomics: results do not vary from run to run).
-//  * tiled_kernel (M > kSkinnyM): a 64 x 64 output tile per block, 32-deep
-//    K steps through shared memory (x tile transposed, weight tile
-//    dequantized to fp32 there), 4 x 4 outputs per thread at a 16-element
-//    stride so shared-memory reads do not collide in a bank.
+//  * M > kSkinnyM: mm_tiles.cuh's tile body, shared with
+//    streamed_matmul.cu, over an int8 or int4 weight loader: the weight
+//    tile is dequantized to fp32 in shared memory (the scale applied to
+//    the accumulator at the end).  The caller's or the autotuned
+//    (block_m, block_n, block_k) give the block's output region, its
+//    register tile (64 or 128 per edge) and the K rows per stage (8, 16 or
+//    32), as for streamed_matmul.cu; 64 x 64 with 32-row stages when
+//    neither is given.
 //  * fp32 FMA on the CUDA cores, no TF32.  wgmma, TMA and an int8 tensor
 //    core path are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mm_tiles.cuh"
+
 namespace {
+
+using namespace elem;
 
 constexpr int kSkinnyM = 4;                    // launcher: SKINNY_M
 constexpr int kVec = 16;                       // bytes a thread loads per row
@@ -50,8 +60,6 @@ constexpr int kThreads = kLanesN * kLanesK;    // 256
 constexpr int kBlockN = kLanesN * kVec;        // launcher: BLOCK_N (64)
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
-
-constexpr int kTM = 64, kTN = 64, kTK = 32;    // tiled_kernel
 
 __device__ __forceinline__ float lo4(uint32_t b) {   // b: one byte
   return (float)((int)(b << 28) >> 28);
@@ -82,17 +90,17 @@ __device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ w, int r,
 }
 
 // acc[m][j] += sum over the stored row r's K values of x[m, k] * q[k, col0 + j]
-template <int BITS>
+template <int BITS, class T>
 __device__ __forceinline__ void accumulate(float (&acc)[kSkinnyM][kVec],
                                            const uint4 wv,
-                                           const float* __restrict__ x, int r,
+                                           const T* __restrict__ x, int r,
                                            int M, int K) {
   const uint32_t word[4] = {wv.x, wv.y, wv.z, wv.w};
   if (BITS == 8) {
     float xv[kSkinnyM];
 #pragma unroll
     for (int m = 0; m < kSkinnyM; ++m)
-      xv[m] = m < M ? __ldg(x + (size_t)m * K + r) : 0.f;
+      xv[m] = m < M ? ld(x + (size_t)m * K + r) : 0.f;
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const float q = s8((word[j / 4] >> (8 * (j % 4))) & 0xffu);
@@ -104,8 +112,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[kSkinnyM][kVec],
     float xl[kSkinnyM], xh[kSkinnyM];
 #pragma unroll
     for (int m = 0; m < kSkinnyM; ++m) {
-      xl[m] = m < M ? __ldg(x + (size_t)m * K + k0) : 0.f;
-      xh[m] = (m < M && k1 < K) ? __ldg(x + (size_t)m * K + k1) : 0.f;
+      xl[m] = m < M ? ld(x + (size_t)m * K + k0) : 0.f;
+      xh[m] = (m < M && k1 < K) ? ld(x + (size_t)m * K + k1) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
@@ -124,10 +132,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[kSkinnyM][kVec],
 // rows [s * rows_per_split, min(rows, (s + 1) * rows_per_split)).  With
 // part == nullptr (one split) it writes out * scale; else raw sums to
 // part (splits, M, N).
-template <int BITS, bool VEC>
+template <int BITS, bool VEC, class T>
 __global__ void __launch_bounds__(kThreads)
-skinny_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-              const float* __restrict__ scale, float* __restrict__ out,
+skinny_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
+              const float* __restrict__ scale, T* __restrict__ out,
               float* __restrict__ part, int M, int K, int N, int rows,
               int rows_per_split) {
   __shared__ float red[kWarps][kLanesN][kSkinnyM][kVec];
@@ -186,137 +194,117 @@ skinny_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
   for (int wi = 0; wi < kWarps; ++wi) s += red[wi][c / kVec][m][c % kVec];
   if (part == nullptr)
-    out[(size_t)m * N + col] = s * scale[col];
+    out[(size_t)m * N + col] = from_f32<T>(s * scale[col]);
   else
     part[((size_t)blockIdx.y * M + m) * N + col] = s;
 }
 
 // out[m, n] = scale[n] * sum over splits of part[s, m, n], splits in order.
+template <class T>
 __global__ void finalize_kernel(const float* __restrict__ part,
                                 const float* __restrict__ scale,
-                                float* __restrict__ out, int splits, int M,
+                                T* __restrict__ out, int splits, int M,
                                 int N) {
   const size_t mn = (size_t)M * N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
-  out[i] = s * scale[i % N];
+  out[i] = from_f32<T>(s * scale[i % N]);
 }
 
-// grid (ceil(N / kTN), ceil(M / kTM)), 256 threads.
-template <int BITS>
-__global__ void __launch_bounds__(256)
-tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-             const float* __restrict__ scale, float* __restrict__ out, int M,
-             int K, int N, int rows) {
-  __shared__ float xs[kTK][kTM + 1];   // x tile, transposed: xs[k][m]
-  __shared__ float ws[kTK][kTN];       // dequantized weight tile (no scale)
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-#pragma unroll
-    for (int i = 0; i < kTM * kTK / 256; ++i) {
-      const int e = tid + i * 256, mm = e / kTK, kk = e % kTK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk][mm] = (gm < M && gk < K) ? __ldg(x + (size_t)gm * K + gk) : 0.f;
-    }
-    if (BITS == 8) {
-#pragma unroll
-      for (int i = 0; i < kTK * kTN / 256; ++i) {
-        const int e = tid + i * 256, kk = e / kTN, nn = e % kTN;
-        const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk][nn] = (gk < K && gn < N) ? s8(__ldg(w + (size_t)gk * N + gn)) : 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kTK / 2 * kTN / 256; ++i) {
-        const int e = tid + i * 256, pr = e / kTN, nn = e % kTN;
-        const int gr = k0 / 2 + pr, gn = n0 + nn;
-        const uint32_t b = (gr < rows && gn < N) ? __ldg(w + (size_t)gr * N + gn) : 0u;
-        ws[2 * pr][nn] = lo4(b);
-        ws[2 * pr + 1][nn] = hi4(b);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// The weight loaders of mm_tiles.cuh's tile body: a K stage of the
+// quantized (K, N) weight as fp32 integers (the scale is applied to the
+// accumulator); past the edge, 0.
+struct Int8B {
+  const uint8_t* w;
+  int K, N;
+  __device__ float get(int k, int n) const {
+    return (k < K && n < N) ? s8(__ldg(w + (size_t)k * N + n)) : 0.f;
   }
+  template <int KC, int BN>
+  __device__ __forceinline__ void stage(float (&ws)[KC][BN], int k0,
+                                        int n0) const {
+    mm::stage_elements(*this, ws, k0, n0);
+  }
+};
+
+// Rows 2i (low nibble) and 2i + 1 (high) in byte row i: each byte is
+// read once and fills two rows of the stage (KC and k0 are even).
+struct Int4B {
+  const uint8_t* w;
+  int K, N;
+  template <int KC, int BN>
+  __device__ __forceinline__ void stage(float (&ws)[KC][BN], int k0,
+                                        int n0) const {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j] * scale[gn];
+    for (int i = 0; i < KC / 2 * BN / mm::kThreads; ++i) {
+      const int e = threadIdx.x + i * mm::kThreads;
+      const int pr = e / BN, nn = e % BN;
+      const int k = k0 + 2 * pr, n = n0 + nn;
+      const uint32_t b =
+          (k < K && n < N) ? __ldg(w + (size_t)(k >> 1) * N + n) : 0u;
+      ws[2 * pr][nn] = lo4(b);
+      ws[2 * pr + 1][nn] = k + 1 < K ? hi4(b) : 0.f;
     }
   }
-}
+};
 
-template <int BITS>
-int launch(const float* x, const uint8_t* w, const float* scale, float* out,
+template <int BITS, class T>
+int launch(const T* x, const uint8_t* w, const float* scale, T* out,
            float* part, int M, int K, int N, int splits, int rows_per_split,
-           bool vec, cudaStream_t stream) {
+           bool vec, int rm, int rn, int bm, int bn, int kc,
+           cudaStream_t stream) {
   const int rows = BITS == 8 ? K : (K + 1) / 2;
   if (M > kSkinnyM) {
-    const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-    tiled_kernel<BITS><<<grid, 256, 0, stream>>>(x, w, scale, out, M, K, N, rows);
-    return (int)cudaGetLastError();
+    if (BITS == 8)
+      return mm::launch(rm, rn, bm, bn, kc, x, Int8B{w, K, N}, scale, out, M,
+                        K, N, stream);
+    return mm::launch(rm, rn, bm, bn, kc, x, Int4B{w, K, N}, scale, out, M,
+                      K, N, stream);
   }
   const dim3 grid((N + kBlockN - 1) / kBlockN, splits);
   float* dst = splits > 1 ? part : nullptr;
   if (vec)
-    skinny_kernel<BITS, true><<<grid, kThreads, 0, stream>>>(
+    skinny_kernel<BITS, true, T><<<grid, kThreads, 0, stream>>>(
         x, w, scale, out, dst, M, K, N, rows, rows_per_split);
   else
-    skinny_kernel<BITS, false><<<grid, kThreads, 0, stream>>>(
+    skinny_kernel<BITS, false, T><<<grid, kThreads, 0, stream>>>(
         x, w, scale, out, dst, M, K, N, rows, rows_per_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits <= 1) return (int)e;
   const size_t mn = (size_t)M * N;
-  finalize_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+  finalize_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
       part, scale, out, splits, M, N);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) f32; w: int8 (K, N) for bits 8, uint8 (ceil(K/2), N) for bits 4;
-// scale (N,) f32; out (M, N) f32; all contiguous, M, N, K > 0.  For
-// M <= 4: splits (>= 1) K splits of rows_per_split stored rows each, part
-// (splits, M, N) f32 when splits > 1 (else unused); vec: N % 16 == 0 and
-// w 16-byte aligned.  Returns the CUDA error of the launches (0 = none).
-extern "C" int repro_quant_matmul_f32(const float* x, const uint8_t* w,
-                                      const float* scale, float* out,
-                                      float* part, int M, int K, int N,
-                                      int bits, int splits,
-                                      int rows_per_split, int vec,
-                                      void* stream) {
+// x (M, K) and out (M, N) of the storage type `dtype` (elem::DType); w:
+// int8 (K, N) for bits 8, uint8 (ceil(K/2), N) for bits 4; scale (N,) f32;
+// all contiguous, M, N, K > 0.  For M <= 4: splits (>= 1) K splits of
+// rows_per_split stored rows each, part (splits, M, N) f32 when splits > 1
+// (else unused); vec: N % 16 == 0 and w 16-byte aligned.  For M > 4:
+// blocks own rm x rn output regions, walked in the bm x bn register tile,
+// (bm, bn) in {64, 128}^2, with kc in {8, 16, 32} K rows per stage.
+// Returns the CUDA error of the launches (0 = none).
+extern "C" int repro_quant_matmul(const void* x, const uint8_t* w,
+                                  const float* scale, void* out, float* part,
+                                  int M, int K, int N, int bits, int splits,
+                                  int rows_per_split, int vec, int rm, int rn,
+                                  int bm, int bn, int kc, int dtype,
+                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    return launch<8>(x, w, scale, out, part, M, K, N, splits, rows_per_split,
-                     vec != 0, st);
-  if (bits == 4)
-    return launch<4>(x, w, scale, out, part, M, K, N, splits, rows_per_split,
-                     vec != 0, st);
-  return (int)cudaErrorInvalidValue;
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  return elem::with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    const T* xt = static_cast<const T*>(x);
+    T* ot = static_cast<T*>(out);
+    if (bits == 8)
+      return launch<8>(xt, w, scale, ot, part, M, K, N, splits,
+                       rows_per_split, vec != 0, rm, rn, bm, bn, kc, st);
+    return launch<4>(xt, w, scale, ot, part, M, K, N, splits, rows_per_split,
+                     vec != 0, rm, rn, bm, bn, kc, st);
+  });
 }

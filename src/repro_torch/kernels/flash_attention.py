@@ -5,7 +5,9 @@
 The kernel takes the grouped layout of ``gqa_prefill`` — q (B, Sq, KV, G,
 dh), k/v (B, Sk, KV, dh) — and skips key tiles that lie wholly above the
 causal diagonal or outside the window.  ``flash_attention`` keeps the
-reference's BH-flat signature as a thin view (one head per row).
+reference's BH-flat signature as a thin view (one head per row).  Inputs
+are fp32, fp16 or bf16 (one type for q, k and v), computed in fp32; the
+output is in q's type.
 
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
 launches.
@@ -18,17 +20,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode import check_cuda_f32
+from repro_torch.kernels.flash_decode import check_cuda
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib():
-    fn = build.library("flash_attention").repro_flash_attention_f32
+    fn = build.library("flash_attention").repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
@@ -36,7 +38,7 @@ def _lib():
 def flash_attention_gqa(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0):
     """q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh) -> (B, Sq, KV, G, dh)."""
-    check_cuda_f32("flash_attention", q, k, v)
+    tag = check_cuda("flash_attention", q, k, v)
     b, sq, kv, g, dh = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, kv, dh) or v.shape != k.shape:
@@ -56,7 +58,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, kv, g, dh, int(causal), int(window or 0),
-                 int(q_offset), 1.0 / (dh ** 0.5), stream)
+                 int(q_offset), 1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

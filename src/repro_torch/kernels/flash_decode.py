@@ -8,8 +8,10 @@ heads.  ``flash_decode_partial``/``flash_decode`` keep the reference's
 BH-flat signature as a thin view (B = BH rows, one head each), so the
 unnormalised ``(o, m, l)`` contract stays testable.
 
-These functions take CUDA tensors only; ``kernels/ops.py`` dispatches by
-device and counts launches.
+Inputs are fp32, fp16 or bf16 (one type for q, k and v); the kernel
+computes in fp32 and returns the normalised output in the cache's type and
+the partials in fp32, as the reference does.  These functions take CUDA
+tensors only; ``kernels/ops.py`` dispatches by device and counts launches.
 """
 from __future__ import annotations
 
@@ -23,27 +25,37 @@ from repro_torch.kernels import build
 TILE = 64          # keys per shared-memory tile (csrc kTile)
 TARGET_BLOCKS = 2 * 132   # enough blocks to fill the H100's SMs twice
 
+# storage types the kernels take, and their tags (csrc attn::DType)
+DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib():
-    lib = build.library("flash_decode")
-    fn = lib.repro_flash_decode_f32
+    fn = build.library("flash_decode").repro_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+def check_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """Raise unless every tensor is contiguous on a CUDA device and of one
+    type in ``DTYPES``; returns that type's tag.  Any other type raises
+    ``TypeError``: there is no fallback."""
+    dtype = tensors[0].dtype
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: only float32 is supported, got "
-                            f"{t.dtype}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name}: only float32, float16 and bfloat16 "
+                            f"are supported, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: inputs must share one dtype, got "
+                            f"{dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return DTYPES[dtype]
 
 
 def splits(b: int, kv: int, s: int) -> Tuple[int, int]:
@@ -61,9 +73,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     """q (B, KV, G, dh); k, v (B, S, KV, dh); valid (B, S) bool.
-    ``normalize`` -> (B, KV, G, dh); else unnormalised partials
-    (o (B, KV, G, dh), m, l (B, KV, G))."""
-    check_cuda_f32("flash_decode", q, k, v)
+    ``normalize`` -> (B, KV, G, dh) in the cache's dtype; else fp32
+    unnormalised partials (o (B, KV, G, dh), m, l (B, KV, G))."""
+    tag = check_cuda("flash_decode", q, k, v)
     b, kv, g, dh = q.shape
     s = k.shape[1]
     if k.shape != (b, s, kv, dh) or v.shape != k.shape:
@@ -78,7 +90,8 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     if s == 0:
         raise ValueError("flash_decode: empty cache")
     n_split, chunk = splits(b, kv, s)
-    out_o = torch.empty((b, kv, g, dh), device=q.device, dtype=torch.float32)
+    out_o = torch.empty((b, kv, g, dh), device=q.device,
+                        dtype=v.dtype if normalize else torch.float32)
     out_m = out_l = None
     if not normalize:
         out_m = torch.empty((b, kv, g), device=q.device, dtype=torch.float32)
@@ -94,7 +107,7 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
                  _ptr(part_o), _ptr(part_m), _ptr(part_l), out_o.data_ptr(),
                  _ptr(out_m), _ptr(out_l), b, s, kv, g, dh, n_split, chunk,
-                 1.0 / (dh ** 0.5), stream)
+                 1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")

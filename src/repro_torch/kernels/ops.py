@@ -8,7 +8,9 @@ nothing else (the plain versions do not count), so a run can show that
 its main path went through the kernels.
 
 Signatures follow ``repro/kernels/ops.py``; the ``*_gqa`` forms take the
-grouped layouts the model code uses.
+grouped layouts the model code uses.  ``set_tuned`` installs autotune
+selections (``kernels/autotune.py``) as process-wide defaults: the tiles
+of ``matmul`` / ``quant_matmul`` and the route of ``paged_decode``.
 """
 from __future__ import annotations
 
@@ -25,15 +27,65 @@ from repro_torch.kernels.flash_decode import (flash_decode,
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_verify)
 from repro_torch.kernels.quant_matmul import quant_matmul as _quant_matmul
+from repro_torch.kernels.streamed_matmul import (check_tiles,
+                                                 streamed_matmul)
 
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0,
             "paged_flash_decode": 0, "paged_flash_verify": 0,
-            "quantized_matmul": 0}
+            "quantized_matmul": 0, "streamed_matmul": 0}
+
+# ---- autotuned defaults (kernels/autotune.py) ----------------------------
+# ``set_tuned`` installs per-device selections; the wrappers resolve their
+# default tiles from here, falling back to the built-ins whenever a tuned
+# tile does not divide the call's shape, as the reference does.
+_DEFAULT_TILES = {"block_m": 256, "block_n": 256, "block_k": 512}
+_TUNED: dict = {"matmul": None, "quant_matmul": None, "paged_impl": None}
+# paged decode routes: the block-table kernel, or the pages gathered to a
+# dense cache and the flash-decoding kernel
+PAGED_IMPLS = ("paged", "gather")
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def set_tuned(*, matmul=None, quant_matmul=None,
+              paged_impl: Optional[str] = None) -> None:
+    """Install autotune selections as process-wide wrapper defaults (pass
+    nothing to clear)."""
+    if paged_impl is not None and paged_impl not in PAGED_IMPLS:
+        raise ValueError(f"unknown paged impl {paged_impl!r}; choose one of "
+                         f"{PAGED_IMPLS}")
+    _TUNED["matmul"] = dict(matmul) if matmul else None
+    _TUNED["quant_matmul"] = dict(quant_matmul) if quant_matmul else None
+    _TUNED["paged_impl"] = paged_impl
+
+
+def tuned_paged_impl() -> Optional[str]:
+    """The autotuned paged-decode route ("paged" / "gather"), or None when
+    untuned; ``paged_decode`` follows it when no route is passed."""
+    return _TUNED["paged_impl"]
+
+
+def _divides(tile: dict, m: int, k: int, n: int) -> bool:
+    bm = min(tile["block_m"], m)
+    bn = min(tile["block_n"], n)
+    bk = min(tile["block_k"], k)
+    return (min(bm, bn, bk) > 0 and m % bm == 0 and n % bn == 0
+            and k % bk == 0)
+
+
+def _resolve_tiles(kernel: str, m: int, k: int, n: int, block_m, block_n,
+                   block_k) -> dict:
+    """An explicit tile wins; else the tuned entry when it divides the
+    shape, else the built-in defaults (as a whole)."""
+    tuned = _TUNED[kernel]
+    base = (tuned if tuned is not None and _divides(tuned, m, k, n)
+            else _DEFAULT_TILES)
+    return {"block_m": block_m if block_m is not None else base["block_m"],
+            "block_n": block_n if block_n is not None else base["block_n"],
+            "block_k": block_k if block_k is not None else base["block_k"]}
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -97,11 +149,28 @@ def attention_gqa(q, k, v, *, causal: bool = True,
     return out
 
 
-def paged_decode(q, k_pages, v_pages, tables, lengths):
+def paged_decode(q, k_pages, v_pages, tables, lengths,
+                 impl: Optional[str] = None):
     """Paged decode through per-row block tables, over the scheduler's
-    (P, page, KV, dh) pools in place (``ops.paged_decode``): q (B, KV, G,
-    dh), tables (B, NB) int32 (short rows padded with page 0), lengths
-    (B,) int32 live slots -> (B, KV, G, dh)."""
+    (P, page, KV, dh) pools (``ops.paged_decode``): q (B, KV, G, dh),
+    tables (B, NB) int32 (short rows padded with page 0), lengths (B,)
+    int32 live slots -> (B, KV, G, dh).  ``impl`` (default: the tuned
+    route, else "paged"): "paged" reads the pools in place through the
+    tables; "gather" gathers each row's pages to a dense (B, NB * page,
+    KV, dh) cache with a valid mask from ``lengths`` and runs flash
+    decoding on it."""
+    impl = impl or tuned_paged_impl() or "paged"
+    if impl not in PAGED_IMPLS:
+        raise ValueError(f"unknown paged impl {impl!r}; choose one of "
+                         f"{PAGED_IMPLS}")
+    if impl == "gather":
+        b, nb = tables.shape
+        shape = (b, nb * k_pages.shape[1]) + tuple(k_pages.shape[2:])
+        k = k_pages[tables.long()].reshape(shape)
+        v = v_pages[tables.long()].reshape(shape)
+        valid = (torch.arange(shape[1], device=q.device)[None, :]
+                 < lengths[:, None])
+        return decode_gqa(q, k, v, valid)
     if not _on_cuda(q, k_pages, v_pages, tables, lengths):
         return ref.paged_decode_ref(q, k_pages, v_pages, tables, lengths)
     out = paged_flash_decode(q, k_pages, v_pages, tables, lengths)
@@ -119,12 +188,55 @@ def paged_verify(q, k_pages, v_pages, tables, lengths):
     return out
 
 
-def quant_matmul(x, w_q, scale, bits: int = 8):
+def matmul(x, w, *, block_m: Optional[int] = None,
+           block_n: Optional[int] = None, block_k: Optional[int] = None):
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype (``ops.matmul``).  The
+    tiles resolve as the reference's do and must divide the shape on
+    either device, else ``ValueError``."""
+    m, k = x.shape
+    n = w.shape[1]
+    tiles = _resolve_tiles("matmul", m, k, n, block_m, block_n, block_k)
+    check_tiles(m, k, n, **tiles)
+    if not _on_cuda(x, w):
+        return ref.matmul_ref(x, w)
+    out = streamed_matmul(x, w, **tiles)
+    LAUNCHES["streamed_matmul"] += 1
+    return out
+
+
+def quant_matmul(x, w_q, scale, bits: int = 8, *,
+                 block_m: Optional[int] = None,
+                 block_n: Optional[int] = None,
+                 block_k: Optional[int] = None):
     """x (M, K) @ (w_q dequantized, times ``scale`` per column) -> (M, N)
     in x's dtype (``ops.quant_matmul``): w_q int8 (K, N) for ``bits=8``,
-    nibble-packed uint8 (ceil(K/2), N) for ``bits=4``; scale f32 (N,)."""
+    nibble-packed uint8 (ceil(K/2), N) for ``bits=4``; scale f32 (N,).
+
+    Tiles resolve as the reference's do (for int4 an odd ``block_k``
+    falls back to the default).  Unlike ``matmul``, the kernel takes any
+    shape: the serving path runs it on every linear, the vocabulary head's
+    ragged width included, which the reference never does.  So only tiles
+    the caller passes are held to the divisibility contract; without
+    them, a tuned entry that divides the shape picks the kernel's variant
+    and anything else takes its own (``quant_matmul.DEFAULT_CTA``)."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    tiles = _resolve_tiles("quant_matmul", m, k, n, block_m, block_n,
+                           block_k)
+    if bits == 4 and min(tiles["block_k"], k) % 2:
+        tiles["block_k"] = _DEFAULT_TILES["block_k"]
+    explicit = (block_m, block_n, block_k) != (None, None, None)
+    if explicit:
+        bk = check_tiles(m, k, n, **tiles)[2]
+        if bits == 4 and bk % 2:
+            raise ValueError(f"quant_matmul: int4 needs an even block_k, "
+                             f"got {bk}")
     if not _on_cuda(x, w_q, scale):
         return ref.quant_matmul_ref(x, w_q, scale, bits=bits)
-    out = _quant_matmul(x, w_q, scale, bits)
+    tuned = _TUNED["quant_matmul"]
+    use = explicit or (tuned is not None and _divides(tuned, m, k, n))
+    out = _quant_matmul(x, w_q, scale, bits,
+                        (tiles["block_m"], tiles["block_n"],
+                         tiles["block_k"]) if use else None)
     LAUNCHES["quantized_matmul"] += 1
     return out

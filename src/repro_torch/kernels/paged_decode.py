@@ -10,6 +10,9 @@ Both read the scheduler's ``(P, page, KV, dh)`` pools in place through
   * ``paged_flash_verify``: q (B, W, KV, G, dh) -> (B, W, KV, G, dh); query
     ``w`` of row ``b`` attends slots ``<= lengths[b] - W + w``.
 
+Pools and q are fp32, fp16 or bf16 (one type), computed in fp32; the
+output is in the pools' type.
+
 Preconditions the kernels cannot check without a device sync: table
 entries lie in ``[0, P)``, ``lengths[b] >= 1`` (decode) and
 ``lengths[b] >= W`` (verify).
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import HEAD_DIMS
-from repro_torch.kernels.flash_decode import _ptr, check_cuda_f32, splits
+from repro_torch.kernels.flash_decode import _ptr, check_cuda, splits
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -33,15 +36,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fn(name: str, n_ptr: int, n_int: int):
     fn = getattr(build.library("paged_decode"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [ctypes.c_float, _I,
+                                                      _P]
         fn.restype = _I
     return fn
 
 
 def _check(name: str, q, k_pages, v_pages, tables, lengths, kv: int,
            dh: int):
-    """Raise on what the kernels do not take; returns (page, NB)."""
-    check_cuda_f32(name, q, k_pages, v_pages)
+    """Raise on what the kernels do not take; returns (page, NB, dtype
+    tag)."""
+    tag = check_cuda(name, q, k_pages, v_pages)
     _, page, kv_p, dh_p = k_pages.shape
     if v_pages.shape != k_pages.shape or (kv_p, dh_p) != (kv, dh):
         raise ValueError(f"{name}: pool shapes {tuple(k_pages.shape)}, "
@@ -50,8 +55,8 @@ def _check(name: str, q, k_pages, v_pages, tables, lengths, kv: int,
     if dh % 4:
         raise ValueError(f"{name}: head_dim {dh} is not a multiple of 4")
     for t in (k_pages, v_pages):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: pools must be 16-byte aligned")
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{name}: pools must be aligned to 4 elements")
     b = q.shape[0]
     if tables.ndim != 2 or tables.shape[1] == 0:
         raise ValueError(f"{name}: tables must be (B, NB) with NB > 0, got "
@@ -64,17 +69,17 @@ def _check(name: str, q, k_pages, v_pages, tables, lengths, kv: int,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous on q's "
                              f"device")
-    return page, tables.shape[1]
+    return page, tables.shape[1], tag
 
 
 def paged_flash_decode(q, k_pages, v_pages, tables, lengths):
     """q (B, KV, G, dh); pools (P, page, KV, dh); tables (B, NB) int32;
     lengths (B,) int32 -> (B, KV, G, dh)."""
     b, kv, g, dh = q.shape
-    page, nb = _check("paged_flash_decode", q, k_pages, v_pages, tables,
-                      lengths, kv, dh)
+    page, nb, tag = _check("paged_flash_decode", q, k_pages, v_pages,
+                           tables, lengths, kv, dh)
     n_split, chunk = splits(b, kv, nb * page)
-    out = torch.empty((b, kv, g, dh), device=q.device, dtype=torch.float32)
+    out = torch.empty((b, kv, g, dh), device=q.device, dtype=v_pages.dtype)
     part_o = part_m = part_l = None
     if n_split > 1:
         part_o = torch.empty((n_split, b, kv, g, dh), device=q.device,
@@ -83,11 +88,11 @@ def paged_flash_decode(q, k_pages, v_pages, tables, lengths):
                              dtype=torch.float32)
         part_l = torch.empty_like(part_m)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn("repro_paged_decode_f32", 9, 8)(
+    err = _fn("repro_paged_decode", 9, 8)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), _ptr(part_o), _ptr(part_m),
         _ptr(part_l), out.data_ptr(), b, kv, g, dh, page, nb, n_split, chunk,
-        1.0 / (dh ** 0.5), stream)
+        1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "
                            f"error {err}")
@@ -98,8 +103,8 @@ def paged_flash_verify(q, k_pages, v_pages, tables, lengths):
     """q (B, W, KV, G, dh); pools, tables, lengths as for decode ->
     (B, W, KV, G, dh)."""
     b, w, kv, g, dh = q.shape
-    page, nb = _check("paged_flash_verify", q, k_pages, v_pages, tables,
-                      lengths, kv, dh)
+    page, nb, tag = _check("paged_flash_verify", q, k_pages, v_pages,
+                           tables, lengths, kv, dh)
     if dh not in HEAD_DIMS:
         raise ValueError(f"paged_flash_verify: head_dim {dh} not in "
                          f"{HEAD_DIMS}")
@@ -107,10 +112,10 @@ def paged_flash_verify(q, k_pages, v_pages, tables, lengths):
     if w == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn("repro_paged_verify_f32", 6, 7)(
+    err = _fn("repro_paged_verify", 6, 7)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, w, kv, g,
-        dh, page, nb, 1.0 / (dh ** 0.5), stream)
+        dh, page, nb, 1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"paged_flash_verify kernel launch failed: CUDA "
                            f"error {err}")

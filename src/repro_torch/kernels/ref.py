@@ -17,6 +17,14 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
+# Streamed matmul
+# ---------------------------------------------------------------------------
+def matmul_ref(x, w):
+    """x (M, K) @ w (K, N) in fp32 -> (M, N) in x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Flash decoding: one query token against a KV cache
 # ---------------------------------------------------------------------------
 def decode_partial_ref(q, k, v, valid):

@@ -15,6 +15,12 @@ sibling directory, transcoded once), every linear layer through the
 dequantizing matmul kernel; ``--quant auto`` lets the planner pick the
 shard dtype jointly with the schedule.
 
+``--autotune`` tunes the kernels for the planner's winning (dtype, page
+size) before serving: the streamed matmul's tiles at the model's FFN
+shape and, with ``--page-size``, the paged-decode route, timed on the
+device and cached (``~/.cache/repro_torch/autotune.json``, or
+``$REPRO_TORCH_AUTOTUNE_CACHE``), so a repeat run skips the sweep.
+
 ``--shared-prefix N`` makes every request's first N prompt tokens
 identical, and ``--page-size P`` adds the PAGED KV reservation
 (core/kv_pages.py) to the planner's search: requests map fixed-size cache
@@ -27,8 +33,8 @@ Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
 profile is cached as ``profile_torch_<device>.json``.  The flags of
-slices not yet ported (speculation, the SLO tier, trace replay,
-autotune) exit with a "not yet ported in repro_torch" error.
+slices not yet ported (speculation, the SLO tier, trace replay) exit with
+a "not yet ported in repro_torch" error.
 """
 from __future__ import annotations
 
@@ -88,7 +94,7 @@ def _not_ported(flag: str):
     raise SystemExit(f"error: {flag} is not yet ported in repro_torch")
 
 
-def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
+def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         prompt_len: int = 16, new_tokens: int = 8, reduced: bool = True,
         num_agents: int | None = None, pin_window: int | None = None,
         kv_cache: bool = True, max_inflight: int = 4,
@@ -96,18 +102,25 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
         quant: str = "fp32", page_size: int = 0, prefix_cache: bool = True,
         shared_prefix: int = 0, chunk_prefill: int = 0,
         trace_out: str | None = None, metrics_out: str | None = None,
-        device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto"):
+        device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto",
+        autotune: bool = False):
     """Serve ``requests`` seeded prompts; returns ``(outs, stats)``.
-    ``attn_impl=None`` runs the kernels' plain PyTorch versions."""
+    ``arch`` is a registered name (cut by ``reduced``) or a model config
+    served as given, e.g. one whose depth a caller cut; its checkpoint
+    directory is named by ``cfg.name``.  ``attn_impl=None`` runs the
+    kernels' plain PyTorch versions."""
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")
     tele.metrics().reset()
     if trace_out:
         tele.enable()
-    cfg = get(arch)
-    if reduced:
-        cfg = cfg.reduced().with_(num_layers=8)
+    if isinstance(arch, str):
+        cfg = get(arch)
+        if reduced:
+            cfg = cfg.reduced().with_(num_layers=8)
+    else:
+        cfg = arch
     ckpt = ensure_checkpoint(cfg, root=ckpt_root)
     hermes = Hermes(ckpt, cfg, device=device)
     # fixed dtype = a one-entry search; "auto" lets the planner pick the
@@ -167,6 +180,18 @@ def run(arch: str, *, budget_mb: float | None = None, requests: int = 4,
             f"{g.cache_bytes/2**20:.1f}MB KV cache at inflight="
             f"{g.inflight}); raise the budget, shrink "
             f"prompt/new-tokens, or pass --no-kv-cache")
+    if autotune:
+        # kernel tiles / routes for the planner's winning (dtype, page
+        # size), seeded from that checkpoint's profile and cached to disk:
+        # repeat serves skip the timing sweep
+        sel = hermes.autotune(page_size=g.page_size or None,
+                              quant=(g.dtype if g.dtype != "fp32"
+                                     else None))
+        mm = sel["matmul"]
+        print(f"autotune({sel['arch']}): matmul tiles "
+              f"{mm['block_m']}x{mm['block_n']}x{mm['block_k']}"
+              + (f", paged impl {sel['paged_decode']['impl']}"
+                 if "paged_decode" in sel else ""))
     hermes = hermes.quantized(g.dtype)
     agents = num_agents or g.num_agents
     pin = g.pin_window if pin_window is None else pin_window
@@ -277,7 +302,8 @@ def main(argv=None):
     ap.add_argument("--spec-depth", type=int, default=0,
                     help="speculative depth (not yet ported)")
     ap.add_argument("--autotune", action="store_true",
-                    help="kernel autotune (not yet ported)")
+                    help="tune the kernels' tiles / paged route for the "
+                    "planned dtype and page size (cached per device)")
     ap.add_argument("--trace", default=None,
                     help="multi-tenant trace replay (not yet ported)")
     ap.add_argument("--tenants", type=int, default=0,
@@ -301,7 +327,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     unported = [("--draft-arch", args.draft_arch),
                 ("--spec-depth", args.spec_depth),
-                ("--autotune", args.autotune), ("--trace", args.trace),
+                ("--trace", args.trace),
                 ("--tenants", args.tenants),
                 ("--slo-ttft-ms", args.slo_ttft_ms),
                 ("--slo-tpot-ms", args.slo_tpot_ms),
@@ -318,7 +344,7 @@ def main(argv=None):
         prefix_cache=not args.no_prefix_cache,
         shared_prefix=args.shared_prefix, chunk_prefill=args.chunk_prefill,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
-        device=args.device)
+        device=args.device, autotune=args.autotune)
 
 
 if __name__ == "__main__":

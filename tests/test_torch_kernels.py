@@ -153,10 +153,12 @@ def test_cpu_path_counts_no_launches():
     ops.paged_verify(q[:, :2], pages, pages, tables, lengths)
     w8 = torch.ones((32, 8), dtype=torch.int8)
     ops.quant_matmul(q[0, :, 0, 0], w8, torch.ones(8), 8)
+    ops.matmul(q[0, :, 0, 0], torch.ones((32, 8)))
+    ops.paged_decode(q[:, 0], pages, pages, tables, lengths, impl="gather")
     assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0,
                             "paged_flash_decode": 0,
                             "paged_flash_verify": 0,
-                            "quantized_matmul": 0}
+                            "quantized_matmul": 0, "streamed_matmul": 0}
 
 
 def test_mixed_devices_raise():
@@ -273,11 +275,20 @@ def test_cuda_paged_verify_matches_plain(cuda, b, w, kv, g, dh, page, nb,
 
 
 def test_cuda_kernels_reject_other_dtypes(cuda):
-    q = torch.zeros((1, 1, 1, 64), device=cuda, dtype=torch.bfloat16)
-    kc = torch.zeros((1, 8, 1, 64), device=cuda, dtype=torch.bfloat16)
+    """float32, float16 and bfloat16 are taken; float64 still raises (no
+    fallback), as do mixed types."""
+    q = torch.zeros((1, 1, 1, 64), device=cuda, dtype=torch.float64)
+    kc = torch.zeros((1, 8, 1, 64), device=cuda, dtype=torch.float64)
     valid = torch.ones((1, 8), device=cuda, dtype=torch.bool)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32, float16 and bfloat16"):
         ops.decode_gqa(q, kc, kc, valid)
+    with pytest.raises(TypeError, match="float32, float16 and bfloat16"):
+        ops.matmul(q[0, 0], kc[0, :, 0].T.contiguous())
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.decode_gqa(q.half(), kc.float(), kc.float(), valid)
+    w8 = torch.ones((64, 8), device=cuda, dtype=torch.int8)
+    with pytest.raises(TypeError, match="float16 or"):
+        ops.quant_matmul(q[0, 0], w8, torch.ones(8, device=cuda), 8)
 
 
 def _cuda_quant(cuda, seed, m, k, n, bits):
@@ -321,3 +332,196 @@ def test_cuda_quant_matmul_rejects_what_it_does_not_take(cuda):
         ops.quant_matmul(x, w_q.view(torch.uint8), scale, 4)
     with pytest.raises(ValueError, match="on the CPU or all on one CUDA"):
         ops.quant_matmul(x.cpu(), w_q, scale, 8)
+
+
+# ---------------------------------------------------------------------------
+# fp16 / bf16 and head_dim 256 (card only).  Tolerance, kernel against its
+# plain version on the same inputs: fp32 1e-4 absolute; fp16 2e-3 and bf16
+# 1.6e-2 of the output's largest magnitude (both round an fp32 result once
+# to the storage type, so they differ by at most a unit or two in its
+# last place where the fp32 sums' order differs).
+# ---------------------------------------------------------------------------
+HALF_RTOL = {torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
+
+
+def _close(got, want, dtype=None):
+    assert got.dtype == want.dtype
+    if dtype is None or dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    tol = HALF_RTOL[dtype] * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("b,s,kv,g,dh", [(2, 72, 16, 1, 256),
+                                         (4, 160, 16, 1, 64),
+                                         (2, 1000, 4, 8, 128)])
+def test_cuda_decode_half(cuda, dtype, b, s, kv, g, dh):
+    gen = torch.Generator(device=cuda).manual_seed(s + dh)
+    q = torch.randn((b, kv, g, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=cuda)
+    valid = torch.arange(s, device=cuda)[None] < lens[:, None]
+    _close(ops.decode_gqa(q, k, v, valid),
+           ref.decode_gqa_ref(q, k, v, valid), dtype)
+    qf = q.reshape(b * kv * g, dh)
+    kf = k.permute(0, 2, 1, 3).repeat_interleave(g, 1).reshape(-1, s, dh)
+    vf = v.permute(0, 2, 1, 3).repeat_interleave(g, 1).reshape(-1, s, dh)
+    vb = valid.repeat_interleave(kv * g, 0)
+    o, m, l = ops.decode_partial(qf, kf, vf, vb)
+    ro, rm, rl = ref.decode_partial_ref(qf, kf, vf, vb)
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    torch.testing.assert_close(o / l, ro / rl, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("sq,kv,g,dh,causal,window", [
+    (64, 16, 1, 256, True, None),       # gpt_j prefill
+    (197, 16, 1, 64, False, None),      # vit_large, non-causal
+    (77, 4, 2, 256, True, 32),
+    (100, 2, 2, 128, True, None)])
+def test_cuda_attention_half_and_dh256(cuda, dtype, sq, kv, g, dh, causal,
+                                       window):
+    gen = torch.Generator(device=cuda).manual_seed(sq + dh)
+    q = torch.randn((2, sq, kv, g, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, sq, kv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, sq, kv, dh), generator=gen, device=cuda).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.attention_gqa(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    _close(got, ref.attention_gqa_ref(q, k, v, causal=causal,
+                                      window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("w,kv,g,dh,page,nb,lengths", [
+    (None, 16, 1, 256, 16, 5, [65, 72]),
+    (None, 4, 8, 128, 16, 8, [77, 128]),
+    (64, 16, 1, 256, 16, 5, [64, 72]),
+    (3, 2, 2, 64, 5, 9, [3, 44])])
+def test_cuda_paged_half_and_dh256(cuda, dtype, w, kv, g, dh, page, nb,
+                                   lengths):
+    args = _cuda_paged(cuda, page * nb, len(lengths), w, kv, g, dh, page,
+                       nb, lengths)
+    args = tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+    if w is None:
+        _close(ops.paged_decode(*args), ref.paged_decode_ref(*args), dtype)
+        # the gather route: pages to a dense cache, then flash decoding
+        before = ops.LAUNCHES["flash_decode"]
+        _close(ops.paged_decode(*args, impl="gather"),
+               ref.paged_decode_ref(*args), dtype)
+        assert ops.LAUNCHES["flash_decode"] == before + 1
+    else:
+        _close(ops.paged_verify(*args), ref.paged_verify_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 16384), (64, 4096, 4096),
+                                   (3, 66, 33)])
+def test_cuda_quant_matmul_half(cuda, dtype, bits, m, k, n):
+    x, w_q, scale = _cuda_quant(cuda, m + k + n, m, k, n, bits)
+    x = x.to(dtype)
+    got = ops.quant_matmul(x, w_q, scale, bits)
+    _close(got, ref.quant_matmul_ref(x, w_q, scale, bits=bits), dtype)
+
+
+def _matmul_tol(want, dtype):
+    """fp32: 1e-4 of the output's scale (TF32 off); fp16 / bf16 as
+    ``HALF_RTOL``."""
+    return {torch.float32: 1e-4}.get(dtype, HALF_RTOL.get(dtype)) * (
+        want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_cuda_streamed_matmul_every_candidate_tile(cuda, dtype):
+    """gpt2_base's autotune shape (256 tokens x d_model @ d_model x d_ff)
+    at every tile the sweep times: each launches the kernel once."""
+    from repro_torch.kernels.autotune import _tile_candidates
+    m, k, n = 256, 1024, 4096
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    want = ref.matmul_ref(x, w)
+    tol = _matmul_tol(want, dtype)
+    tiles = _tile_candidates(m, k, n, None)
+    assert len(tiles) == 27
+    for bm, bn, bk in tiles:
+        before = ops.LAUNCHES["streamed_matmul"]
+        got = ops.matmul(x, w, block_m=bm, block_n=bn, block_k=bk)
+        assert ops.LAUNCHES["streamed_matmul"] == before + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (128, 128, 128, 128, 128, 128), (256, 128, 512, 128, 128, 128),
+    (384, 512, 256, 128, 128, 256), (8, 64, 128, 256, 256, 512),
+    (100, 70, 30, 100, 30, 70), (192, 300, 96, 192, 96, 300)])
+def test_cuda_streamed_matmul_sweep(cuda, dtype, m, k, n, bm, bn, bk):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    want = ref.matmul_ref(x, w)
+    got = ops.matmul(x, w, block_m=bm, block_n=bn, block_k=bk)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=_matmul_tol(want, dtype), rtol=0)
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.matmul(x, w, block_m=m - 1 if m > 2 else 3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quant_matmul_every_candidate_tile(cuda, bits):
+    """The tiled path (M > 4) at every tile autotune times for it: each
+    selects its own output region, register tile and K stage."""
+    from repro_torch.kernels.autotune import _tile_candidates
+    m, k, n = 128, 1024, 1024
+    x, w_q, scale = _cuda_quant(cuda, bits, m, k, n, bits)
+    want = ref.quant_matmul_ref(x, w_q, scale, bits=bits)
+    tol = 1e-4 * want.abs().max().item()
+    for bm, bn, bk in _tile_candidates(m, k, n, bits):
+        got = ops.quant_matmul(x, w_q, scale, bits, block_m=bm, block_n=bn,
+                               block_k=bk)
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+def test_cuda_autotune_sweep(cuda, tmp_path):
+    """On the card the sweep times each candidate with CUDA events: one
+    warm-up and ``reps`` timed launches each, keyed by ``sm<major><minor>``;
+    a cache hit launches nothing."""
+    from repro_torch.kernels import autotune
+    cache = autotune.AutotuneCache(tmp_path / "at.json")
+    arch = autotune.device_arch(cuda)
+    major, minor = torch.cuda.get_device_capability(cuda)
+    assert arch == f"sm{major}{minor}"
+    try:
+        ops.reset_launches()
+        entry = autotune.tune_matmul(64, 256, 512, cache=cache, reps=2,
+                                     device=cuda)
+        cands = autotune._tile_candidates(64, 256, 512, None)
+        assert ops.LAUNCHES["streamed_matmul"] == len(cands) * 3
+        assert entry["t_us"] > 0
+        assert cache.get("matmul", arch=arch, dtype="float32") == entry
+        ops.reset_launches()
+        autotune.tune_matmul(64, 256, 512, cache=cache, reps=2, device=cuda)
+        assert ops.LAUNCHES["streamed_matmul"] == 0
+        q8 = autotune.tune_matmul(64, 256, 512, bits=8, dtype="int8",
+                                  cache=cache, reps=1, device=cuda)
+        assert ops.LAUNCHES["quantized_matmul"] == 2 * len(
+            autotune._tile_candidates(64, 256, 512, 8))
+        assert q8["shape"] == [64, 256, 512]
+        paged = autotune.tune_paged_decode(16, head_dim=64, cache=cache,
+                                           reps=1, device=cuda)
+        assert paged["impl"] in ops.PAGED_IMPLS
+        assert ops.LAUNCHES["paged_flash_decode"] == 2
+        assert ops.LAUNCHES["flash_decode"] == 2
+    finally:
+        ops.set_tuned()

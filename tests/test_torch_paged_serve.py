@@ -91,6 +91,19 @@ def _assert_pool_is_mapped_peak(sched, stats):
                for a in c.values()) == stats.cache_bytes_peak
 
 
+def _one_layer_budget(gpt2s, n_req, *, pin=0, page=4, max_total=MAX_TOTAL):
+    """A budget that admits the pinned layers, one streaming layer, and
+    the KV of ``n_req`` requests at ``max_total`` tokens (whole pages)
+    plus one page of admission headroom.  The KV is smaller than a layer,
+    so the loaders never hold two streaming layers at once, and the ledger
+    peak does not depend on when they drop the last round's layers."""
+    _, tcfg, _, layer_b, other = gpt2s
+    page_b = tcfg.num_layers * tcfg.cache_bytes(1, page)
+    kv = (n_req * -(-max_total // page) + 1) * page_b
+    assert kv < layer_b
+    return other + (pin + 1) * layer_b + kv
+
+
 def _shared_prompts(seed, n, shared_len, tail):
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, 300, (shared_len,))
@@ -103,11 +116,13 @@ def _shared_prompts(seed, n, shared_len, tail):
 # ---------------------------------------------------------------------------
 def test_shared_prefixes_match_jax(gpt2s):
     prompts = _shared_prompts(1, 3, 8, 4)
-    jout, tout = _both(gpt2s, prompts, [4, 2, 3], page_size=4)
+    budget = _one_layer_budget(gpt2s, 3)
+    jout, tout = _both(gpt2s, prompts, [4, 2, 3], page_size=4,
+                       budget=budget)
     _assert_same(jout, tout)
     assert tout[1].prefix_hit_pages > 0
     # and the same tokens as the port's own dense serving
-    _, (dense, dst, _) = _both(gpt2s, prompts, [4, 2, 3])
+    _, (dense, dst, _) = _both(gpt2s, prompts, [4, 2, 3], budget=budget)
     for a, b in zip(tout[0], dense):
         np.testing.assert_array_equal(a, b)
     assert tout[1].cache_bytes_peak < dst.cache_bytes_peak
@@ -117,18 +132,21 @@ def test_odd_page_size_matches_jax(gpt2s):
     """A page size that does not divide max_total_len."""
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 300, (7,)) for _ in range(2)]
-    _assert_same(*_both(gpt2s, prompts, [4, 4], page_size=5))
+    _assert_same(*_both(gpt2s, prompts, [4, 4], page_size=5,
+                        budget=_one_layer_budget(gpt2s, 2, page=5)))
 
 
 def test_pinned_window_matches_jax(gpt2s):
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 300, (8,)) for _ in range(2)]
-    _assert_same(*_both(gpt2s, prompts, [3, 3], page_size=4, pin=2))
+    _assert_same(*_both(gpt2s, prompts, [3, 3], page_size=4, pin=2,
+                        budget=_one_layer_budget(gpt2s, 2, pin=2)))
 
 
 def test_prefix_cache_off_matches_jax(gpt2s):
     p = np.random.default_rng(4).integers(0, 300, (8,))
     jout, tout = _both(gpt2s, [p, p], [3, 3], page_size=4,
+                       budget=_one_layer_budget(gpt2s, 2),
                        prefix_cache=False)
     _assert_same(jout, tout)
     assert tout[1].prefix_hit_pages == 0
@@ -138,7 +156,8 @@ def test_cow_on_identical_prompts_matches_jax(gpt2s):
     """Identical prompts share even the partial last page; the first
     divergent decode write copies it."""
     p = np.random.default_rng(6).integers(0, 300, (10,))
-    jout, tout = _both(gpt2s, [p, p], [4, 4], page_size=4)
+    jout, tout = _both(gpt2s, [p, p], [4, 4], page_size=4,
+                       budget=_one_layer_budget(gpt2s, 2))
     _assert_same(jout, tout)
     assert tout[1].cow_copies >= 1
     np.testing.assert_array_equal(tout[0][0], tout[0][1])
@@ -165,7 +184,8 @@ def test_pool_rows_track_mapped_peak(gpt2s):
     handed out, and below the worst case of max_inflight full tables."""
     rng = np.random.default_rng(21)
     prompts = [rng.integers(0, 300, (6,)) for _ in range(4)]
-    jout, tout = _both(gpt2s, prompts, [5] * 4, page_size=4, max_inflight=2)
+    jout, tout = _both(gpt2s, prompts, [5] * 4, page_size=4, max_inflight=2,
+                       budget=_one_layer_budget(gpt2s, 2))
     _assert_same(jout, tout)
     _, stats, sched = tout
     assert stats.page_reuses > 0

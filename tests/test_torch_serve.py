@@ -83,7 +83,8 @@ def test_scheduler_matches_jax(ckpt, seed, pin):
     assert tst.kernel_launches == {"flash_decode": 0, "flash_attention": 0,
                                    "paged_flash_decode": 0,
                                    "paged_flash_verify": 0,
-                                   "quantized_matmul": 0}
+                                   "quantized_matmul": 0,
+                                   "streamed_matmul": 0}
     if pin == 0:
         assert tst.peak_breakdown == jst.peak_breakdown
 
@@ -136,7 +137,7 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "gpt2-base-smoke" / "profile_torch_cpu.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--autotune"],
+@pytest.mark.parametrize("flags", [["--slo-ttft-ms", "100"],
                                    ["--spec-depth", "2"],
                                    ["--draft-arch", "gpt2_base"],
                                    ["--tenants", "2"]])
@@ -148,7 +149,9 @@ def test_serve_cli_unported_flags_exit(flags, capsys):
 def test_import_leaves_out_jax_and_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.kernels.build, repro_torch.checkpoint.quant, "
-            "repro_torch.kernels.quant_matmul\n"
+            "repro_torch.kernels.quant_matmul, "
+            "repro_torch.kernels.autotune, "
+            "repro_torch.kernels.streamed_matmul\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
