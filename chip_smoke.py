@@ -7,8 +7,11 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit, kernel build time (every CUDA
    kernel is built from ``src/repro_torch/kernels/csrc`` by ``nvcc`` into
-   ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel).
-   TF32 is turned off.
+   ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel),
+   each library's ``-Xptxas -v`` registers and spills, and the two matmul
+   libraries' tensor-core instructions (``HMMA`` / ``HGMMA`` in
+   ``cuobjdump -sass``): it fails if either holds none.  TF32 is turned
+   off for PyTorch's own matmuls.
 2. Every kernel against its plain PyTorch version on the card (fp32,
    tolerance 1e-4 max abs error; for quantized_matmul and streamed_matmul
    1e-4 of the output's largest magnitude; fp16 / bf16 inputs 2e-3 /
@@ -24,7 +27,13 @@ Phases, in order; any failure exits non-zero:
    streamed_matmul at gpt2_base's autotune shape (256 x 1024 @ 1024 x
    4096, fp32, TF32 off) at every tile the autotune sweep times, and at
    the reference's sweep shapes in fp32 and bf16; library
-   ``torch.matmul``.
+   ``torch.matmul``.  For the two matmul kernels also ``device_ms``: the
+   kernels' own time per call from ``torch.profiler`` (no host time
+   between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
+   which read host time when the host is the slower side), and the
+   kernels per call.  Every kernel's fp32 operations are bound at TF32's
+   495 TFLOP/s, the fastest rate at which the card multiplies fp32
+   inputs.
 3. The dense path at full width: a full-size gpt2_base checkpoint (24
    layers, d=1024, fp32, random weights from a numpy seed) served through
    ``repro_torch.launch.serve.run`` — 8 requests, 128-token prompts, 32 new
@@ -120,9 +129,10 @@ TOL = 1e-4               # fp32, TF32 off: max abs error kernel vs plain
 # (kernel and plain version round one fp32 result to the storage type)
 HALF_RTOL = {"float16": 2e-3, "bfloat16": 1.6e-2}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-# H100 SXM peak operations per second by input type: fp32 outside the
-# tensor cores, fp16 / bf16 dense tensor-core rate
-PEAK_FLOPS = {"float32": 67e12, "float16": 989e12, "bfloat16": 989e12}
+# H100 SXM dense tensor-core peak operations per second by input type:
+# fp32 at TF32's rate, the fastest at which the card multiplies fp32
+# inputs (a split product on the tensor cores beats the CUDA cores' 67)
+PEAK_FLOPS = {"float32": 495e12, "float16": 989e12, "bfloat16": 989e12}
 BUDGET_MB = 900                  # below gpt2_base's ~1.55 GiB of shards
 # below the quantized checkpoint (int8 ~391 MiB, int4 ~197 MiB) plus the
 # KV of 4 in flight (120 MiB), above its decode floor (~232 / ~176 MiB)
@@ -182,6 +192,33 @@ def bound(nbytes: float, flops: float, dtype: str = "float32"):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(torch, fn, iters: int = 20):
+    """(device ms per call, kernels per call, kernel names) from
+    ``torch.profiler`` over ``iters`` calls: the mean duration of the CUDA
+    kernel events it records, times the kernels per call (the profiler
+    may drop an event; then the mean still holds); (None, None, []) when
+    it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):          # a second window if the first records none
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+    else:
+        return None, None, []
+    per_call = len(evs) / iters
+    mean_ms = sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
+    return (mean_ms * max(1, round(per_call)), per_call,
+            sorted({e.name for e in evs}))
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +532,7 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
         limit = TOL * want.abs().max().item()
     ms = time_ms(torch, run)
     plain_ms = time_ms(torch, plain)
+    dev_ms, per_call, names = device_ms(torch, run)
     w_deq = ref.dequant_ref(w_q, scale, bits=bits)[:k].to(dtype).contiguous()
     lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
     del w_deq
@@ -504,9 +542,9 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
     return dict(kernel="quantized_matmul", bits=bits, kind=kind,
                 count=count, dtype=dtype_name(x), case=f"{main}{kind} M={m} K={k} N={n} "
                 f"int{bits} {dtype_name(x)}", max_abs_err=err, limit=limit,
-                ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
+                kernel_names=names, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def half_cases(torch, fd, fa, ref, gen):
@@ -553,9 +591,10 @@ def autotune_shape(cfg):
 def matmul_cases(torch, ref, gen, cfg):
     """streamed_matmul against matmul_ref: at gpt2_base's autotune shape
     (fp32, TF32 off) at every tile the sweep times, with its time at
-    each; and at the reference's sweep shapes in fp32 and bf16.  Library:
-    ``torch.matmul`` (fp32, TF32 off).  Bound: fp32 operations (2 M K N)
-    or the bytes of x, w and the output."""
+    each; in bf16 at one tile of that shape; and at the reference's sweep
+    shapes in fp32 and bf16.  Library:
+    ``torch.matmul`` (fp32, TF32 off).  Bound: operations (2 M K N) or the
+    bytes of x, w and the output."""
     from repro_torch.kernels import streamed_matmul as sm
     from repro_torch.kernels.autotune import _tile_candidates
     m, k, n = autotune_shape(cfg)
@@ -564,7 +603,8 @@ def matmul_cases(torch, ref, gen, cfg):
     want = ref.matmul_ref(x, w)
     plain_ms = time_ms(torch, lambda: ref.matmul_ref(x, w))
     lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
-    b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
+    nbytes = 4 * (m * k + k * n + m * n)
+    b_ms, b_by = bound(nbytes, 2 * m * k * n)
     cases = []
     for tile in _tile_candidates(m, k, n, None):
         run = lambda t=tile: sm.streamed_matmul(  # noqa: E731
@@ -572,13 +612,32 @@ def matmul_cases(torch, ref, gen, cfg):
         got = run()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        dev_ms, per_call, names = device_ms(torch, run)
         cases.append(dict(
             kernel="streamed_matmul", tile=list(tile), dtype="float32",
             case=f"autotune M={m} K={k} N={n} float32 tile "
             f"{tile[0]}x{tile[1]}x{tile[2]}", max_abs_err=err,
             limit=TOL * want.abs().max().item(), ms=time_ms(torch, run),
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by))
+            device_ms=dev_ms, kernels_per_call=per_call,
+            kernel_names=names, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
+    # one bf16 pass of the same body at the autotune shape, timed
+    xh, wh = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    run = lambda: sm.streamed_matmul(xh, wh, block_m=64,  # noqa: E731
+                                     block_n=64, block_k=512)
+    got, want_h = run(), ref.matmul_ref(xh, wh)
+    torch.cuda.synchronize()
+    dev_ms, per_call, names = device_ms(torch, run)
+    b_h = bound(2 * (m * k + k * n + m * n), 2 * m * k * n, "bfloat16")
+    cases.append(dict(
+        kernel="streamed_matmul", dtype="bfloat16",
+        case=f"M={m} K={k} N={n} bfloat16 tile 64x64x512",
+        max_abs_err=(got.float() - want_h.float()).abs().max().item(),
+        limit=HALF_RTOL["bfloat16"] * want_h.float().abs().max().item(),
+        ms=time_ms(torch, run), device_ms=dev_ms, kernels_per_call=per_call,
+        kernel_names=names, plain_ms=time_ms(torch, lambda: ref.matmul_ref(
+            xh, wh)), library_ms=time_ms(torch, lambda: torch.matmul(xh, wh)),
+        bound_ms=b_h[0], bound_by=b_h[1]))
     for name in ("float32", "bfloat16"):
         for m, k, n, bm, bn, bk in ((128, 128, 128, 128, 128, 128),
                                     (256, 512, 128, 128, 128, 128),
@@ -641,6 +700,11 @@ def phase_kernels(torch):
             line += (f"  kernel_ms {c['ms']:.5f} plain_ms "
                      f"{c['plain_ms']:.5f} library_ms {c['library_ms']:.5f}"
                      f" bound_ms {c['bound_ms']:.5f} ({c['bound_by']})")
+        if "device_ms" in c:
+            dev = ("not measured" if c["device_ms"] is None
+                   else f"{c['device_ms']:.5f}")
+            line += (f" device_ms {dev} kernels/call "
+                     f"{c['kernels_per_call']} {c['kernel_names']}")
         print(line, flush=True)
     bad = [c for c in cases if not c["max_abs_err"] <= c.get("limit", TOL)]
     if bad:
@@ -1039,8 +1103,9 @@ def quant_row(cases, quant_runs):
     w = [c["count"] * weights[c["bits"]][c["kind"]] for c in mains]
     mean = lambda key: (sum(wi * c[key] for wi, c in zip(w, mains))  # noqa
                         / sum(w))
-    row = {k: mean(k) for k in ("ms", "plain_ms", "library_ms",
-                                "bound_ms")}
+    row = {k: mean(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    row["device_ms"] = (None if any(c["device_ms"] is None for c in mains)
+                        else mean("device_ms"))
     row["bound_by"] = max(zip(w, mains),
                           key=lambda p: p[0] * p[1]["bound_ms"])[1][
                               "bound_by"]
@@ -1082,7 +1147,7 @@ def phase_autotune(torch, ops, cfg, paged_outs):
     print(f"autotune: {AUTOTUNE_CACHE.name} -> matmul tiles "
           f"{mat['block_m']}x{mat['block_n']}x{mat['block_k']} (blocks of "
           f"{launch[0]}x{launch[1]} outputs in {launch[2]}x{launch[3]} "
-          f"register tiles, {launch[4]}-row K stages; {len(cands)} distinct "
+          f"tiles, {2 * launch[4]}-row K stages; {len(cands)} distinct "
           f"launches timed; {mat['t_us']:.1f} us at {mat['shape']}), paged "
           f"route "
           f"{paged['impl']} ({paged['t_us']:.1f} us, the other "
@@ -1233,6 +1298,15 @@ def main() -> int:
         build.library(k)
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
+    for k in build.KERNELS:
+        print(f"  ptxas -v: {build.ptxas_summary(k)}", flush=True)
+    for k in ("quant_matmul", "streamed_matmul"):
+        counts = build.sass_counts(k, ("HMMA", "HGMMA", "FFMA"))
+        print(f"  sass: lib{k}: {json.dumps(counts)}", flush=True)
+        if not counts["HMMA"] + counts["HGMMA"]:
+            fail(f"lib{k} holds no tensor-core instruction (HMMA or HGMMA "
+                 f"in cuobjdump -sass): its matmul is not on the tensor "
+                 f"cores")
 
     # ---- phase 2: kernels against their plain versions
     cases = phase_kernels(torch)
@@ -1330,8 +1404,8 @@ def main() -> int:
         serve_launches=tune_stats.kernel_launches["streamed_matmul"],
         max_abs_err=max(c["max_abs_err"] for c in mm
                         if c["dtype"] == "float32"),
-        **{k: best[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}))
+        **{k: best[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}))
     print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi)

@@ -6,7 +6,10 @@ into its own shared library with a plain C interface, loaded with
 started together.  Libraries land in ``build/repro_torch_kernels/`` at
 the repo root (``.gitignore`` lists ``build/``), named with a hash of
 their source and of the shared headers (``csrc/*.cuh``), so an edited
-kernel rebuilds and an unchanged one is reused.
+kernel rebuilds and an unchanged one is reused.  ``nvcc`` runs with
+``-Xptxas -v``: ``BUILD_LOGS`` keeps each fresh build's registers, shared
+memory and spills per kernel, and ``sass_counts`` counts instructions in a
+built library's SASS (``cuobjdump -sass``), e.g. the tensor-core ``HMMA``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -16,35 +19,37 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_decode", "flash_attention", "paged_decode",
            "quant_matmul", "streamed_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+BUILD_LOGS: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    cands = [str(Path(home) / "bin" / name)] if home else []
+    cands += [shutil.which(name) or "", f"/usr/local/cuda/bin/{name}"]
     for c in cands:
         if c and Path(c).exists():
             return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the repro_torch CUDA kernels")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH "
+                       f"to build the repro_torch CUDA kernels")
 
 
 def _lib_path(name: str) -> Path:
@@ -64,7 +69,7 @@ def build_all() -> Dict[str, Path]:
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
-    nvcc = _nvcc()
+    nvcc = _tool("nvcc")
     t0 = time.perf_counter()
     procs = {}
     for name, p in todo.items():
@@ -81,6 +86,7 @@ def build_all() -> Dict[str, Path]:
             continue
         os.replace(tmp, p)
         BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOGS[name] = log
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
@@ -96,3 +102,25 @@ def library(name: str) -> ctypes.CDLL:
                 _LIBS.setdefault(n, ctypes.CDLL(str(p)))
             lib = _LIBS[name]
         return lib
+
+
+def sass_counts(name: str, opcodes: Iterable[str]) -> Dict[str, int]:
+    """How many instructions of each opcode (``HMMA``, ``HGMMA``, ...) the
+    built library of kernel ``name`` holds, from ``cuobjdump -sass``."""
+    path = build_all()[name]
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def ptxas_summary(name: str) -> str:
+    """One line from the ``-Xptxas -v`` report of kernel ``name``'s fresh
+    build: its kernels, their register range and their spill bytes."""
+    log = BUILD_LOGS.get(name, "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    if not regs:
+        return f"{name}: no ptxas report (library reused)"
+    spilled = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return (f"{name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+            f"spill bytes (stores + loads) {spilled}")

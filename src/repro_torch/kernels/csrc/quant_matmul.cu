@@ -16,33 +16,47 @@
 //
 // What bounds it on the H100:
 //  * Decode (M = B <= 4): bytes.  Each weight byte feeds 2 * M flops (int8)
-//    or 4 * M (int4), far below the fp32 balance point of ~20 flop/byte,
-//    so the least time is the quantized weight read once at 3.35 TB/s.
-//  * Prefill (M = 128): fp32 operations on the CUDA cores (2 M K N flops
-//    against K N bytes of weight).
+//    or 4 * M (int4), far below any balance point, so the least time is
+//    the quantized weight read once at 3.35 TB/s (0.3 us for 1 MB).  A
+//    call of a few microseconds is launch- and host-bound: the design
+//    makes it one launch.
+//  * Prefill (M = 128): operations.  On fp32 x the fastest fp32-input
+//    rate is TF32's 495 TFLOP/s (2 M K N flops); the kernel spends three
+//    bf16 tensor-core passes (989 TFLOP/s each) to keep fp32's accuracy.
+//    At N = 1024 the output is only 2 x 16 tiles of 64 x 64 for 132 SMs.
 //
 // What the design does about it:
 //  * skinny_kernel (M <= kSkinnyM): one M tile, so every weight byte is
 //    read from device memory once per launch.  A thread owns 16 columns
 //    and loads a row's 16 bytes (int8: 16 values; int4: 32 values of two
 //    rows) as one 16-byte vector, dequantizes in registers and FMAs into
-//    4 x 16 accumulators.  256 threads = 4 column lanes (64 contiguous
-//    bytes of a row per 4 threads) x 64 K lanes; the K lanes are reduced
-//    by warp shuffles and shared memory.  Four rows' loads are issued
-//    before their FMAs.  Narrow N (1024 columns = 16 blocks) would leave
-//    most SMs idle, so the launcher also splits K across blocks; the
-//    splits' partial sums go to a workspace and finalize_kernel adds them
-//    in a fixed order (no atomics: results do not vary from run to run).
-//  * M > kSkinnyM: mm_tiles.cuh's tile body, shared with
-//    streamed_matmul.cu, over an int8 or int4 weight loader: the weight
-//    tile is dequantized to fp32 in shared memory (the scale applied to
-//    the accumulator at the end).  The caller's or the autotuned
+//    4 x 16 accumulators on the CUDA cores (at M <= 4 the tensor cores
+//    would idle on zero rows).  256 threads = 4 column lanes (64
+//    contiguous bytes of a row per 4 threads) x 64 K lanes; the K lanes
+//    are reduced by warp shuffles and shared memory.  Four rows' loads are
+//    issued before their FMAs.  Narrow N (1024 columns = 16 blocks) would
+//    leave most SMs idle, so the launcher also splits K across blocks;
+//    each split stores its partial sums, and the last split to finish a
+//    column tile (an int counter per tile) adds them in split order and
+//    writes the output: one launch, no float atomics, results that do not
+//    vary from run to run.
+//  * M > kSkinnyM: mm_tiles.cuh's tensor-core tile body, shared with
+//    streamed_matmul.cu, over an int8 or int4 weight loader.  Each int8 /
+//    int4 value is exact in bf16 and fp16, so a weight fragment is
+//    converted in registers from the stored bytes as it is read (on the
+//    integer / fp32 ALUs: one byte_perm and one add per value, one 2- or
+//    4-byte shared-memory read serving 2 or 4 n8 tiles); fp32 x runs as
+//    three bf16 passes, x = hi + mid + lo exactly, split once per stage
+//    into shared planes, which gives the FMA loop's products exactly (only
+//    the fp32 sums' order differs); fp16 / bf16 x run one pass in their
+//    type.  The scale multiplies the
+//    fp32 accumulator in the epilogue.  The caller's or the autotuned
 //    (block_m, block_n, block_k) give the block's output region, its
-//    register tile (64 or 128 per edge) and the K rows per stage (8, 16 or
-//    32), as for streamed_matmul.cu; 64 x 64 with 32-row stages when
-//    neither is given.
-//  * fp32 FMA on the CUDA cores, no TF32.  wgmma, TMA and an int8 tensor
-//    core path are later work.
+//    tile (64 or 128 per edge) and the K rows per stage (16, 32 or 64), as
+//    for streamed_matmul.cu; 64 x 64 with 64-row stages when neither is
+//    given.  The launcher splits K (whole stages, in split order, as
+//    above) whenever the output's blocks would leave the SMs under-filled:
+//    (128, 4096, 1024) runs 32 regions x 5 splits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -131,13 +145,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[kSkinnyM][kVec],
 // grid (ceil(N / kBlockN), splits), kThreads threads.  Split s walks stored
 // rows [s * rows_per_split, min(rows, (s + 1) * rows_per_split)).  With
 // part == nullptr (one split) it writes out * scale; else raw sums to
-// part (splits, M, N).
+// part (splits, M, N), and the last split of each column tile (counters:
+// one zeroed int per tile, left zeroed) writes out.
 template <int BITS, bool VEC, class T>
 __global__ void __launch_bounds__(kThreads)
 skinny_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
               const float* __restrict__ scale, T* __restrict__ out,
-              float* __restrict__ part, int M, int K, int N, int rows,
-              int rows_per_split) {
+              float* __restrict__ part, int* __restrict__ counters, int M,
+              int K, int N, int rows, int rows_per_split) {
   __shared__ float red[kWarps][kLanesN][kSkinnyM][kVec];
   const int lane_n = threadIdx.x % kLanesN;
   const int lane_k = threadIdx.x / kLanesN;
@@ -189,93 +204,136 @@ skinny_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   static_assert(kSkinnyM * kBlockN == kThreads, "one output per thread");
   const int m = threadIdx.x / kBlockN, c = threadIdx.x % kBlockN;
   const int col = blockIdx.x * kBlockN + c;
-  if (m >= M || col >= N) return;
+  const bool mine = m < M && col < N;
   float s = 0.f;
 #pragma unroll
   for (int wi = 0; wi < kWarps; ++wi) s += red[wi][c / kVec][m][c % kVec];
-  if (part == nullptr)
-    out[(size_t)m * N + col] = from_f32<T>(s * scale[col]);
-  else
-    part[((size_t)blockIdx.y * M + m) * N + col] = s;
-}
-
-// out[m, n] = scale[n] * sum over splits of part[s, m, n], splits in order.
-template <class T>
-__global__ void finalize_kernel(const float* __restrict__ part,
-                                const float* __restrict__ scale,
-                                T* __restrict__ out, int splits, int M,
-                                int N) {
-  const size_t mn = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
-  out[i] = from_f32<T>(s * scale[i % N]);
-}
-
-// The weight loaders of mm_tiles.cuh's tile body: a K stage of the
-// quantized (K, N) weight as fp32 integers (the scale is applied to the
-// accumulator); past the edge, 0.
-struct Int8B {
-  const uint8_t* w;
-  int K, N;
-  __device__ float get(int k, int n) const {
-    return (k < K && n < N) ? s8(__ldg(w + (size_t)k * N + n)) : 0.f;
+  if (part == nullptr) {
+    if (mine) out[(size_t)m * N + col] = from_f32<T>(s * scale[col]);
+    return;
   }
-  template <int KC, int BN>
-  __device__ __forceinline__ void stage(float (&ws)[KC][BN], int k0,
-                                        int n0) const {
-    mm::stage_elements(*this, ws, k0, n0);
+  // K split: store this split's sums; the last split of the column tile
+  // adds every split's in split order.
+  const size_t mn = (size_t)M * N;
+  if (mine) part[blockIdx.y * mn + (size_t)m * N + col] = s;
+  __threadfence();
+  __syncthreads();
+  __shared__ int is_last;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(counters + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (mine) {   // 8 splits' loads in flight at a time, summed in order
+    const float* p = part + (size_t)m * N + col;
+    const int splits = gridDim.y;
+    float v = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float u[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        u[i] = s0 + i < splits ? __ldcg(p + (s0 + i) * mn) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v += u[i];
+    }
+    out[(size_t)m * N + col] = from_f32<T>(v * scale[col]);
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// The weight loaders of mm_tiles.cuh's tile body: the stored bytes are
+// staged as they are; B fragments convert them in registers (each value
+// exact in bf16 / fp16; the scale is applied to the accumulator).  Both
+// are grouped (mm::Tile::col): one 2- or 4-byte read of a stage row
+// serves 2 or 4 n8 tiles.
+struct Int8B {
+  using Raw = int8_t;
+  static constexpr int kPack = 1;
+  static constexpr int kPad = 16;
+  static constexpr bool kGrouped = true;
+  const int8_t* w;
+  // tile j of group h: rows kk + 2t, kk + 2t + 1 (b[.][0]) and
+  // kk + 2t + 8, + 9 (b[.][1]); q + 128 is the byte with its top bit
+  // flipped
+  template <class Op, int NT, int G>
+  __device__ __forceinline__ static void frags(const int8_t* ws, int ld,
+                                               int kk, int col0, int g,
+                                               int t, uint32_t (&b)[NT][2]) {
+    const uint8_t* s = reinterpret_cast<const uint8_t*>(ws) +
+                       (kk + 2 * t) * ld + col0 + G * g;
+#pragma unroll
+    for (int h = 0; h < NT / G; ++h) {
+      const uint8_t* p = s + 8 * G * h;
+      const uint32_t w0 = mm::ld_bytes<G>(p) ^ 0x80808080u;
+      const uint32_t w1 = mm::ld_bytes<G>(p + ld) ^ 0x80808080u;
+      const uint32_t w8 = mm::ld_bytes<G>(p + 8 * ld) ^ 0x80808080u;
+      const uint32_t w9 = mm::ld_bytes<G>(p + 9 * ld) ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        b[G * h + j][0] = mm::pack_bytes<128>(Op{}, w0, w1, j);
+        b[G * h + j][1] = mm::pack_bytes<128>(Op{}, w8, w9, j);
+      }
+    }
   }
 };
 
-// Rows 2i (low nibble) and 2i + 1 (high) in byte row i: each byte is
-// read once and fills two rows of the stage (KC and k0 are even).
+// Rows 2i (low nibble) and 2i + 1 (high) in byte row i: the MMA's pair of
+// rows (2t, 2t + 1) is one byte; q + 8 is a nibble with its top bit
+// flipped.
 struct Int4B {
+  using Raw = uint8_t;
+  static constexpr int kPack = 2;
+  static constexpr int kPad = 32;
+  static constexpr bool kGrouped = true;
   const uint8_t* w;
-  int K, N;
-  template <int KC, int BN>
-  __device__ __forceinline__ void stage(float (&ws)[KC][BN], int k0,
-                                        int n0) const {
+  template <class Op, int NT, int G>
+  __device__ __forceinline__ static void frags(const uint8_t* ws, int ld,
+                                               int kk, int col0, int g,
+                                               int t, uint32_t (&b)[NT][2]) {
+    const uint8_t* s = ws + (kk / 2 + t) * ld + col0 + G * g;
 #pragma unroll
-    for (int i = 0; i < KC / 2 * BN / mm::kThreads; ++i) {
-      const int e = threadIdx.x + i * mm::kThreads;
-      const int pr = e / BN, nn = e % BN;
-      const int k = k0 + 2 * pr, n = n0 + nn;
-      const uint32_t b =
-          (k < K && n < N) ? __ldg(w + (size_t)(k >> 1) * N + n) : 0u;
-      ws[2 * pr][nn] = lo4(b);
-      ws[2 * pr + 1][nn] = k + 1 < K ? hi4(b) : 0.f;
+    for (int h = 0; h < NT / G; ++h) {
+      const uint8_t* p = s + 8 * G * h;
+      const uint32_t w0 = mm::ld_bytes<G>(p) ^ 0x88888888u;
+      const uint32_t w4 = mm::ld_bytes<G>(p + 4 * ld) ^ 0x88888888u;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const uint32_t x0 = w0 >> (8 * j), x4 = w4 >> (8 * j);
+        b[G * h + j][0] =
+            mm::pack_biased<8>(Op{}, x0 & 0xfu, (x0 >> 4) & 0xfu);
+        b[G * h + j][1] =
+            mm::pack_biased<8>(Op{}, x4 & 0xfu, (x4 >> 4) & 0xfu);
+      }
     }
   }
 };
 
 template <int BITS, class T>
 int launch(const T* x, const uint8_t* w, const float* scale, T* out,
-           float* part, int M, int K, int N, int splits, int rows_per_split,
-           bool vec, int rm, int rn, int bm, int bn, int kc,
+           float* part, int* counters, int M, int K, int N, int splits,
+           int per_split, bool vec, int rm, int rn, int bm, int bn, int kc,
            cudaStream_t stream) {
-  const int rows = BITS == 8 ? K : (K + 1) / 2;
   if (M > kSkinnyM) {
     if (BITS == 8)
-      return mm::launch(rm, rn, bm, bn, kc, x, Int8B{w, K, N}, scale, out, M,
-                        K, N, stream);
-    return mm::launch(rm, rn, bm, bn, kc, x, Int4B{w, K, N}, scale, out, M,
-                      K, N, stream);
+      return mm::launch(rm, rn, bm, bn, kc, x,
+                        Int8B{reinterpret_cast<const int8_t*>(w)}, scale,
+                        out, part, counters, splits, per_split, M, K, N,
+                        stream);
+    return mm::launch(rm, rn, bm, bn, kc, x, Int4B{w}, scale, out, part,
+                      counters, splits, per_split, M, K, N, stream);
   }
+  if (splits < 1 || per_split <= 0 ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int rows = BITS == 8 ? K : (K + 1) / 2;
   const dim3 grid((N + kBlockN - 1) / kBlockN, splits);
   float* dst = splits > 1 ? part : nullptr;
   if (vec)
     skinny_kernel<BITS, true, T><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, dst, M, K, N, rows, rows_per_split);
+        x, w, scale, out, dst, counters, M, K, N, rows, per_split);
   else
     skinny_kernel<BITS, false, T><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, dst, M, K, N, rows, rows_per_split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits <= 1) return (int)e;
-  const size_t mn = (size_t)M * N;
-  finalize_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      part, scale, out, splits, M, N);
+        x, w, scale, out, dst, counters, M, K, N, rows, per_split);
   return (int)cudaGetLastError();
 }
 
@@ -283,18 +341,20 @@ int launch(const T* x, const uint8_t* w, const float* scale, T* out,
 
 // x (M, K) and out (M, N) of the storage type `dtype` (elem::DType); w:
 // int8 (K, N) for bits 8, uint8 (ceil(K/2), N) for bits 4; scale (N,) f32;
-// all contiguous, M, N, K > 0.  For M <= 4: splits (>= 1) K splits of
-// rows_per_split stored rows each, part (splits, M, N) f32 when splits > 1
-// (else unused); vec: N % 16 == 0 and w 16-byte aligned.  For M > 4:
-// blocks own rm x rn output regions, walked in the bm x bn register tile,
-// (bm, bn) in {64, 128}^2, with kc in {8, 16, 32} K rows per stage.
-// Returns the CUDA error of the launches (0 = none).
+// all contiguous, M, N, K > 0.  splits (>= 1) K splits of per_split rows
+// each; part (splits, M, N) f32 and counters (one zeroed int per column
+// tile or output region, left zeroed) when splits > 1, else unused.  For
+// M <= 4, per_split counts stored rows; vec: N % 16 == 0 and w 16-byte
+// aligned.  For M > 4, per_split counts logical K rows, a multiple of
+// 2 * kc; blocks own rm x rn output regions, walked in the bm x bn tile,
+// (bm, bn) in {64, 128}^2, with 2 * kc K rows per stage, kc in {8, 16,
+// 32}.  One launch; returns its CUDA error (0 = none).
 extern "C" int repro_quant_matmul(const void* x, const uint8_t* w,
                                   const float* scale, void* out, float* part,
-                                  int M, int K, int N, int bits, int splits,
-                                  int rows_per_split, int vec, int rm, int rn,
-                                  int bm, int bn, int kc, int dtype,
-                                  void* stream) {
+                                  int* counters, int M, int K, int N,
+                                  int bits, int splits, int per_split,
+                                  int vec, int rm, int rn, int bm, int bn,
+                                  int kc, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   return elem::with_dtype(dtype, [&](auto tag) {
@@ -302,9 +362,9 @@ extern "C" int repro_quant_matmul(const void* x, const uint8_t* w,
     const T* xt = static_cast<const T*>(x);
     T* ot = static_cast<T*>(out);
     if (bits == 8)
-      return launch<8>(xt, w, scale, ot, part, M, K, N, splits,
-                       rows_per_split, vec != 0, rm, rn, bm, bn, kc, st);
-    return launch<4>(xt, w, scale, ot, part, M, K, N, splits, rows_per_split,
-                     vec != 0, rm, rn, bm, bn, kc, st);
+      return launch<8>(xt, w, scale, ot, part, counters, M, K, N, splits,
+                       per_split, vec != 0, rm, rn, bm, bn, kc, st);
+    return launch<4>(xt, w, scale, ot, part, counters, M, K, N, splits,
+                     per_split, vec != 0, rm, rn, bm, bn, kc, st);
   });
 }

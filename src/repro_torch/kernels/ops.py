@@ -89,11 +89,11 @@ def _resolve_tiles(kernel: str, m: int, k: int, n: int, block_m, block_n,
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
+    if all(t.is_cuda for t in tensors):
         return True
+    if all(t.is_cpu for t in tensors):
+        return False
+    kinds = {t.device.type for t in tensors}
     raise ValueError(f"kernel inputs must all be on the CPU or all on one "
                      f"CUDA device, got {sorted(kinds)}")
 
@@ -218,25 +218,29 @@ def quant_matmul(x, w_q, scale, bits: int = 8, *,
     ragged width included, which the reference never does.  So only tiles
     the caller passes are held to the divisibility contract; without
     them, a tuned entry that divides the shape picks the kernel's variant
-    and anything else takes its own (``quant_matmul.DEFAULT_CTA``)."""
-    m, k = x.shape
-    n = w_q.shape[1]
-    tiles = _resolve_tiles("quant_matmul", m, k, n, block_m, block_n,
-                           block_k)
-    if bits == 4 and min(tiles["block_k"], k) % 2:
-        tiles["block_k"] = _DEFAULT_TILES["block_k"]
+    and anything else takes its own (``quant_matmul.DEFAULT_CTA``).
+    Untuned and without tiles (the serving path), no tile is resolved:
+    the call goes straight to the kernel's launcher, which checks its
+    inputs once."""
     explicit = (block_m, block_n, block_k) != (None, None, None)
-    if explicit:
-        bk = check_tiles(m, k, n, **tiles)[2]
-        if bits == 4 and bk % 2:
-            raise ValueError(f"quant_matmul: int4 needs an even block_k, "
-                             f"got {bk}")
+    tuned = _TUNED["quant_matmul"]
+    tiles = None
+    if explicit or tuned is not None:
+        m, k = x.shape
+        n = w_q.shape[1]
+        t = _resolve_tiles("quant_matmul", m, k, n, block_m, block_n,
+                           block_k)
+        if bits == 4 and min(t["block_k"], k) % 2:
+            t["block_k"] = _DEFAULT_TILES["block_k"]
+        if explicit:
+            bk = check_tiles(m, k, n, **t)[2]
+            if bits == 4 and bk % 2:
+                raise ValueError(f"quant_matmul: int4 needs an even "
+                                 f"block_k, got {bk}")
+        if explicit or _divides(tuned, m, k, n):
+            tiles = (t["block_m"], t["block_n"], t["block_k"])
     if not _on_cuda(x, w_q, scale):
         return ref.quant_matmul_ref(x, w_q, scale, bits=bits)
-    tuned = _TUNED["quant_matmul"]
-    use = explicit or (tuned is not None and _divides(tuned, m, k, n))
-    out = _quant_matmul(x, w_q, scale, bits,
-                        (tiles["block_m"], tiles["block_n"],
-                         tiles["block_k"]) if use else None)
+    out = _quant_matmul(x, w_q, scale, bits, tiles)
     LAUNCHES["quantized_matmul"] += 1
     return out

@@ -9,8 +9,10 @@ clamped to its dimension and must divide it, else ``ValueError``
 (``check_tiles``, which ``kernels/ops.py`` applies on the CPU too).  On
 the card they select the kernel's variant (``cta_tile``): (block_m,
 block_n) is each block's output region, as it is the TPU grid's output
-tile, walked in a compiled register tile, and block_k sets the K rows per
-shared-memory stage.
+tile, walked in a compiled tile, and block_k sets the K rows per
+shared-memory stage.  When the output's regions would leave the SMs
+under-filled, K is split across blocks (``tile_k_splits``) and the splits'
+fp32 partial sums are added in split order inside the same launch.
 
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
 launches.
@@ -18,22 +20,67 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode import check_cuda
+from repro_torch.kernels.flash_decode import _ptr, check_cuda
+
+SMS = 132                     # the H100's SMs: the K split fills them
+MAX_SPLITS = 8
+MAX_PART_BYTES = 16 * 2**20   # fp32 partial sums of one call, at most
+N_COUNTERS = 1024             # split regions (fewer than SMS) per stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _lib():
     fn = build.library("streamed_matmul").repro_streamed_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 3 + [_I] * 9 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 11 + [_P]
         fn.restype = _I
     return fn
+
+
+def counters(device: torch.device, stream: int) -> torch.Tensor:
+    """``N_COUNTERS`` zeroed int32 on ``device`` for K-split launches on
+    ``stream``: each split launch leaves them zeroed, and launches on one
+    stream run in order, so one buffer per stream serves every call."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(N_COUNTERS, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_k_splits(m: int, k: int, n: int, rm: int, rn: int, kc: int
+                  ) -> Tuple[int, int]:
+    """(splits, k_per_split) for the tiled body: blocks own rm x rn output
+    regions with 2 * kc K rows per stage.  When the regions alone leave
+    some of the ``SMS`` idle, K is split so that regions x splits reaches
+    ``SMS`` with the fewest splits where K has the stages for it, else
+    the most it allows: each split a whole number of stages (so an even
+    number of logical rows, as int4 needs), at most ``MAX_SPLITS`` of
+    them and ``MAX_PART_BYTES`` of fp32 partial sums.  Else one split
+    over all of K."""
+    ks = 2 * kc
+    stages = -(-k // ks)
+    regions = -(-m // rm) * -(-n // rn)
+    cap = min(MAX_SPLITS, MAX_PART_BYTES // (4 * m * n), stages)
+    if regions >= SMS or cap < 2:
+        return 1, stages * ks
+    want = -(-SMS // regions)
+    for target in range(want, cap + 1):   # the fewest splits that fill
+        per = -(-stages // target)        # stages per split
+        if -(-stages // per) >= want:
+            return -(-stages // per), per * ks
+    per = -(-stages // cap)               # K too short: as many as allowed
+    return -(-stages // per), per * ks
 
 
 def check_tiles(m: int, k: int, n: int, block_m: int, block_n: int,
@@ -54,9 +101,9 @@ def check_tiles(m: int, k: int, n: int, block_m: int, block_n: int,
 def cta_tile(bm: int, bn: int, bk: int) -> Tuple[int, int, int, int, int]:
     """The launch a (clamped) tile selects, ``(bm, bn, tile_m, tile_n,
     kc)``: blocks own bm x bn output regions, walked in the compiled
-    tile_m x tile_n register tile (each edge 64 when the region's is at
-    most 64, else 128), with kc = 8, 16 or 32 K rows per stage for block_k
-    up to 128, up to 256, or more (csrc/mm_tiles.cuh).  Distinct
+    tile_m x tile_n tile (each edge 64 when the region's is at most 64,
+    else 128), with kc = 8, 16 or 32, the band of block_k up to 128, up to
+    256, or more; a stage holds 2 * kc K rows (csrc/mm_tiles.cuh).  Distinct
     candidates of ``autotune._tile_candidates`` are distinct launches: the
     region is the tile itself, and two fitted block_k of one shape never
     fall in one kc band (a fit of 256 that is at most 128 is the fit of
@@ -76,10 +123,16 @@ def streamed_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 256,
     m, k = x.shape
     n = w.shape[1]
     tiles = cta_tile(*check_tiles(m, k, n, block_m, block_n, block_k))
+    splits, per = tile_k_splits(m, k, n, tiles[0], tiles[1], tiles[4])
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                 *tiles, tag, stream)
+    part = cnt = None
+    if splits > 1:    # splits x M x N x 4 bytes, within MAX_PART_BYTES
+        part = torch.empty((splits, m, n), device=x.device,
+                           dtype=torch.float32)
+        cnt = counters(x.device, stream)
+    err = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(part),
+                 _ptr(cnt), m, k, n, *tiles, splits, per, tag, stream)
     if err:
         raise RuntimeError(f"streamed_matmul kernel launch failed: CUDA "
                            f"error {err}")

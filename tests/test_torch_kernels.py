@@ -525,3 +525,183 @@ def test_cuda_autotune_sweep(cuda, tmp_path):
         assert ops.LAUNCHES["flash_decode"] == 2
     finally:
         ops.set_tuned()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core matmul body (csrc/mm_tiles.cuh): its K-split plan and the
+# operand splits it relies on, checked on the CPU; its K-split shapes on the
+# card.
+# ---------------------------------------------------------------------------
+from hypothesis import example, given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+
+@given(st.integers(5, 1024), st.integers(1, 16384), st.integers(1, 16384),
+       st.sampled_from([(64, 64), (64, 128), (128, 64), (128, 128),
+                        (256, 256), (100, 30)]),
+       st.sampled_from([8, 16, 32]))
+@example(128, 4096, 1024, (64, 64), 32)      # quant prefill, DEFAULT_CTA
+@example(128, 1024, 1024, (64, 64), 32)
+@example(128, 1024, 4096, (64, 64), 32)
+@example(64, 8192, 512, (64, 64), 32)
+@example(256, 1024, 4096, (256, 256), 32)    # autotune's widest region
+@example(64, 4096, 16384, (64, 64), 32)      # gpt_j's MLP: no split
+@settings(max_examples=300, deadline=None)
+def test_tile_k_split_plan(m, k, n, region, kc):
+    """The tiled body's K split: whole stages (so even logical rows for
+    int4), K covered exactly once with no empty split, within the caps;
+    one split when the regions already fill the SMs; the SM target reached
+    whenever some whole-stage split count within the caps reaches it."""
+    from repro_torch.kernels import streamed_matmul as sm
+    rm, rn = region
+    splits, per = sm.tile_k_splits(m, k, n, rm, rn, kc)
+    ks = 2 * kc
+    assert splits >= 1 and per % ks == 0 and per % 2 == 0
+    assert (splits - 1) * per < k <= splits * per
+    regions = -(-m // rm) * -(-n // rn)
+    stages = -(-k // ks)
+    if regions >= sm.SMS:
+        assert splits == 1
+    if splits > 1:
+        assert splits <= sm.MAX_SPLITS
+        assert 4 * splits * m * n <= sm.MAX_PART_BYTES
+        assert regions <= sm.N_COUNTERS
+    cap = min(sm.MAX_SPLITS, sm.MAX_PART_BYTES // (4 * m * n), stages)
+    reachable = [-(-stages // p) for p in range(1, stages + 1)
+                 if sm.SMS <= regions * -(-stages // p)
+                 and -(-stages // p) <= cap]
+    if regions < sm.SMS and reachable:
+        assert regions * splits >= sm.SMS
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 1024), (128, 1024, 1024)])
+def test_quant_prefill_plan_fills_the_card(m, k, n):
+    """At the quant paths' prefill shapes the default launch reaches the
+    H100's 132 SMs by splitting K (unsplit, it runs 32 blocks there)."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import streamed_matmul as sm
+    for bits in (8, 4):
+        splits, per, cta = qm._plan(m, k, n, bits, None)
+        assert cta == qm.DEFAULT_CTA and splits > 1
+        regions = -(-m // cta[0]) * -(-n // cta[1])
+        assert regions * splits >= sm.SMS
+        assert splits * m * n * 4 <= 4 * 2**20    # the workspace
+
+
+def _bf16_split(x):
+    """fp32 -> (hi, mid, lo), each a bf16 value held in fp32, by
+    truncation to the top 16 bits, as csrc/mm_tiles.cuh::split3 does."""
+    trunc = lambda a: (a.view(np.uint32) & np.uint32(0xFFFF0000)).view(  # noqa
+        np.float32)
+    hi = trunc(x)
+    mid = trunc(x - hi)
+    lo = trunc(x - hi - mid)
+    return hi, mid, lo
+
+
+def _tf32_split(a):
+    """fp32 -> (hi, lo), TF32 values (the low 13 mantissa bits 0) held in
+    fp32, as csrc/mm_tiles.cuh::split_tf32 does."""
+    trunc = lambda v: (v.view(np.uint32) & np.uint32(0xFFFFE000)).view(  # noqa
+        np.float32)
+    hi = trunc(a)
+    return hi, trunc(a - hi)
+
+
+def test_bf16_split_is_exact():
+    """x = hi + mid + lo exactly, each part a bf16 (its low 16 bits 0),
+    for fp32 values from 2^-100 to the largest: their remainders stay
+    normal (below ~2^-110 a remainder may fall under fp32's normal range
+    and lose bits, an error under 2^-133)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(4096)
+         * 2.0 ** rng.integers(-100, 100, 4096)).astype(np.float32)
+    x = np.concatenate([x, np.float32([1.0, -1.0, 3.0e38, 2.0 ** -100,
+                                       np.pi, 1 / 3])]).astype(np.float32)
+    hi, mid, lo = _bf16_split(x)
+    for part in (hi, mid, lo):
+        assert not np.any(part.view(np.uint32) & np.uint32(0xFFFF))
+    np.testing.assert_array_equal(
+        hi.astype(np.float64) + mid + lo, x.astype(np.float64))
+    np.testing.assert_array_equal((hi + mid) + lo, x)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_bf16_three_pass_product_matches_jax(bits):
+    """fp32 x against an int8 / int4 weight as the kernel computes it:
+    three bf16 passes (x = hi + mid + lo) against the integer weight, exact
+    in bf16, accumulated in fp32, the scale applied to the sum; within
+    1e-5 of the output's scale of JAX's quantized_matmul (interpret mode)
+    and of ref.quant_matmul_ref."""
+    import jax.numpy as jnp
+    from repro.checkpoint import quant as jqz
+    from repro.kernels import ops as jops
+    m, k, n = 32, 256, 48
+    rng = np.random.default_rng(bits)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    qt = jqz.quantize_array(rng.standard_normal((k, n)).astype(np.float32),
+                            f"int{bits}")
+    w_q, scale = np.asarray(qt.q), np.asarray(qt.scale)
+    xt, wt, st_ = (torch.from_numpy(a) for a in (x, w_q, scale))
+    q = ref.dequant_ref(wt, torch.ones_like(st_), bits=bits)[:k]
+    assert torch.equal(q, q.to(torch.bfloat16).float())   # exact in bf16
+    acc = torch.zeros((m, n))
+    for part in reversed(_bf16_split(x)):                 # lo, mid, hi
+        acc += torch.from_numpy(part) @ q
+    got = (acc * st_).numpy()
+    want = np.asarray(jops.quant_matmul(jnp.asarray(x), jnp.asarray(w_q),
+                                        jnp.asarray(scale), bits=bits,
+                                        block_m=32, block_n=48,
+                                        block_k=128))
+    plain = ref.quant_matmul_ref(xt, wt, st_, bits=bits).numpy()
+    tol = 1e-5 * np.abs(plain).max()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    np.testing.assert_allclose(got, plain, atol=tol, rtol=0)
+
+
+def test_3xtf32_product_matches_jax():
+    """fp32 x @ fp32 w as the streamed kernel computes it: 3xTF32 (TF32
+    emulated by zeroing the low 13 mantissa bits), acc = al bh + ah bl +
+    ah bh in fp32; within 1e-5 of the output's scale of JAX's
+    streamed_matmul (interpret mode), and inside the source note's error
+    budget of 2^-19 of sum |a| |b| per output."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    m, k, n = 64, 512, 96
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    (ah, al), (bh, bl) = _tf32_split(x), _tf32_split(w)
+    got = (torch.from_numpy(al) @ torch.from_numpy(bh)
+           + torch.from_numpy(ah) @ torch.from_numpy(bl)
+           + torch.from_numpy(ah) @ torch.from_numpy(bh)).numpy()
+    want = np.asarray(jops.matmul(jnp.asarray(x), jnp.asarray(w),
+                                  block_m=64, block_n=96, block_k=128))
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(),
+                               rtol=0)
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    budget = 2.0 ** -19 * (np.abs(x).astype(np.float64) @ np.abs(w)) + (
+        k * 2.0 ** -24 * np.abs(exact).max())
+    assert np.all(np.abs(got - exact) <= budget)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(128, 4096, 1024), (64, 8192, 512)])
+def test_cuda_quant_matmul_k_split(cuda, m, k, n, bits, dtype):
+    """The tiled path at shapes whose launch splits K across blocks: the
+    plain version's result (fp32 1e-4 of the output's scale, bf16 as
+    HALF_RTOL), and the same bits on a second call (the splits are added
+    in a fixed order)."""
+    from repro_torch.kernels import quant_matmul as qm
+    assert qm._plan(m, k, n, bits, None)[0] > 1
+    x, w_q, scale = _cuda_quant(cuda, m + k + n + bits, m, k, n, bits)
+    x = x.to(dtype)
+    got = ops.quant_matmul(x, w_q, scale, bits)
+    want = ref.quant_matmul_ref(x, w_q, scale, bits=bits)
+    if dtype == torch.float32:
+        tol = 1e-4 * want.abs().max().item()
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    else:
+        _close(got, want, dtype)
+    assert torch.equal(ops.quant_matmul(x, w_q, scale, bits), got)
