@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit, kernel build time (every CUDA
    kernel is built from ``src/repro_torch/kernels/csrc`` by ``nvcc`` into
    ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel),
-   each library's ``-Xptxas -v`` registers and spills, and the two matmul
-   libraries' tensor-core instructions (``HMMA`` / ``HGMMA`` in
-   ``cuobjdump -sass``): it fails if either holds none.  TF32 is turned
-   off for PyTorch's own matmuls.
+   each library's ``-Xptxas -v`` registers and spills, and the
+   tensor-core instructions (``HMMA`` / ``HGMMA`` in ``cuobjdump -sass``)
+   of the two matmul libraries, ``libflash_attention`` and
+   ``libpaged_decode``: it fails if one of the first three holds none.
+   TF32 is turned off for PyTorch's own matmuls.
 2. Every kernel against its plain PyTorch version on the card (fp32,
    tolerance 1e-4 max abs error; for quantized_matmul and streamed_matmul
    1e-4 of the output's largest magnitude; fp16 / bf16 inputs 2e-3 /
@@ -27,13 +28,15 @@ Phases, in order; any failure exits non-zero:
    streamed_matmul at gpt2_base's autotune shape (256 x 1024 @ 1024 x
    4096, fp32, TF32 off) at every tile the autotune sweep times, and at
    the reference's sweep shapes in fp32 and bf16; library
-   ``torch.matmul``.  For the two matmul kernels also ``device_ms``: the
+   ``torch.matmul``.  For every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
    which read host time when the host is the slower side), and the
-   kernels per call.  Every kernel's fp32 operations are bound at TF32's
-   495 TFLOP/s, the fastest rate at which the card multiplies fp32
-   inputs.
+   kernels per call; for the attention kernels ``library_device_ms``, the
+   same of the SDPA call.  A flash_decode or paged_flash_decode call that
+   runs more than one kernel fails.  Every kernel's fp32 operations are
+   bound at TF32's 495 TFLOP/s, the fastest rate at which the card
+   multiplies fp32 inputs.
 3. The dense path at full width: a full-size gpt2_base checkpoint (24
    layers, d=1024, fp32, random weights from a numpy seed) served through
    ``repro_torch.launch.serve.run`` — 8 requests, 128-token prompts, 32 new
@@ -103,10 +106,15 @@ Then one JSON line with every kernel: launches (over the whole
 ``serve.run`` call of the path that runs it, and inside its serving loop
 as ``serve_launches``; for quantized_matmul both quant paths; for
 streamed_matmul the autotune phase's sweep), fp32 error,
-times and bounds at the main path's shapes (where it runs the kernel at
+times (``ms``, ``device_ms``; for the attention kernels also
+``kernels_per_call`` and ``library_device_ms``) and bounds at the main
+path's shapes (where it runs the kernel at
 several, the chunk rounds' two or quantized_matmul's 16, the mean per
 launch weighted by the serving loop's launches at each; streamed_matmul
 at the autotune shape and the tile the sweep chose).
+
+``--kernels-only`` stops after phase 2 (a quick check of every kernel,
+with its times) and prints no result line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repo's ``src/repro_torch`` beside it, it exits 2 and prints
@@ -221,9 +229,24 @@ def device_ms(torch, fn, iters: int = 20):
             sorted({e.name for e in evs}))
 
 
+def timings(torch, run, plain, lib) -> dict:
+    """An attention case's times: CUDA-event ms of the kernel, its plain
+    version and the library call, and ``device_ms`` (``torch.profiler``)
+    of the kernel (with its kernels per call) and of the library call."""
+    dev, per_call, names = device_ms(torch, run)
+    return dict(ms=time_ms(torch, run), plain_ms=time_ms(torch, plain),
+                library_ms=time_ms(torch, lib), device_ms=dev,
+                kernels_per_call=per_call, kernel_names=names,
+                library_device_ms=device_ms(torch, lib)[0])
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+DECODE_KERNELS = ("flash_decode", "flash_decode_partial",
+                  "paged_flash_decode")
+
+
 def dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -248,27 +271,27 @@ def decode_case(torch, fd, ref, gen, name, b, s, kv, g, dh, lengths=None,
     lengths = lengths or [s] * b
     lens = torch.tensor(lengths, device=dev)
     valid = torch.arange(s, device=dev)[None, :] < lens[:, None]
-    got = fd.flash_decode_gqa(q, k, v, valid)
-    want = ref.decode_gqa_ref(q, k, v, valid)
+    run = lambda: fd.flash_decode_gqa(q, k, v, valid)  # noqa: E731
+    plain = lambda: ref.decode_gqa_ref(q, k, v, valid)  # noqa: E731
+    got, want = run(), plain()
     torch.cuda.synchronize()
     err, limit = error(got, want)
-    ms = time_ms(torch, lambda: fd.flash_decode_gqa(q, k, v, valid))
-    plain_ms = time_ms(torch, lambda: ref.decode_gqa_ref(q, k, v, valid))
     # library yardstick: SDPA over the same grouped cache and mask
     qs = q.reshape(b, kv * g, 1, dh)
     ks = k.transpose(1, 2).repeat_interleave(g, dim=1)
     vs = v.transpose(1, 2).repeat_interleave(g, dim=1)
     mask = valid[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    times = timings(torch, run, plain,
+                    lambda: sdpa(qs, ks, vs, attn_mask=mask))
     n_valid = int(sum(lengths))
     nbytes = (q.element_size() * (q.numel() + 2 * n_valid * kv * dh
                                   + q.numel()) + b * s)
     flops = 4 * n_valid * kv * g * dh
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
     return dict(kernel="flash_decode", case=name, max_abs_err=err,
-                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                limit=limit, dtype=dtype_name(q), **times, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def partial_case(torch, fd, ref, gen):
@@ -319,9 +342,8 @@ def partial_case(torch, fd, ref, gen):
     b_ms, b_by = bound(nbytes, 4 * b * s * kv * g * dh)
     timed = dict(kernel="flash_decode_partial", dtype="float32",
                  case=f"main path B={b} S={s} KV={kv} G={g} dh={dh} "
-                 "unnormalised", max_abs_err=err, ms=time_ms(torch, run),
-                 plain_ms=time_ms(torch, plain),
-                 library_ms=time_ms(torch, lambda: sdpa(qs, ks, vs)),
+                 "unnormalised", max_abs_err=err,
+                 **timings(torch, run, plain, lambda: sdpa(qs, ks, vs)),
                  bound_ms=b_ms, bound_by=b_by)
     return [combined, timed]
 
@@ -340,9 +362,6 @@ def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
     want = ref.attention_gqa_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err, limit = error(got, want)
-    ms = time_ms(torch, run)
-    plain_ms = time_ms(torch, lambda: ref.attention_gqa_ref(
-        q, k, v, causal=causal, window=window))
     qs = q.reshape(b, s, kv * g, dh).transpose(1, 2)
     ks = k.transpose(1, 2).repeat_interleave(g, dim=1)
     vs = v.transpose(1, 2).repeat_interleave(g, dim=1)
@@ -358,14 +377,15 @@ def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
         lib = lambda: sdpa(qs, ks, vs, is_causal=True)  # noqa: E731
     else:
         lib = lambda: sdpa(qs, ks, vs, attn_mask=ok)  # noqa: E731
-    lib_ms = time_ms(torch, lib)
+    times = timings(torch, run, lambda: ref.attention_gqa_ref(
+        q, k, v, causal=causal, window=window), lib)
     pairs = int(ok.sum().item())
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * pairs * b * kv * g * dh
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
     return dict(kernel="flash_attention", case=name, max_abs_err=err,
-                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                limit=limit, dtype=dtype_name(q), **times, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def paged_inputs(torch, gen, b, w, kv, g, dh, page, nb, lengths, shared=0,
@@ -419,8 +439,6 @@ def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
         dec = pd.paged_flash_decode(q[:, 0].contiguous(), kp, vp, tables,
                                     lens)
         err = max(err, error(got[:, 0], dec)[0])
-    ms = time_ms(torch, lambda: kern(q, kp, vp, tables, lens))
-    plain_ms = time_ms(torch, lambda: plain(q, kp, vp, tables, lens))
     s_tot = nb * page
     gather = lambda p: p[tables.long()].reshape(  # noqa: E731
         b, s_tot, kv, dh).transpose(1, 2).repeat_interleave(g, dim=1)
@@ -431,7 +449,9 @@ def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
     mask = (torch.arange(s_tot, device="cuda")[None, None, :]
             <= qpos[:, :, None])[:, None]                 # (B, 1, W, S)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    times = timings(torch, lambda: kern(q, kp, vp, tables, lens),
+                    lambda: plain(q, kp, vp, tables, lens),
+                    lambda: sdpa(qs, ks, vs, attn_mask=mask))
     pairs = sum(n - ww + i + 1 for n in lengths for i in range(ww))
     tab = tables.tolist()
     slots = {(tab[i][s // page], s % page)
@@ -441,8 +461,8 @@ def paged_case(torch, ref, gen, name, b, w, kv, g, dh, page, nb, lengths,
     b_ms, b_by = bound(nbytes, 4 * pairs * kv * g * dh, dtype_name(q))
     return dict(kernel="paged_flash_decode" if w is None
                 else "paged_flash_verify", case=name, max_abs_err=err,
-                limit=limit, dtype=dtype_name(q), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                limit=limit, dtype=dtype_name(q), **times, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def paged_cases(torch, ref, gen):
@@ -705,10 +725,22 @@ def phase_kernels(torch):
                    else f"{c['device_ms']:.5f}")
             line += (f" device_ms {dev} kernels/call "
                      f"{c['kernels_per_call']} {c['kernel_names']}")
+        if "library_device_ms" in c:
+            lib = c["library_device_ms"]
+            line += (" library_device_ms "
+                     + ("not measured" if lib is None else f"{lib:.5f}"))
         print(line, flush=True)
     bad = [c for c in cases if not c["max_abs_err"] <= c.get("limit", TOL)]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    # one launch per decode call, split or not (the profiler may drop an
+    # event, which only lowers the count)
+    many = [c for c in cases if c["kernel"] in DECODE_KERNELS
+            and (c.get("kernels_per_call") or 0) > 1.0]
+    if many:
+        fail("a decode call ran more than one kernel: " + "; ".join(
+            f"{c['kernel']} {c['case']}: {c['kernels_per_call']} "
+            f"{c['kernel_names']}" for c in many))
     return cases
 
 
@@ -1270,6 +1302,13 @@ def phase_vit(torch, ops):
 
 # ---------------------------------------------------------------------------
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the "
+                                 "PyTorch/CUDA port (see the docstring).")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-2 only: build, check and time every "
+                    "kernel; prints no result line")
+    args = ap.parse_args()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the repo's src/repro_torch is not beside this "
               "script", file=sys.stderr)
@@ -1300,16 +1339,21 @@ def main() -> int:
           f"({json.dumps(build.BUILD_SECONDS)})", flush=True)
     for k in build.KERNELS:
         print(f"  ptxas -v: {build.ptxas_summary(k)}", flush=True)
-    for k in ("quant_matmul", "streamed_matmul"):
+    for k in ("quant_matmul", "streamed_matmul", "flash_attention",
+              "paged_decode"):
         counts = build.sass_counts(k, ("HMMA", "HGMMA", "FFMA"))
         print(f"  sass: lib{k}: {json.dumps(counts)}", flush=True)
-        if not counts["HMMA"] + counts["HGMMA"]:
+        if k != "paged_decode" and not counts["HMMA"] + counts["HGMMA"]:
             fail(f"lib{k} holds no tensor-core instruction (HMMA or HGMMA "
-                 f"in cuobjdump -sass): its matmul is not on the tensor "
+                 f"in cuobjdump -sass): its products are not on the tensor "
                  f"cores")
 
     # ---- phase 2: kernels against their plain versions
     cases = phase_kernels(torch)
+    if args.kernels_only:
+        print(f"chip_smoke: phases 1-2 passed in "
+              f"{time.perf_counter() - t_start:.1f}s ({smi})", flush=True)
+        return 0
 
     # ---- phases 3-7: the dense, paged and chunked paths; each path's
     # launch counts are set to 0 just before it and read just after
@@ -1370,7 +1414,10 @@ def main() -> int:
         # (the chunk rounds), each takes an equal share of its launches,
         # so the numbers are their mean per launch
         mains = [c for c in mine if c["case"].startswith("main")]
-        mean = lambda f: sum(c[f] for c in mains) / len(mains)  # noqa
+
+        def mean(f):
+            vals = [c[f] for c in mains]
+            return None if None in vals else sum(vals) / len(vals)
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launch_key": key,
@@ -1380,7 +1427,9 @@ def main() -> int:
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": max(mains, key=lambda c: c["bound_ms"])["bound_by"],
-            "library_ms": mean("library_ms")})
+            "library_ms": mean("library_ms"), "device_ms": mean("device_ms"),
+            "kernels_per_call": mean("kernels_per_call"),
+            "library_device_ms": mean("library_device_ms")})
     # quantized_matmul: launches from both quant paths
     kernels.append(dict(
         name="quantized_matmul", route="cuda",

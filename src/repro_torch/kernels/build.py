@@ -120,7 +120,31 @@ def ptxas_summary(name: str) -> str:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     if not regs:
         return f"{name}: no ptxas report (library reused)"
-    spilled = sum(int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
-    return (f"{name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-            f"spill bytes (stores + loads) {spilled}")
+    spills = []   # (bytes, kernel) of each kernel that spills
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      block)
+        if m and int(m[1]) + int(m[2]):
+            spills.append((int(m[1]) + int(m[2]), block.split("'", 1)[0]))
+    line = (f"{name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+            f"spill bytes (stores + loads) {sum(b for b, _ in spills)}")
+    if spills:
+        names = _demangle([k for _, k in spills])
+        line += "; spilling: " + ", ".join(
+            f"{n} {b} B" for (b, _), n in zip(spills, names))
+    return line
+
+
+def _demangle(names):
+    """Kernel names without their parameter lists, demangled by
+    ``cu++filt`` (mangled where it is missing)."""
+    try:
+        out = subprocess.run([_tool("cu++filt")], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return list(names)
+    if len(out) != len(names):
+        return list(names)
+    # "void k<(int)64, float>(float const*, ...)": cut at the parameters
+    return [n[:n.find(">(") + 1] if ">(" in n else n for n in out]

@@ -1,42 +1,59 @@
-// Tile bodies shared by the attention kernels, for fp32, fp16 and bf16
-// inputs with fp32 arithmetic.
+// Bodies shared by the attention kernels, for fp32, fp16 and bf16 inputs.
 //
 // Every kernel here computes scores q.k * scale, masked scores -1e30, an
-// online softmax over key tiles and acc / max(l, 1e-30), as the Pallas
-// kernels do.  The kernels differ only in where a key's K/V row lives
-// (a dense (B, S, KV, dh) cache, or a paged (P, page, KV, dh) pool read
-// through a block table) and in which keys a query row may see.  Those
-// two things are the template arguments below; the loads, the softmax and
-// the products are written once.  The storage type T (float, __half or
-// __nv_bfloat16) is the Src / Tile's: every load is converted to fp32 in
-// registers, shared memory holds fp32, scores, probabilities and
-// accumulators are fp32 (the probabilities stay fp32 for the PV product,
-// as the plain versions in kernels/ref.py keep them), and only the
-// normalised output is rounded to T.  Unnormalised (o, m, l) partials are
-// fp32 whatever T is.
+// online softmax over the keys and acc / max(l, 1e-30), as the Pallas
+// kernels do.  The kernels differ only in where a key's K/V row lives (a
+// dense (B, S, KV, dh) cache, or a paged (P, page, KV, dh) pool read
+// through a block table) and in which keys a query row may see.  Those two
+// things are the template arguments below (Src, Tile); the loads, the
+// softmax and the products are written once.
 //
-//  * decode_kernel<Src>: one query token per (b, kv head, q head in the
-//    group), one block per (S-split, kv head, b), 128 threads.  Each K/V
-//    tile is loaded once into shared memory for all G query heads.
+//  * decode_kernel<Src, DH, GT>: one query token per (b, kv head, q head
+//    in the group).  Bound by bytes: each K/V row is used by G query heads
+//    for 2 G dh flops, so the work stays on the CUDA cores and the design
+//    is about keeping loads in flight.  One block of kDecWarps warps per
+//    (S-split, kv head, b, group of GT q heads); each warp walks its own
+//    contiguous run of the split's keys.  A key's K and V rows come
+//    straight from device memory into the registers of LPK lanes (16-byte
+//    vectors where dh * sizeof(T) allows, else one element per lane), U
+//    keys per lane group in flight; q.k is lane-parallel over dh with a
+//    shuffle reduction, and the online softmax and the P V accumulators
+//    live in registers.  No __syncthreads in the key loop: the warps merge
+//    once, through shared memory, at the end.  With more than one split
+//    the blocks store fp32 (o, m, l) partials to a workspace, and the last
+//    block of each (b, kv head, group) to finish (a __threadfence and an
+//    atomicAdd on a zeroed int32 counter, which it resets) merges them in
+//    split order (each split's weight computed once per row into shared
+//    memory): one launch per call, and the same bits on every call.
 //    flash_decode.cu (dense cache + valid mask) and paged_decode.cu (block
-//    table) instantiate it; combine_kernel merges the splits' (o, m, l).
-//  * attend_tile<DH, Tile>: a 64-row query tile against 64-key tiles, 256
-//    threads computing 4 x 4 score and 4 x (DH / 16) output register
-//    micro-tiles, shared rows padded so column reads do not collide in a
-//    bank.  flash_attention.cu (causal / windowed prefill) and
-//    paged_decode.cu (paged verify) instantiate it.
+//    table) instantiate it.
+//  * attend_tile<DH, NKW, Tile>: FlashAttention-2 on mma.sync.  A block
+//    of four warps owns 64 or 16 query rows (the host's plan, so that
+//    blocks reach the SMs).  In a 64-row block each warp owns 16 rows; a
+//    16-row block's warps take a quarter of each key tile each (NKW = 4)
+//    and merge their (o, m, l) once at the end, so a small prefill has
+//    four times the blocks and still four warps in each.  K and V tiles of BK keys
+//    land in shared memory in their storage type through a 2-stage
+//    cp.async ring (one __syncthreads per tile), rows padded so fragment
+//    reads do not collide in a bank.  The score fragment S = Q K^T stays in
+//    registers, row max and sum use quad shuffles, and P becomes the A
+//    fragment of the P V product in registers.  fp16 / bf16: one m16n8k16
+//    pass, fp32 accumulators, P rounded to the input type for P V as the
+//    Pallas kernel does (p.astype(v.dtype)).  fp32: 3xTF32 (m16n8k8) for
+//    both products, a = ah + al, acc += al bh + ah bl + ah bh, about 2^-19
+//    of sum |a| |b| per dot product, so fp32 inputs keep fp32 accuracy.
+//    flash_attention.cu (causal / windowed prefill) and paged_decode.cu
+//    (paged verify) instantiate it.
 //
 // Src (decode) provides:
 //   using T                           storage type of q, k, v and out
 //   const T* k, * v                   pool / cache base pointers
-//   static constexpr bool kVec4       load rows 4 elements at a time
-//                                     (dh % 4 == 0, 4-element aligned rows)
 //   int length(int b)                 slots of row b to walk
 //   size_t row(int b, int s, int kvh) element offset of slot s's K/V row
 //   bool ok(int b, int s)             unmasked?
 // Tile (attend_tile) provides:
-//   using T; const T* k, * v; static constexpr bool kVec4
-//   int kt_begin, kt_end              key tiles to walk
+//   using T; const T* k, * v
+//   int kt_begin, kt_end              key tiles (of BK keys) to walk
 //   int n_keys                        keys below it are read; the rest
 //                                     weigh exactly 0
 //   const T* q_row(int r)             block-local query row r (nullptr:
@@ -49,422 +66,769 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "elem.cuh"
+#include "mma.cuh"
 
 namespace attn {
 
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
 using namespace elem;
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using namespace tc;
 
 // ---------------------------------------------------------------------------
-// Decode: grid (n_split, KV, B), kDecThreads threads.
+// Decode: grid (n_split, KV * ceil(G / GT), B), kDecThreads threads.
 // ---------------------------------------------------------------------------
-constexpr int kDecTile = 64;       // slots per shared-memory tile
-constexpr int kDecThreads = 128;
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecMaxDH = 256;      // the scalar layout's row
+constexpr int kDecGroup = 8;        // q heads per block when G > 1
+constexpr int kDecMaxSplits = 64;   // launcher: flash_decode.MAX_SPLITS
+static_assert(kDecMaxSplits % 32 == 0, "a warp holds the splits' m, l");
 
-inline size_t decode_smem_bytes(int G, int dh) {
-  return sizeof(float) *
-         ((size_t)G * dh + kDecTile * (dh + 1) + kDecTile * dh +
-          (size_t)G * kDecTile + (size_t)G * dh + 3 * (size_t)G);
+// How a warp's lanes share K/V rows.  DH > 0: rows of DH elements read as
+// 16-byte chunks of E elements, LPK lanes per row (CPL chunks each);
+// DH == 0: any dh up to kDecMaxDH, one element per lane, 32 lanes per row.
+// A warp reads KPL keys per load and keeps U loads in flight, so KPL * U
+// keys per step, within about 64 registers of K and V per lane (32 when
+// the lane also holds GT > 1 heads' q and accumulators).
+template <class T, int DH, int GT>
+struct DecLanes {
+  static constexpr bool kVec = DH > 0;
+  static constexpr int E = kVec ? 16 / (int)sizeof(T) : 1;
+  static constexpr int R = kVec ? DH / E : kDecMaxDH;
+  static constexpr int LPK = R < 32 ? R : 32;
+  static constexpr int CPL = R / LPK;
+  static constexpr int NE = CPL * E;                  // elements per lane
+  static constexpr int KPL = 32 / LPK;
+  static constexpr int KV_REGS = GT == 1 ? 64 : 32;   // K and V floats
+  static constexpr int U0 = KV_REGS / (2 * NE) < 1 ? 1 : KV_REGS / (2 * NE);
+  static constexpr int U = U0 * KPL > 8 ? (8 / KPL < 1 ? 1 : 8 / KPL) : U0;
+  static constexpr int KS = KPL * U;                  // keys per warp step
+  static_assert(!kVec || (DH % E == 0 && (R & (R - 1)) == 0),
+                "vector rows are a power of two of 16-byte chunks");
+  static_assert(KS <= 8, "a warp step is at most one warp tile");
+};
+
+// NE fp32 values of a row held by lane li (vector layout: chunks li,
+// li + LPK, ...; scalar layout: elements li, li + 32, ... below dh).
+template <class L, class T>
+__device__ __forceinline__ void load_lane(const T* row, int li, int dh,
+                                          float (&out)[L::NE]) {
+  if constexpr (L::kVec) {
+#pragma unroll
+    for (int c = 0; c < L::CPL; ++c)
+      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(row) + li + c * L::LPK),
+                  out + c * L::E);
+  } else {
+#pragma unroll
+    for (int c = 0; c < L::NE; ++c) {
+      const int d = li + 32 * c;
+      out[c] = d < dh ? ld(row + d) : 0.f;
+    }
+  }
 }
 
-// Writes, per (split, b, kv, g): o (dh values of OutT) and, unless
-// `normalize`, m and l.  Normalising divides o by max(l, 1e-30).  OutT is
-// float for partials and Src::T for a normalised output.
-template <class Src, class OutT>
+// Element index of lane li's value e (see load_lane).
+template <class L>
+__device__ __forceinline__ int lane_elem(int li, int e) {
+  if constexpr (L::kVec) return (li + (e / L::E) * L::LPK) * L::E + e % L::E;
+  else return li + 32 * e;
+}
+
+// (m, l, acc) <- the merge with another partial (m2, l2, acc2).
+template <int N>
+__device__ __forceinline__ void merge_partial(float& m, float& l,
+                                              float (&acc)[N], float m2,
+                                              float l2, const float (&acc2)[N]) {
+  const float mm = fmaxf(m, m2);
+  const float a = expf(m - mm), c = expf(m2 - mm);
+  l = l * a + l2 * c;
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acc2[e] * c;
+  m = mm;
+}
+
+// Writes the result for (b, kv, g) row `row` at element d: o / max(l,
+// 1e-30) in T when `normalize`, else fp32 o with m, l (by the thread of
+// element 0).
+template <class T>
+__device__ __forceinline__ void decode_store(void* out, float* out_m,
+                                             float* out_l, size_t row, int dh,
+                                             int d, float o, float m, float l) {
+  if (out_m == nullptr) {
+    static_cast<T*>(out)[row * dh + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
+  } else {
+    static_cast<float*>(out)[row * dh + d] = o;
+    if (d == 0) {
+      out_m[row] = m;
+      out_l[row] = l;
+    }
+  }
+}
+
+// out: (B, KV, G, dh) of T (out_m == nullptr: normalised) or fp32 o with
+// fp32 out_m, out_l (B, KV, G).  work (n_split > 1): fp32 partials o
+// (n_split, B, KV, G, dh), then m and l (n_split, B, KV, G); counters: one
+// zeroed int32 per (b, kv, group) block column.  chunk: keys per split, a
+// multiple of kDecWarps (each warp walks chunk / kDecWarps of them).
+template <class Src, int DH, int GT>
 __global__ void __launch_bounds__(kDecThreads)
 decode_kernel(Src src, const typename Src::T* __restrict__ q,
-              OutT* __restrict__ o_out, float* __restrict__ m_out,
-              float* __restrict__ l_out, int B, int KV, int G, int dh,
-              int chunk, float scale, int normalize) {
+              void* __restrict__ out, float* __restrict__ out_m,
+              float* __restrict__ out_l, float* __restrict__ work,
+              int* __restrict__ counters, int B, int KV, int G, int dh,
+              int chunk, float scale) {
   using T = typename Src::T;
-  extern __shared__ float smem[];
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int ks = dh + 1;             // padded K row: conflict-free reads
-  const int gd = G * dh;
-  float* q_s = smem;                 // G * dh (pre-scaled queries)
-  float* k_s = q_s + gd;             // kDecTile * ks
-  float* v_s = k_s + kDecTile * ks;  // kDecTile * dh
-  float* p_s = v_s + kDecTile * dh;  // G * kDecTile (scores, then probs)
-  float* acc_s = p_s + G * kDecTile; // G * dh
-  float* m_s = acc_s + gd;           // G
-  float* l_s = m_s + G;              // G
-  float* c_s = l_s + G;              // G (per-tile rescale factor)
+  using L = DecLanes<T, DH, GT>;
+  constexpr int NE = L::NE, U = L::U, RW = L::NE * L::LPK;
+  __shared__ float s_o[kDecWarps][GT][RW];
+  __shared__ float s_m[kDecWarps][GT], s_l[kDecWarps][GT];
+  __shared__ float s_w[GT][kDecMaxSplits], s_lw[GT][kDecMaxSplits];
+  __shared__ int is_last;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = kDecThreads / 32;
-  const T* qb = q + (size_t)(b * KV + kvh) * gd;
-  for (int i = tid; i < gd; i += kDecThreads) {
-    q_s[i] = ld(qb + i) * scale;
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kDecThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
+  const int D = DH > 0 ? DH : dh;
+  const int n_split = gridDim.x, split = blockIdx.x, b = blockIdx.z;
+  const int n_gt = (G + GT - 1) / GT;
+  const int kvh = blockIdx.y / n_gt, g0 = (blockIdx.y - kvh * n_gt) * GT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = lane % L::LPK, kg = lane / L::LPK;
+  const size_t rows = (size_t)B * KV * G;
+  const size_t row0 = ((size_t)b * KV + kvh) * G;   // (b, kvh, g = 0)
 
-  const int s_begin = split * chunk;
-  const int s_end = min(src.length(b), s_begin + chunk);
-
-  for (int t0 = s_begin; t0 < s_end; t0 += kDecTile) {
-    const int n = min(kDecTile, s_end - t0);
-    __syncthreads();  // previous tile fully consumed (and q_s/m_s ready)
-    if constexpr (Src::kVec4) {
-      const int d4 = dh / 4;
-      for (int i = tid; i < n * d4; i += kDecThreads) {
-        const int j = i / d4, c = (i - j * d4) * 4;
-        const size_t off = src.row(b, t0 + j, kvh) + c;
-        const float4 kk = ld4(src.k + off);
-        const float4 vv = ld4(src.v + off);
-        float* kr = k_s + j * ks + c;
-        kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
-        float* vr = v_s + j * dh + c;
-        vr[0] = vv.x; vr[1] = vv.y; vr[2] = vv.z; vr[3] = vv.w;
-      }
+  float qr[GT][NE], acc[GT][NE], m[GT], l[GT];
+#pragma unroll
+  for (int gi = 0; gi < GT; ++gi) {
+    m[gi] = kNegInf;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[gi][e] = 0.f;
+    if (g0 + gi < G) {
+      load_lane<L>(q + (row0 + g0 + gi) * D, li, D, qr[gi]);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) qr[gi][e] *= scale;
     } else {
-      for (int i = tid; i < n * dh; i += kDecThreads) {
-        const int j = i / dh, d = i - j * dh;
-        const size_t off = src.row(b, t0 + j, kvh) + d;
-        k_s[j * ks + d] = ld(src.k + off);
-        v_s[j * dh + d] = ld(src.v + off);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) qr[gi][e] = 0.f;
+    }
+  }
+
+  // this warp's keys: a contiguous run of the split, walked KS at a time
+  const int kpw = chunk / kDecWarps;
+  const int w0 = split * chunk + warp * kpw;
+  const int w1 = min(src.length(b), w0 + kpw);
+  for (int base = w0; base < w1; base += L::KS) {
+    float kf[U][NE], vf[U][NE];
+    bool rd[U], ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int key = base + u * L::KPL + kg;
+      rd[u] = key < w1;
+      ok[u] = false;
+      if (rd[u]) {
+        const size_t off = src.row(b, key, kvh);
+        load_lane<L>(src.k + off, li, D, kf[u]);
+        load_lane<L>(src.v + off, li, D, vf[u]);
+        ok[u] = src.ok(b, key);
+      } else {
+#pragma unroll
+        for (int e = 0; e < NE; ++e) kf[u][e] = vf[u][e] = 0.f;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < G * kDecTile; i += kDecThreads) {
-      const int g = i / kDecTile, j = i - g * kDecTile;
-      float s = -INFINITY;  // past the walked range: exp() gives exactly 0
-      if (j < n) {
-        if (src.ok(b, t0 + j)) {
-          const float* qg = q_s + g * dh;
-          const float* kj = k_s + j * ks;
-          float a = 0.f;
-          for (int d = 0; d < dh; ++d) a = fmaf(qg[d], kj[d], a);
-          s = a;
-        } else {
-          s = kNegInf;
-        }
+#pragma unroll
+    for (int gi = 0; gi < GT; ++gi) {
+      float sc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) s = fmaf(qr[gi][e], kf[u][e], s);
+#pragma unroll
+        for (int o = L::LPK / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(kFull, s, o);
+        // a slot past the walk weighs exactly 0; a masked one -1e30
+        sc[u] = !rd[u] ? -INFINITY : (ok[u] ? s : kNegInf);
       }
-      p_s[i] = s;
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u]);
+      const float corr = expf(m[gi] - mx);
+      float lsum = l[gi] * corr;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[gi][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = expf(sc[u] - mx);
+        lsum += p;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e]);
+      }
+      l[gi] = lsum;
+      m[gi] = mx;
     }
-    __syncthreads();
-    for (int g = warp; g < G; g += n_warps) {
-      float* pg = p_s + g * kDecTile;
-      float mx = -INFINITY;
-      for (int j = lane; j < kDecTile; j += 32) mx = fmaxf(mx, pg[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kDecTile; j += 32) {
-        const float p = expf(pg[j] - m_new);
-        pg[j] = p;
-        sum += p;
+  }
+
+  // merge the warp's key groups (lanes li of groups kg hold one element)
+#pragma unroll
+  for (int o = L::LPK; o < 32; o <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < GT; ++gi) {
+      float other[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        other[e] = __shfl_xor_sync(kFull, acc[gi][e], o);
+      const float m2 = __shfl_xor_sync(kFull, m[gi], o);
+      const float l2 = __shfl_xor_sync(kFull, l[gi], o);
+      merge_partial(m[gi], l[gi], acc[gi], m2, l2, other);
+    }
+  }
+  if (lane < L::LPK) {
+#pragma unroll
+    for (int gi = 0; gi < GT; ++gi) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int d = lane_elem<L>(li, e);
+        if (d < D) s_o[warp][gi][d] = acc[gi][e];
       }
-      sum = warp_sum(sum);
       if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-        c_s[g] = corr;
+        s_m[warp][gi] = m[gi];
+        s_l[warp][gi] = l[gi];
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < gd; i += kDecThreads) {
-      const int g = i / dh, d = i - g * dh;
-      const float* pg = p_s + g * kDecTile;
-      float a = acc_s[i] * c_s[g];
-      for (int j = 0; j < n; ++j) a = fmaf(pg[j], v_s[j * dh + d], a);
-      acc_s[i] = a;
     }
   }
   __syncthreads();
-  const size_t head = ((size_t)split * B + b) * KV + kvh;  // (split, b, kv)
-  for (int i = tid; i < gd; i += kDecThreads) {
-    const int g = i / dh;
-    float a = acc_s[i];
-    if (normalize) a /= fmaxf(l_s[g], 1e-30f);
-    o_out[head * gd + i] = from_f32<OutT>(a);
-  }
-  if (!normalize) {
-    for (int g = tid; g < G; g += kDecThreads) {
-      m_out[head * G + g] = m_s[g];
-      l_out[head * G + g] = l_s[g];
+
+  // merge the warps in order; one split writes out, else its partial
+  float* part_o = work;
+  float* part_m = work + (size_t)n_split * rows * D;
+  float* part_l = part_m + (size_t)n_split * rows;
+  for (int i = tid; i < GT * D; i += kDecThreads) {
+    const int gi = i / D, d = i - gi * D;
+    if (g0 + gi >= G) break;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mm = fmaxf(mm, s_m[w][gi]);
+    float ll = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float c = expf(s_m[w][gi] - mm);
+      ll = fmaf(s_l[w][gi], c, ll);
+      o = fmaf(s_o[w][gi][d], c, o);
+    }
+    const size_t row = row0 + g0 + gi;
+    if (n_split == 1) {
+      decode_store<T>(out, out_m, out_l, row, D, d, o, mm, ll);
+    } else {
+      part_o[((size_t)split * rows + row) * D + d] = o;
+      if (d == 0) {
+        part_m[split * rows + row] = mm;
+        part_l[split * rows + row] = ll;
+      }
     }
   }
-}
+  if (n_split == 1) return;
 
-// One block per (b, kv, g) row: merges n_split partials laid out
-// (n_split, rows, ...) the way the sharded decode combines shards.  A split
-// past the row's length has l = 0 and m = -1e30, so it weighs exactly 0.
-// With m_out (and l_out) NULL it writes o / max(l, 1e-30) as OutT, else
-// the merged fp32 partials.
-template <class OutT>
-__global__ void combine_kernel(const float* __restrict__ po,
-                               const float* __restrict__ pm,
-                               const float* __restrict__ pl,
-                               OutT* __restrict__ o_out,
-                               float* __restrict__ m_out,
-                               float* __restrict__ l_out, int rows, int dh,
-                               int n_split) {
-  const int r = blockIdx.x;
-  float m_star = kNegInf;
-  for (int i = 0; i < n_split; ++i) m_star = fmaxf(m_star, pm[(size_t)i * rows + r]);
-  float l_star = 0.f;
-  for (int i = 0; i < n_split; ++i)
-    l_star += pl[(size_t)i * rows + r] * expf(pm[(size_t)i * rows + r] - m_star);
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+  // The last split to finish this block column merges all, in order.
+  __threadfence();
+  __syncthreads();
+  const int column = blockIdx.z * gridDim.y + blockIdx.y;
+  if (tid == 0) is_last = atomicAdd(counters + column, 1) == n_split - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // each split's weight exp(m_s - m*) per row, once (a warp per row), and
+  // l* summed in split order; then every element sums its splits in order
+  for (int gi = warp; gi < GT && g0 + gi < G; gi += kDecWarps) {
+    const size_t row = row0 + g0 + gi;
+    float ms[kDecMaxSplits / 32], ls[kDecMaxSplits / 32];   // splits lane + 32h
+    float mm = kNegInf;
+#pragma unroll
+    for (int h = 0; h < kDecMaxSplits / 32; ++h) {
+      const int s = lane + 32 * h;
+      ms[h] = s < n_split ? __ldcg(part_m + s * rows + row) : kNegInf;
+      ls[h] = s < n_split ? __ldcg(part_l + s * rows + row) : 0.f;
+      mm = fmaxf(mm, ms[h]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(kFull, mm, o));
+#pragma unroll
+    for (int h = 0; h < kDecMaxSplits / 32; ++h) {
+      const int s = lane + 32 * h;
+      if (s < n_split) {
+        const float w = expf(ms[h] - mm);
+        s_w[gi][s] = w;
+        s_lw[gi][s] = ls[h] * w;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float ll = 0.f;
+      for (int s = 0; s < n_split; ++s) ll += s_lw[gi][s];
+      s_m[0][gi] = mm;
+      s_l[0][gi] = ll;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < GT * D; i += kDecThreads) {
+    const int gi = i / D, d = i - gi * D;
+    if (g0 + gi >= G) break;
+    const size_t row = row0 + g0 + gi;
+    const float* po = part_o + row * D + d;
     float o = 0.f;
-    for (int i = 0; i < n_split; ++i)
-      o += po[((size_t)i * rows + r) * dh + d] * expf(pm[(size_t)i * rows + r] - m_star);
-    o_out[(size_t)r * dh + d] =
-        from_f32<OutT>(m_out ? o : o / fmaxf(l_star, 1e-30f));
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s)
+      o = fmaf(__ldcg(po + s * rows * D), s_w[gi][s], o);
+    decode_store<T>(out, out_m, out_l, row, D, d, o, s_m[0][gi], s_l[0][gi]);
   }
-  if (m_out && threadIdx.x == 0) {
-    m_out[r] = m_star;
-    l_out[r] = l_star;
-  }
+  if (tid == 0) counters[column] = 0;
 }
 
-// Sets the dynamic shared memory a kernel needs when it is above the
-// 48 KB that needs no opt-in.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// Launches decode_kernel over (n_split, KV, B) and, with n_split > 1,
-// combine_kernel.  part_o/m/l hold fp32 (n_split, B, KV, G[, dh])
-// partials; out_m/out_l NULL means normalise into out_o as Src::T, else
-// out_o, out_m, out_l receive the fp32 partials.  chunk: slots per split
-// (a multiple of the tile, chunk * n_split covering every row's length).
-template <class Src>
-int launch_decode(const Src& src, const typename Src::T* q, float* part_o,
-                  float* part_m, float* part_l, void* out_o, float* out_m,
-                  float* out_l, int B, int KV, int G, int dh, int n_split,
-                  int chunk, float scale, cudaStream_t st) {
-  using T = typename Src::T;
-  const size_t smem = decode_smem_bytes(G, dh);
-  const dim3 grid(n_split, KV, B);
-  const bool normalize = out_m == nullptr;
-  cudaError_t e;
-  if (n_split == 1 && normalize) {
-    e = allow_smem(decode_kernel<Src, T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    decode_kernel<Src, T><<<grid, kDecThreads, smem, st>>>(
-        src, q, static_cast<T*>(out_o), nullptr, nullptr, B, KV, G, dh,
-        chunk, scale, 1);
-    return (int)cudaGetLastError();
-  }
-  e = allow_smem(decode_kernel<Src, float>, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (n_split == 1) {
-    decode_kernel<Src, float><<<grid, kDecThreads, smem, st>>>(
-        src, q, static_cast<float*>(out_o), out_m, out_l, B, KV, G, dh,
-        chunk, scale, 0);
-    return (int)cudaGetLastError();
-  }
-  decode_kernel<Src, float><<<grid, kDecThreads, smem, st>>>(
-      src, q, part_o, part_m, part_l, B, KV, G, dh, chunk, scale, 0);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int rows = B * KV * G;
-  const int threads = dh < 128 ? dh : 128;
-  if (normalize)
-    combine_kernel<T><<<rows, threads, 0, st>>>(
-        part_o, part_m, part_l, static_cast<T*>(out_o), nullptr, nullptr,
-        rows, dh, n_split);
-  else
-    combine_kernel<float><<<rows, threads, 0, st>>>(
-        part_o, part_m, part_l, static_cast<float*>(out_o), out_m, out_l,
-        rows, dh, n_split);
+template <class Src, int DH, int GT>
+int launch_decode_gt(const Src& src, const typename Src::T* q, void* out,
+                     float* out_m, float* out_l, float* work, int* counters,
+                     int B, int KV, int G, int dh, int n_split, int chunk,
+                     float scale, cudaStream_t st) {
+  const dim3 grid(n_split, KV * ((G + GT - 1) / GT), B);
+  decode_kernel<Src, DH, GT><<<grid, kDecThreads, 0, st>>>(
+      src, q, out, out_m, out_l, work, counters, B, KV, G, dh, chunk, scale);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// 64 x 64 tiles: kBQ query rows per block, kBK keys per tile, kTileThreads.
-// ---------------------------------------------------------------------------
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kTileThreads = 256;   // 16 x 16
-
-template <int DH>
-constexpr size_t tile_smem_bytes() {
-  return sizeof(float) *
-         ((size_t)kBQ * (DH + 1) + (size_t)kBK * (DH + 1) + (size_t)kBK * DH +
-          (size_t)kBQ * (kBK + 1) + 2 * kBQ);
+template <class Src, int DH>
+int launch_decode_dh(const Src& src, const typename Src::T* q, void* out,
+                     float* out_m, float* out_l, float* work, int* counters,
+                     int B, int KV, int G, int dh, int n_split, int chunk,
+                     float scale, cudaStream_t st) {
+  if (G == 1)
+    return launch_decode_gt<Src, DH, 1>(src, q, out, out_m, out_l, work,
+                                        counters, B, KV, G, dh, n_split,
+                                        chunk, scale, st);
+  return launch_decode_gt<Src, DH, kDecGroup>(src, q, out, out_m, out_l,
+                                              work, counters, B, KV, G, dh,
+                                              n_split, chunk, scale, st);
 }
 
-template <int DH, class Tile>
+// Launches decode_kernel (see above).  vec: dh * sizeof(T) is a multiple
+// of 16 and q and the K/V bases are 16-byte aligned (the wrapper checks);
+// then dh of 32, 64, 128 or 256 takes the 16-byte layout, any other dh up
+// to kDecMaxDH the scalar one.  Anything else is cudaErrorInvalidValue.
+template <class Src>
+int launch_decode(const Src& src, const typename Src::T* q, void* out,
+                  float* out_m, float* out_l, float* work, int* counters,
+                  int B, int KV, int G, int dh, int n_split, int chunk,
+                  int vec, float scale, cudaStream_t st) {
+  if (dh <= 0 || dh > kDecMaxDH || G <= 0 || n_split < 1 ||
+      n_split > kDecMaxSplits || chunk <= 0 ||
+      chunk % kDecWarps || (n_split > 1 && (!work || !counters)) ||
+      ((out_m == nullptr) != (out_l == nullptr)))
+    return (int)cudaErrorInvalidValue;
+#define REPRO_DECODE_DH(N)                                                  \
+  launch_decode_dh<Src, N>(src, q, out, out_m, out_l, work, counters, B, KV, \
+                           G, dh, n_split, chunk, scale, st)
+  if (vec) {
+    switch (dh) {
+      case 32: return REPRO_DECODE_DH(32);
+      case 64: return REPRO_DECODE_DH(64);
+      case 128: return REPRO_DECODE_DH(128);
+      case 256: return REPRO_DECODE_DH(256);
+      default: break;
+    }
+  }
+  return REPRO_DECODE_DH(0);
+#undef REPRO_DECODE_DH
+}
+
+// ---------------------------------------------------------------------------
+// Attention tiles: grid (ceil(rows / bq), ..., ...), block (2 bq, NKW).
+// ---------------------------------------------------------------------------
+constexpr int kTileWarps = 4;
+constexpr int kMaxTileThreads = 32 * kTileWarps;
+constexpr int kMaxBQ = 16 * kTileWarps;       // query rows per block, at most
+
+// A block holds bq / 16 row warps (16 query rows each) times NKW key warps:
+// a 64-row block is four row warps (NKW = 1), a 16-row block four key
+// warps (NKW = kTileWarps) that take a quarter of each key tile each, keep
+// their own online softmax and merge once at the end.
+template <int DH, class T, int NKW>
+struct AttnShape {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kWide = kF32 && DH == 256;  // stages at 32 keys
+  static constexpr int BK = kWide ? 32 : 64;        // keys per tile
+  static constexpr int KW = BK / NKW;               // keys per warp per tile
+  static constexpr int CH = 16 / (int)sizeof(T);    // elements per cp.async
+  // padded rows (elements): fp32 Q / K fragments are float2 reads (row
+  // stride = 8 mod 32 words), fp32 V reads take rows 2t, 2t + 1 (4 mod 16);
+  // 16-bit rows are 4 mod 32 words
+  static constexpr int QLD = DH + 8, KLD = DH + 8;
+  static constexpr int VLD = kF32 ? DH + 4 : DH + 8;
+  static constexpr int NS = KW / 8;                 // n8 tiles of a warp's keys
+  static constexpr int NO = DH / 8;                 // n8 tiles of an out row
+  // fp32 scores: the three products in three accumulators (more MMAs in
+  // flight) when the warp's keys are few, else in one
+  static constexpr int NACC = kF32 && NS <= 2 ? 3 : 1;
+  static constexpr int STAGE = BK * (KLD + VLD);    // elements per stage
+  // the key warps' merge: fp32 O (16 x DH) and m, l (16 each) per warp,
+  // in the stages once they are drained
+  static constexpr size_t MERGE = 4 * kTileWarps * 16 * (DH + 2);
+  static constexpr size_t smem(int bq) {
+    return sizeof(T) * ((size_t)bq * QLD + 2 * (size_t)STAGE);
+  }
+  static_assert(DH % 16 == 0 && DH % CH == 0, "head_dim");
+  static_assert(KW % (kF32 ? 8 : 16) == 0, "whole MMA steps of keys");
+  static_assert(MERGE <= sizeof(T) * 2 * (size_t)STAGE, "merge buffer");
+  static_assert(smem(kMaxBQ) <= 232448, "tiles over the smem limit");
+};
+
+template <class T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// Two consecutive outputs of a row (2-element aligned).
+template <class T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
+}
+
+template <int DH, int NKW, class Tile>
 __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   using T = typename Tile::T;
-  constexpr int QS = DH + 1, KS = DH + 1, SS = kBK + 1, NC = DH / 16;
-  constexpr int D4 = DH / 4;
-  constexpr int kLoads = Tile::kVec4 ? kBK * D4 : kBK * DH;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // kBQ * QS (pre-scaled)
-  float* k_s = q_s + kBQ * QS;     // kBK * KS
-  float* v_s = k_s + kBK * KS;     // kBK * DH
-  float* s_s = v_s + kBK * DH;     // kBQ * SS (scores, then probabilities)
-  float* corr_s = s_s + kBQ * SS;  // kBQ
-  float* l_s = corr_s + kBQ;       // kBQ
+  using A = AttnShape<DH, T, NKW>;
+  using Op = std::conditional_t<std::is_same<T, __half>::value, F16, Bf16>;
+  constexpr int BK = A::BK, KW = A::KW, QLD = A::QLD, KLD = A::KLD;
+  constexpr int VLD = A::VLD, NS = A::NS, NO = A::NO;
+  constexpr int RC = DH / A::CH;                   // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  // blockDim (2 bq, NKW): warp (wq, wk) = (threadIdx.x / 32, y)
+  const int bq = blockDim.x / 2, nthreads = blockDim.x * NKW;
+  T* stage0 = q_s + bq * QLD;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int i = tid; i < kBQ * DH; i += kTileThreads) {
-    const int r = i / DH, d = i - r * DH;
+  const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5, wk = threadIdx.y;
+  const int warp = wk * (bq / 16) + wq;
+  const int tid = warp * 32 + lane;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // K/V rows of tile kt into stage `slot`; each warp first resolves the
+  // tile's row offsets (lane l: rows l and l + 32), then hands them out by
+  // shuffles (BK * RC is a multiple of the block's threads, so every lane
+  // runs every iteration)
+  auto load_kv = [&](int kt, int slot) {
+    T* k_s = stage0 + slot * A::STAGE;
+    T* v_s = k_s + BK * KLD;
+    const int k0 = kt * BK;
+    unsigned long long off[BK / 32];
+#pragma unroll
+    for (int h = 0; h < BK / 32; ++h) {
+      const int key = k0 + 32 * h + lane;
+      off[h] = key < t.n_keys ? t.key_row(key) : 0;
+    }
+    for (int i = tid; i < BK * RC; i += nthreads) {
+      const int j = i / RC, c = (i - j * RC) * A::CH;
+      unsigned long long o = __shfl_sync(kFull, off[0], j & 31);
+      if constexpr (BK == 64) {
+        const unsigned long long o1 = __shfl_sync(kFull, off[1], j & 31);
+        if (j & 32) o = o1;
+      }
+      const bool in = k0 + j < t.n_keys;
+      cp_async16(k_s + j * KLD + c, t.k + o + c, in);
+      cp_async16(v_s + j * VLD + c, t.v + o + c, in);
+    }
+  };
+  for (int i = tid; i < bq * RC; i += nthreads) {
+    const int r = i / RC, c = (i - r * RC) * A::CH;
     const T* qr = t.q_row(r);
-    q_s[r * QS + d] = qr ? ld(qr + d) * scale : 0.f;
+    cp_async16(q_s + r * QLD + c, qr ? qr + c : t.k, qr != nullptr);
   }
+  if (t.kt_begin < t.kt_end) load_kv(t.kt_begin, 0);
+  cp_async_commit();
 
-  const int srow = tid >> 2, spart = tid & 3;  // softmax: 4 threads per row
-  float m_run = kNegInf, l_run = 0.f;
-  float acc[4][NC];
+  // scores in the log2 domain: exp2(s * log2 e) = exp(s)
+  const float sl2 = scale * 1.4426950408889634f;
+  const int r_lo = wq * 16 + g, r_hi = r_lo + 8;   // this lane's rows
+  float o[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
 
   for (int kt = t.kt_begin; kt < t.kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile consumed (and q_s ready)
-    for (int i = tid; i < kLoads; i += kTileThreads) {
-      if constexpr (Tile::kVec4) {
-        const int j = i / D4, c = (i - j * D4) * 4;
-        float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-        if (k0 + j < t.n_keys) {
-          const size_t off = t.key_row(k0 + j) + c;
-          kk = ld4(t.k + off);
-          vv = ld4(t.v + off);
-        }
-        float* kr = k_s + j * KS + c;
-        kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
-        float* vr = v_s + j * DH + c;
-        vr[0] = vv.x; vr[1] = vv.y; vr[2] = vv.z; vr[3] = vv.w;
-      } else {
-        const int j = i / DH, d = i - j * DH;
-        const bool in = k0 + j < t.n_keys;
-        const size_t off = in ? t.key_row(k0 + j) + d : 0;
-        k_s[j * KS + d] = in ? ld(t.k + off) : 0.f;
-        v_s[j * DH + d] = in ? ld(t.v + off) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = k_s[(tx + 16 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int slot = k0 + c;
-        float s = sc[i][j];
-        if (slot >= t.n_keys) s = -INFINITY;         // not read: exp() gives 0
-        else if (!t.allowed(r, slot)) s = kNegInf;   // masked
-        s_s[r * SS + c] = s;
-      }
-    }
-    __syncthreads();
+    const int it = kt - t.kt_begin;
+    cp_async_wait<0>();
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    if (kt + 1 < t.kt_end) load_kv(kt + 1, (it + 1) & 1);
+    cp_async_commit();
+    const T* k_s = stage0 + (it & 1) * A::STAGE;
+    const T* v_s = k_s + BK * KLD;
 
     {
-      float* sr = s_s + srow * SS;
-      float mx = -INFINITY;
+      const int kb = NKW == 1 ? 0 : wk * KW;       // the warp's first key
+      // S = Q K^T for this warp's 16 rows: s[j] is keys kb + 8j ..
+      float s[NS][4];
+      if constexpr (A::kF32) {
+        // 3xTF32 (with NACC == 3 each pass in its own accumulator), k
+        // permuted within a step alike for A and B: slot tq is d = kk + 2
+        // tq and slot tq + 4 is d + 1, so fragments are float2s
+        constexpr int NACC = A::NACC;
+        float s3[NACC][NS][4];
 #pragma unroll
-      for (int jj = 0; jj < kBK / 4; ++jj) mx = fmaxf(mx, sr[spart + 4 * jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
+        for (int p = 0; p < NACC; ++p)
 #pragma unroll
-      for (int jj = 0; jj < kBK / 4; ++jj) {
-        const float p = expf(sr[spart + 4 * jj] - m_new);
-        sr[spart + 4 * jj] = p;
-        sum += p;
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s3[p][j][e] = 0.f;
+        const float* qf = reinterpret_cast<const float*>(q_s) + r_lo * QLD;
+        const float* kf = reinterpret_cast<const float*>(k_s) +
+                          (kb + g) * KLD + 2 * tq;
+#pragma unroll 8
+        for (int kk = 0; kk < DH; kk += 8) {
+          const float2 v0 =
+              *reinterpret_cast<const float2*>(qf + kk + 2 * tq);
+          const float2 v1 =
+              *reinterpret_cast<const float2*>(qf + 8 * QLD + kk + 2 * tq);
+          uint32_t ah[4], al[4];
+          split_tf32(v0.x, ah[0], al[0]);
+          split_tf32(v1.x, ah[1], al[1]);
+          split_tf32(v0.y, ah[2], al[2]);
+          split_tf32(v1.y, ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const float2 kv =
+                *reinterpret_cast<const float2*>(kf + 8 * j * KLD + kk);
+            uint32_t bh[2], bl[2];
+            split_tf32(kv.x, bh[0], bl[0]);
+            split_tf32(kv.y, bh[1], bl[1]);
+            mma(Tf32{}, s3[0][j], al, bh);
+            mma(Tf32{}, s3[NACC > 1 ? 1 : 0][j], ah, bl);
+            mma(Tf32{}, s3[NACC > 1 ? 2 : 0][j], ah, bh);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = NACC > 1 ? s3[NACC - 1][j][e] +
+                                     (s3[NACC > 1 ? 1 : 0][j][e] + s3[0][j][e])
+                               : s3[0][j][e];
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        const uint16_t* qh = reinterpret_cast<const uint16_t*>(q_s) +
+                             r_lo * QLD + 2 * tq;
+        const uint16_t* kh = reinterpret_cast<const uint16_t*>(k_s) +
+                             (kb + g) * KLD + 2 * tq;
+#pragma unroll
+        for (int kk = 0; kk < DH; kk += 16) {
+          uint32_t a[4];
+          a[0] = *reinterpret_cast<const uint32_t*>(qh + kk);
+          a[1] = *reinterpret_cast<const uint32_t*>(qh + 8 * QLD + kk);
+          a[2] = *reinterpret_cast<const uint32_t*>(qh + kk + 8);
+          a[3] = *reinterpret_cast<const uint32_t*>(qh + 8 * QLD + kk + 8);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const uint16_t* kp = kh + 8 * j * KLD + kk;
+            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kp),
+                                   *reinterpret_cast<const uint32_t*>(kp + 8)};
+            mma(Op{}, s[j], a, b);
+          }
+        }
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float corr = expf(m_run - m_new);
-      l_run = l_run * corr + sum;
-      m_run = m_new;
-      if (spart == 0) corr_s[srow] = corr;
-    }
-    __syncthreads();
 
+      // mask, then the online softmax of rows r_lo (e = 0, 1) and r_hi
+      const int k0 = kt * BK + kb;
+      float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float cr = corr_s[ty + 16 * i];
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= cr;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4], w[NC];
+        for (int e = 0; e < 4; ++e) {
+          const int slot = k0 + 8 * j + 2 * tq + (e & 1);
+          const int r = e < 2 ? r_lo : r_hi;
+          float v = s[j][e] * sl2;
+          if (slot >= t.n_keys) v = -INFINITY;         // not read: weighs 0
+          else if (!t.allowed(r, slot)) v = kNegInf;   // masked
+          s[j][e] = v;
+          if (e < 2) mx_lo = fmaxf(mx_lo, v);
+          else mx_hi = fmaxf(mx_hi, v);
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_s[(ty + 16 * i) * SS + c];
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, x));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, x));
+      }
+      const float c_lo = exp2f(m_lo - mx_lo), c_hi = exp2f(m_hi - mx_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) w[j] = v_s[c * DH + tx + 16 * j];
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = exp2f(s[j][0] - mx_lo);
+        s[j][1] = exp2f(s[j][1] - mx_lo);
+        s[j][2] = exp2f(s[j][2] - mx_hi);
+        s[j][3] = exp2f(s[j][3] - mx_hi);
+        sum_lo += s[j][0] + s[j][1];
+        sum_hi += s[j][2] + s[j][3];
+      }
+      l_lo = l_lo * c_lo + sum_lo;   // this lane's share; quad sum at the end
+      l_hi = l_hi * c_hi + sum_hi;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= c_lo;
+        o[n][1] *= c_lo;
+        o[n][2] *= c_hi;
+        o[n][3] *= c_hi;
+      }
+
+      // O += P V, P from the score registers
+      if constexpr (A::kF32) {
+        const float* vf = reinterpret_cast<const float*>(v_s);
 #pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+        for (int j = 0; j < NS; ++j) {
+          // slot tq is key kb + 8j + 2tq, slot tq + 4 the key after it
+          uint32_t ah[4], al[4];
+          split_tf32(s[j][0], ah[0], al[0]);
+          split_tf32(s[j][2], ah[1], al[1]);
+          split_tf32(s[j][1], ah[2], al[2]);
+          split_tf32(s[j][3], ah[3], al[3]);
+          const float* vp = vf + (kb + 8 * j + 2 * tq) * VLD + g;
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            uint32_t bh[2], bl[2];
+            split_tf32(vp[8 * n], bh[0], bl[0]);
+            split_tf32(vp[VLD + 8 * n], bh[1], bl[1]);
+            mma(Tf32{}, o[n], al, bh);
+            mma(Tf32{}, o[n], ah, bl);
+            mma(Tf32{}, o[n], ah, bh);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) {
+          // P rounded to T, as the Pallas kernel's p.astype(v.dtype)
+          uint32_t a[4];
+          a[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+          a[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+          a[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          const uint16_t* vp = reinterpret_cast<const uint16_t*>(v_s) +
+                               (kb + 16 * kk + 2 * tq) * VLD + g;
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            const uint16_t* p = vp + 8 * n;
+            const uint32_t b[2] = {p[0] | (uint32_t)p[VLD] << 16,
+                                   p[8 * VLD] | (uint32_t)p[9 * VLD] << 16};
+            mma(Op{}, o[n], a, b);
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 
-  if (spart == 0) l_s[srow] = l_run;
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_lo += __shfl_xor_sync(kFull, l_lo, x);
+    l_hi += __shfl_xor_sync(kFull, l_hi, x);
+  }
+  if constexpr (NKW == 1) {   // one key warp: the registers are the result
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+    const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    T* out_lo = t.out_row(r_lo);
+    T* out_hi = t.out_row(r_hi);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tq;
+      if (out_lo) store2(out_lo + c, o[n][0] * inv_lo, o[n][1] * inv_lo);
+      if (out_hi) store2(out_hi + c, o[n][2] * inv_hi, o[n][3] * inv_hi);
+    }
+    return;
+  }
+  // merge the key warps of each row warp, through the drained stages
   __syncthreads();
+  float* red_o = reinterpret_cast<float*>(stage0);   // [warp][16][DH]
+  float* red_m = red_o + kTileWarps * 16 * DH;       // [warp][16]
+  float* red_l = red_m + kTileWarps * 16;
+  float* mine = red_o + warp * 16 * DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    T* o = t.out_row(r);
-    if (!o) continue;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
+  for (int n = 0; n < NO; ++n) {
+    const int c = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(mine + g * DH + c) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(mine + (g + 8) * DH + c) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  if (tq == 0) {
+    red_m[warp * 16 + g] = m_lo;
+    red_m[warp * 16 + g + 8] = m_hi;
+    red_l[warp * 16 + g] = l_lo;
+    red_l[warp * 16 + g + 8] = l_hi;
+  }
+  __syncthreads();
+  const int n_wq = bq / 16;
+  for (int i = tid; i < bq * DH; i += nthreads) {
+    const int r = i / DH, d = i - r * DH;
+    T* out = t.out_row(r);
+    if (!out) continue;
+    const int q16 = r / 16, rr = r - q16 * 16;
+    float mm = kNegInf;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int k = 0; k < NKW; ++k)
+      mm = fmaxf(mm, red_m[(q16 + n_wq * k) * 16 + rr]);
+    float ll = 0.f, oo = 0.f;
+#pragma unroll
+    for (int k = 0; k < NKW; ++k) {   // in key-warp order
+      const int w = q16 + n_wq * k;
+      const float c = exp2f(red_m[w * 16 + rr] - mm);
+      ll = fmaf(red_l[w * 16 + rr], c, ll);
+      oo = fmaf(red_o[(w * 16 + rr) * DH + d], c, oo);
+    }
+    out[d] = from_f32<T>(oo / fmaxf(ll, 1e-30f));
   }
 }
 
-// Sets the tile kernel's shared memory and launches it on `grid`.  Staging
-// is fp32 whatever the storage type: at DH = 256 that is
-// tile_smem_bytes<256>() = 214,272 B, under the 232,448 B a block may opt
-// into on an H100, so one block fits on an SM.
-template <int DH, class... Params, class... Args>
-int launch_tiles(void (*kernel)(Params...), dim3 grid, cudaStream_t st,
-                 Args... args) {
-  const size_t smem = tile_smem_bytes<DH>();
-  static_assert(tile_smem_bytes<DH>() <= 232448, "tile over the smem limit");
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kTileThreads, smem, st>>>(args...);
+// Launches a tile kernel with NKW key warps on `grid`, blocks of rows
+// query rows, opting into its shared memory on the first call (`opted`:
+// one flag per kernel and per library).
+template <int DH, class T, int NKW, class... Params, class... Args>
+int launch_tile(void (*kernel)(Params...), bool& opted, dim3 grid, int rows,
+                cudaStream_t st, Args... args) {
+  using A = AttnShape<DH, T, NKW>;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)A::smem(kMaxBQ));
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  kernel<<<grid, dim3(2 * rows, NKW), A::smem(rows), st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launches the tile kernel for rows query rows per block: `split`
+// (kTileWarps key warps) for 16 rows, `whole` (one) for 64.
+template <int DH, class T, class K1, class K4, class... Args>
+int launch_tiles(K1 whole, K4 split, bool (&opted)[2], dim3 grid, int rows,
+                 cudaStream_t st, Args... args) {
+  if (rows == 16)
+    return launch_tile<DH, T, kTileWarps>(split, opted[1], grid, rows, st,
+                                          args...);
+  if (rows == kMaxBQ)
+    return launch_tile<DH, T, 1>(whole, opted[0], grid, rows, st, args...);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace attn

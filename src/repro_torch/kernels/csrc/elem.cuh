@@ -61,6 +61,36 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
+// The 16 / sizeof(T) values of T in a 16-byte chunk, as fp32.
+template <class T>
+__device__ __forceinline__ void unpack16(const uint4& u, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& u, float* out) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__half>(const uint4& u, float* out) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = half_bits(w[i] & 0xffffu);
+    out[2 * i + 1] = half_bits(w[i] >> 16);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u,
+                                                         float* out) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // Calls f(T{}) with T the storage type of `dtype`; an unknown tag is
 // cudaErrorInvalidValue.
 template <class F>

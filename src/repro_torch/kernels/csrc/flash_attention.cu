@@ -1,7 +1,6 @@
 // Causal (optionally sliding-window) or non-causal flash attention for
 // prefill, in the grouped-query layout, for fp32, fp16 and bf16 inputs
-// (fp32 arithmetic, output in the inputs' type), head_dim 32, 64, 128 or
-// 256.
+// (output in the inputs' type), head_dim 32, 64, 128 or 256.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py ::
 // flash_attention (kernel body _flash_kernel).  It computes the same
@@ -10,45 +9,49 @@
 // acc / max(l, 1e-30).  The JAX package runs its jnp chunked_attention on
 // this path; both compute the same attention.
 //
-// What bounds it on the H100: operations.  A 64-row query tile reuses each
-// key/value row 64 times, so at prefill lengths the flops (4 * dh per
-// unmasked query-key pair) outweigh the bytes.  It runs in full fp32 on the
-// CUDA cores (67 TFLOP/s peak) whatever the storage type: tensor cores
-// would mean TF32 for fp32 inputs, which breaks fp32 parity with the
-// reference.  A tensor-core (wgmma) design for fp16 / bf16 is later work.
+// What bounds it on the H100: operations.  A query tile reuses each
+// key/value row for all its rows, so at prefill lengths the flops (4 * dh
+// per unmasked query-key pair) outweigh the bytes; at the serving path's
+// shapes (one 128-token prompt, 16 heads) a call is also short enough that
+// filling the 132 SMs matters as much.
 //
-// What the design does about it:
+// What the design does about it (attn_tiles.cuh's attend_tile):
+//  * The products run on the tensor cores (mma.sync).  fp16 / bf16: one
+//    m16n8k16 pass with fp32 accumulators, P rounded to the input type for
+//    P V as the Pallas kernel does.  fp32: 3xTF32, which keeps the error
+//    near 2^-19 of sum |a| |b| per dot product, inside the 1e-4 tolerance
+//    against the fp32 plain version; there is no full-rate fp32 path.
+//  * Query rows per block come from the host's plan (64 or 16;
+//    kernels/flash_attention.py::block_rows), so that the grid reaches the
+//    SMs: at the serving path's prefill 128 blocks of 16 rows where 64-row
+//    tiles gave 32.  A 16-row block's four warps split each key tile and
+//    merge at the end, so it keeps four warps at work.
+//  * K and V tiles land in shared memory in their storage type through a
+//    2-stage cp.async ring of 16-byte copies, the next tile in flight while
+//    this one computes; scores and probabilities stay in registers.
 //  * The Pallas kernel walks all Sk/256 key tiles of every query tile.  Here
-//    one block per (b, kv head, q head in group, 64-row query tile) loops
-//    only over the key tiles that hold an unmasked key: tiles wholly above
-//    the causal diagonal or wholly outside the window are skipped, which
-//    halves the causal work.
+//    a block loops only over the key tiles that hold an unmasked key: tiles
+//    wholly above the causal diagonal or wholly outside the window are
+//    skipped, which halves the causal work.
 //  * q is (B, Sq, KV, G, dh) and k/v (B, Sk, KV, dh), the layout gqa_prefill
 //    has, so K/V are never broadcast to the G query heads.
-//  * 256 threads compute the 64x64 score tile and the 64 x dh output tile
-//    as 4 x 4 and 4 x (dh / 16) register micro-tiles; shared rows are padded
-//    so column reads do not collide in a bank.  Q, K and V are staged in
-//    shared memory as fp32 whatever the storage type: at dh = 256 that is
-//    214,272 B, under the H100's 232,448 B per-block limit (one block per
-//    SM), and 64 fp32 accumulators per thread.  That body is attn_tiles.cuh's
-//    attend_tile, shared with the paged verify; this file supplies the
-//    dense addressing, the causal / window mask and the tile range.
 //  * Any Sq / Sk is allowed: rows past Sq are not written and keys past Sk
 //    contribute exactly zero.  A row that no key may attend (with a window,
 //    once q_offset + row - window + 1 >= Sk) gets what the reference gives
 //    it, the mean of V over all Sk keys (every score is -1e30): a block
 //    holding such a row walks every key tile, and for its other rows the
 //    extra masked keys weigh exactly zero.
+// This file supplies the dense addressing, the causal / window mask and the
+// tile range.
 #include "attn_tiles.cuh"
 
 namespace {
 
-// One (b, kv head, q head in group, 64-row query tile) of a dense causal /
+// One (b, kv head, q head in group, query tile) of a dense causal /
 // windowed prefill; attn_tiles.cuh's attend_tile walks its key tiles.
-template <int DH, class Elem>
+template <class Elem>
 struct CausalTile {
   using T = Elem;
-  static constexpr bool kVec4 = false;
   const T* q;
   const T* k;
   const T* v;
@@ -76,17 +79,17 @@ struct CausalTile {
   }
 };
 
-// grid (ceil(Sq / 64), KV * G, B)
-template <int DH, class T>
-__global__ void __launch_bounds__(attn::kTileThreads)
+// grid (ceil(Sq / bq), KV * G, B), block (2 bq, NKW)
+template <int DH, class T, int NKW>
+__global__ void __launch_bounds__(attn::kMaxTileThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
             int KV, int G, int causal, int window, int q_offset,
             float scale) {
-  using attn::kBK;
-  using attn::kBQ;
-  CausalTile<DH, T> t;
-  const int q0 = blockIdx.x * kBQ;
+  constexpr int BK = attn::AttnShape<DH, T, NKW>::BK;
+  const int bq = blockDim.x / 2;
+  CausalTile<T> t;
+  const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y / G, g = blockIdx.y - (blockIdx.y / G) * G;
   const int b = blockIdx.z;
   t.q = q; t.k = k; t.v = v; t.out = out;
@@ -99,49 +102,52 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // key tiles holding at least one key some valid row of this tile may see
   const int q_first = q_offset + q0;
-  const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
+  const int q_last = q_offset + min(q0 + bq, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;         // exclusive
   const int k_lo = window > 0 ? max(0, q_first - window + 1) : 0;
   // the last row sees no key at all: walk every tile, as the reference does
   const bool row_unseen = window > 0 && q_last - window + 1 >= Sk;
-  t.kt_begin = row_unseen ? 0 : k_lo / kBK;
-  t.kt_end = row_unseen ? (Sk + kBK - 1) / kBK : (k_hi + kBK - 1) / kBK;
-  attn::attend_tile<DH>(t, scale);
+  t.kt_begin = row_unseen ? 0 : k_lo / BK;
+  t.kt_end = row_unseen ? (Sk + BK - 1) / BK : (k_hi + BK - 1) / BK;
+  attn::attend_tile<DH, NKW>(t, scale);
 }
 
 template <int DH, class T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int KV, int G, int causal, int window, int q_offset,
-           float scale, cudaStream_t st) {
-  const dim3 grid((Sq + attn::kBQ - 1) / attn::kBQ, KV * G, B);
-  return attn::launch_tiles<DH>(
-      attn_kernel<DH, T>, grid, st, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-      Sq, Sk, KV, G, causal, window, q_offset, scale);
+           int rows, float scale, cudaStream_t st) {
+  static bool opted[2] = {false, false};   // this library's smem opt-ins
+  const dim3 grid((Sq + rows - 1) / rows, KV * G, B);
+  return attn::launch_tiles<DH, T>(
+      attn_kernel<DH, T, 1>, attn_kernel<DH, T, attn::kTileWarps>, opted, grid,
+      rows, st, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, KV, G, causal,
+      window, q_offset, scale);
 }
 
 }  // namespace
 
-// q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh); out like q; all contiguous and
-// of the storage type `dtype` (attn::DType).  window <= 0 means no window.
-// dh must be 32, 64, 128 or 256.
+// q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh); out like q; all contiguous,
+// 16-byte aligned and of the storage type `dtype` (attn::DType).  window
+// <= 0 means no window.  dh must be 32, 64, 128 or 256; rows (query rows
+// per block) 16 or 64.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int KV, int G, int dh, int causal,
-                                     int window, int q_offset, float scale,
-                                     int dtype, void* stream) {
+                                     int window, int q_offset, int rows,
+                                     float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return elem::with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     switch (dh) {
       case 32:
-        return launch<32, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+        return launch<32, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
       case 64:
-        return launch<64, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+        return launch<64, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
       case 128:
-        return launch<128, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+        return launch<128, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
       case 256:
-        return launch<256, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, scale, st);
+        return launch<256, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
       default:
         return (int)cudaErrorInvalidValue;
     }

@@ -5,39 +5,40 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py ::
 // flash_decode_partial / flash_decode (kernel body _decode_kernel).  It
 // computes the same function: scores q.k * 1/sqrt(dh), masked scores set to
-// -1e30, an online softmax over key tiles, and either the unnormalised
+// -1e30, an online softmax over the keys, and either the unnormalised
 // (o, m, l) partials or o / max(l, 1e-30).
 //
 // What bounds it on the H100: bytes.  Each key/value row is used by G query
 // heads for 2*G*dh flops per 2*dh*sizeof(T) bytes, far below the card's
-// ~20 flop/byte fp32 balance point, so the least time is the cache read at
-// 3.35 TB/s.
+// balance point, so the least time is the cache read at 3.35 TB/s; at the
+// serving path's shapes (4 rows of up to 160 keys) a call is a few
+// microseconds of device time, so launches and host time count as much.
 //
-// What the design does about it:
+// What the design does about it (attn_tiles.cuh's decode_kernel):
 //  * The Pallas call site broadcasts the grouped cache to G copies before
-//    the kernel (a G-fold read and a materialised copy).  Here the kernel
-//    takes q (B, KV, G, dh) and the cache (B, S, KV, dh) directly: one block
-//    per (b, kv head, S-split) loads each K/V tile into shared memory once
-//    and serves all G query heads from it.
+//    the kernel.  Here the kernel takes q (B, KV, G, dh) and the cache
+//    (B, S, KV, dh) directly and reads each K/V row once for up to 8 query
+//    heads of its kv head.
 //  * A TPU grid runs in order on one core; here blocks run in parallel.  The
-//    sequence is split across blocks (n_split) so that small batches still
-//    fill the SMs, and a second small kernel merges the per-split (o, m, l)
-//    exactly as the sharded decode path merges shards.
-//  * Any S is allowed: keys past S in the last tile contribute exactly zero
-//    (the TPU kernel's S % block_k assertion does not apply).
-// The tile body is attn_tiles.cuh's decode_kernel, shared with the paged
-// decode; this file supplies the dense cache's addressing and valid mask.
-// Loads are plain coalesced reads converted to fp32 in registers and the
-// dot products run on the CUDA cores; a TMA/cp.async pipeline is later work.
+//    sequence is split across blocks so that small batches still fill the
+//    SMs (kernels/flash_decode.py::splits), and the last block of each
+//    (b, kv head) merges the splits' (o, m, l) in split order inside the
+//    same launch: one launch per call, normalised or not.
+//  * Rows go from device memory straight into registers, 16-byte vectors
+//    when dh * sizeof(T) is a multiple of 16 and the bases are aligned
+//    (the wrapper checks), several keys in flight per warp, with no shared
+//    memory and no __syncthreads in the key loop.
+//  * Any S is allowed: keys past S contribute exactly zero (the TPU
+//    kernel's S % block_k assertion does not apply); dh up to 256.
+// This file supplies the dense cache's addressing and valid mask.
 #include "attn_tiles.cuh"
 
 namespace {
 
-// Slot s of row b at (B, S, KV, dh); any dh, so scalar loads.
+// Slot s of row b at (B, S, KV, dh).
 template <class Elem>
 struct DenseKV {
   using T = Elem;
-  static constexpr bool kVec4 = false;
   const T* k;
   const T* v;
   const uint8_t* valid;   // (B, S)
@@ -54,21 +55,23 @@ struct DenseKV {
 // q (B, KV, G, dh); k, v (B, S, KV, dh); valid (B, S) bytes, all contiguous;
 // q, k, v of the storage type `dtype` (attn::DType).  out_o (B, KV, G, dh)
 // of that type when out_m and out_l are both NULL (normalise), else fp32
-// unnormalised o with fp32 m, l (B, KV, G).  With n_split > 1,
-// part_o/m/l hold fp32 (n_split, B, KV, G[, dh]) partials.  chunk: keys
-// per split (a multiple of the tile, chunk * n_split >= S).
+// unnormalised o with fp32 m, l (B, KV, G).  n_split splits of `chunk` keys
+// (a multiple of attn::kDecWarps, chunk * n_split >= S); with n_split > 1,
+// work holds n_split * B * KV * G * (dh + 2) floats and counters
+// B * KV * ceil(G / GT) zeroed ints (left zeroed).  vec: see
+// attn::launch_decode.
 extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, const uint8_t* valid,
-    float* part_o, float* part_m, float* part_l, void* out_o, float* out_m,
-    float* out_l, int B, int S, int KV, int G, int dh, int n_split, int chunk,
+    void* out_o, float* out_m, float* out_l, float* work, int* counters,
+    int B, int S, int KV, int G, int dh, int n_split, int chunk, int vec,
     float scale, int dtype, void* stream) {
   return elem::with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     const DenseKV<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
                          valid, S, KV, dh};
-    return attn::launch_decode(src, static_cast<const T*>(q), part_o, part_m,
-                               part_l, out_o, out_m, out_l, B, KV, G, dh,
-                               n_split, chunk, scale,
+    return attn::launch_decode(src, static_cast<const T*>(q), out_o, out_m,
+                               out_l, work, counters, B, KV, G, dh, n_split,
+                               chunk, vec, scale,
                                static_cast<cudaStream_t>(stream));
   });
 }

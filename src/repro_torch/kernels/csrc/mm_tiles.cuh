@@ -78,47 +78,16 @@
 #include <type_traits>
 
 #include "elem.cuh"
+#include "mma.cuh"
 
 namespace mm {
 
 using namespace elem;
+using namespace tc;
 
 constexpr int kThreads = 256;
 constexpr int kStages = 3;      // cp.async ring depth
 constexpr int kMaxSplits = 8;   // launcher: streamed_matmul.MAX_SPLITS
-
-// ---- tensor-core instructions: D += A B, fp32 accumulators ------------
-struct Bf16 {};   // m16n8k16, bf16 operands
-struct F16 {};    // m16n8k16, fp16 operands
-struct Tf32 {};   // m16n8k8, tf32 operands
-
-__device__ __forceinline__ void mma(Bf16, float (&d)[4],
-                                    const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma(F16, float (&d)[4],
-                                    const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma(Tf32, float (&d)[4],
-                                    const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Two small signed integers q0, q1, given biased as u = q + BIAS in
 // [0, 255], as one exact 32-bit MMA operand (q0 in the low half), on the
@@ -163,7 +132,6 @@ __device__ __forceinline__ uint32_t pack_bytes(F16, uint32_t w0,
 
 // ---- operand splits ----------------------------------------------------
 constexpr uint32_t kBf16Mask = 0xffff0000u;   // a bf16 is an fp32's top half
-constexpr uint32_t kTf32Mask = 0xffffe000u;   // tf32: 13 low mantissa bits 0
 
 // x0, x1 -> bf16 pairs with x = hi + mid + lo exactly (|x| >= 2^-110).
 __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
@@ -176,29 +144,6 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
   u0 = __float_as_uint(__uint_as_float(u0) - __uint_as_float(u0 & kBf16Mask));
   u1 = __float_as_uint(__uint_as_float(u1) - __uint_as_float(u1 & kBf16Mask));
   lo = __byte_perm(u0, u1, 0x7632);
-}
-
-// a -> tf32 hi, lo (see the note at the top).
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(a) & kTf32Mask;
-  lo = __float_as_uint(a - __uint_as_float(hi)) & kTf32Mask;
-}
-
-// ---- cp.async -------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Unsigned integer of E's size: stages copy bits, not values.

@@ -4,9 +4,11 @@
 
 The kernel takes the grouped layout of ``gqa_prefill`` — q (B, Sq, KV, G,
 dh), k/v (B, Sk, KV, dh) — and skips key tiles that lie wholly above the
-causal diagonal or outside the window.  ``flash_attention`` keeps the
+causal diagonal or outside the window.  Its products run on the tensor
+cores (3xTF32 for fp32 inputs); ``block_rows`` plans the query rows per
+block so the grid reaches the SMs.  ``flash_attention`` keeps the
 reference's BH-flat signature as a thin view (one head per row).  Inputs
-are fp32, fp16 or bf16 (one type for q, k and v), computed in fp32; the
+are fp32, fp16 or bf16 (one type for q, k and v, 16-byte aligned); the
 output is in q's type.
 
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
@@ -20,9 +22,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode import check_cuda
+from repro_torch.kernels.flash_decode import aligned16, check_cuda
 
 HEAD_DIMS = (32, 64, 128, 256)
+SMS = 132                  # the H100's SMs
+# 64-row blocks fill the card once there are this many (128 of the 132
+# SMs, one wave); below, 16-row blocks give four times the blocks
+FILL_BLOCKS = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -30,9 +36,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     fn = build.library("flash_attention").repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 4 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
+
+
+def block_rows(rows: int, columns: int) -> int:
+    """Query rows per block for ``rows`` query rows in each of ``columns``
+    (b, head) pairs: 64 (four warps of 16 rows) when those blocks reach
+    ``FILL_BLOCKS``, else 16 (four warps that split each key tile), so a
+    small prefill still spreads over the SMs."""
+    return 64 if -(-rows // 64) * columns >= FILL_BLOCKS else 16
 
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True,
@@ -50,6 +64,9 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got "
                          f"{window}")
+    if not aligned16(q, k, v):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if sq == 0:
         return out
@@ -58,7 +75,8 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, kv, g, dh, int(causal), int(window or 0),
-                 int(q_offset), 1.0 / (dh ** 0.5), tag, stream)
+                 int(q_offset), block_rows(sq, b * kv * g),
+                 1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

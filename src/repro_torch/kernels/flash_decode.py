@@ -3,38 +3,52 @@
 ``repro/kernels/flash_decode.py``.
 
 The kernel takes the grouped layout directly — q (B, KV, G, dh), cache
-(B, S, KV, dh), valid (B, S) — so a K/V tile is read once for all G query
+(B, S, KV, dh), valid (B, S) — so a K/V row is read once for up to 8 query
 heads.  ``flash_decode_partial``/``flash_decode`` keep the reference's
 BH-flat signature as a thin view (B = BH rows, one head each), so the
 unnormalised ``(o, m, l)`` contract stays testable.
 
-Inputs are fp32, fp16 or bf16 (one type for q, k and v); the kernel
-computes in fp32 and returns the normalised output in the cache's type and
-the partials in fp32, as the reference does.  These functions take CUDA
-tensors only; ``kernels/ops.py`` dispatches by device and counts launches.
+Every call is one launch: the sequence is split across blocks
+(``splits``), and the last block of each (b, kv head) merges the splits'
+fp32 partials, kept in a workspace cached per (device, stream)
+(``workspace``), in split order.
+
+Inputs are fp32, fp16 or bf16 (one type for q, k and v), head_dim up to
+256; the kernel computes in fp32 and returns the normalised output in the
+cache's type and the partials in fp32, as the reference does.  These
+functions take CUDA tensors only; ``kernels/ops.py`` dispatches by device
+and counts launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-TILE = 64          # keys per shared-memory tile (csrc kTile)
+WARPS = 4                 # warps per block (csrc attn::kDecWarps)
+WARP_TILE = 8             # a split gives each warp a multiple of these keys
+GROUP = 8                 # q heads per block when G > 1 (attn::kDecGroup)
+MAX_DH = 256              # head_dim the kernel takes (attn::kDecMaxDH)
+MAX_SPLITS = 64           # splits of one call (attn::kDecMaxSplits)
 TARGET_BLOCKS = 2 * 132   # enough blocks to fill the H100's SMs twice
+MAX_WORK_BYTES = 16 * 2**20   # fp32 split partials of one call, at most
 
-# storage types the kernels take, and their tags (csrc attn::DType)
+# storage types the kernels take, and their tags (csrc elem::DType)
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WORK: Dict[Tuple[str, Optional[int], int],
+            Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib():
     fn = build.library("flash_decode").repro_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
@@ -58,13 +72,68 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
     return DTYPES[dtype]
 
 
-def splits(b: int, kv: int, s: int) -> Tuple[int, int]:
-    """(n_split, chunk): split the sequence so B * KV * n_split blocks
-    reach ``TARGET_BLOCKS``, each split a whole number of tiles."""
-    n_tiles = -(-s // TILE)
-    want = max(1, min(n_tiles, -(-TARGET_BLOCKS // (b * kv))))
-    chunk = -(-n_tiles // want) * TILE
-    return -(-s // chunk), chunk
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def head_groups(g: int) -> int:
+    """Blocks per (b, kv head) along the query heads: one for G = 1, else
+    one per ``GROUP`` heads."""
+    return 1 if g == 1 else -(-g // GROUP)
+
+
+@functools.lru_cache(maxsize=4096)
+def splits(b: int, kv: int, g: int, s: int, dh: int) -> Tuple[int, int]:
+    """(n_split, chunk): the slot range [0, s) cut into n_split splits of
+    ``chunk`` slots, each a whole number of warp tiles (``WARPS`` x
+    ``WARP_TILE`` slots, so each warp walks chunk / WARPS of them).  The
+    fewest splits that bring B x KV x head groups x n_split blocks to
+    ``TARGET_BLOCKS``, where s has the tiles for it, with at most
+    ``MAX_SPLITS`` splits and their fp32 partials within
+    ``MAX_WORK_BYTES``; else the most those allow."""
+    unit = WARPS * WARP_TILE
+    n_units = max(1, -(-s // unit))
+    cap = max(1, min(MAX_SPLITS,
+                     MAX_WORK_BYTES // work_bytes(b, kv, g, dh)))
+    want = max(1, min(n_units, cap,
+                      -(-TARGET_BLOCKS // (b * kv * head_groups(g)))))
+    for per in range(-(-n_units // want), 0, -1):   # units per split
+        n_split = -(-n_units // per)
+        if n_split >= want:
+            break
+    if n_split > cap:
+        per = -(-n_units // cap)
+        n_split = -(-n_units // per)
+    return n_split, per * unit
+
+
+def work_bytes(b: int, kv: int, g: int, dh: int, n_split: int = 1) -> int:
+    """Bytes of the fp32 (o, m, l) partials of n_split splits."""
+    return 4 * n_split * b * kv * g * (dh + 2)
+
+
+def workspace(device: torch.device, stream: int, b: int, kv: int, g: int,
+              dh: int, n_split: int
+              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The fp32 split partials and the zeroed int32 counters (one per
+    block column: b, kv head, head group) a launch of ``n_split`` > 1
+    splits needs on ``device`` (one split needs neither: (None, None)),
+    cached per (device, stream).  Launches on one stream run in order and
+    each leaves its counters zeroed, so one workspace per stream serves
+    every call; it grows only when a larger shape first appears."""
+    if n_split == 1:
+        return None, None
+    floats = work_bytes(b, kv, g, dh, n_split) // 4
+    counters = b * kv * head_groups(g)
+    key = (device.type, device.index, stream)
+    work, cnt = _WORK.get(key, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+    _WORK[key] = (work, cnt)
+    return work, cnt
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -89,29 +158,30 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
                          "device")
     if s == 0:
         raise ValueError("flash_decode: empty cache")
-    n_split, chunk = splits(b, kv, s)
-    out_o = torch.empty((b, kv, g, dh), device=q.device,
-                        dtype=v.dtype if normalize else torch.float32)
-    out_m = out_l = None
-    if not normalize:
-        out_m = torch.empty((b, kv, g), device=q.device, dtype=torch.float32)
-        out_l = torch.empty_like(out_m)
-    part_o = part_m = part_l = None
-    if n_split > 1:
-        part_o = torch.empty((n_split, b, kv, g, dh), device=q.device,
-                             dtype=torch.float32)
-        part_m = torch.empty((n_split, b, kv, g), device=q.device,
-                             dtype=torch.float32)
-        part_l = torch.empty_like(part_m)
+    if dh > MAX_DH:
+        raise ValueError(f"flash_decode: head_dim {dh} above {MAX_DH}")
+    n_split, chunk = splits(b, kv, g, s, dh)
+    rows = b * kv * g
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    work, cnt = workspace(q.device, stream, b, kv, g, dh, n_split)
+    if normalize:
+        out = torch.empty((b, kv, g, dh), device=q.device, dtype=v.dtype)
+        o, m, l = out, None, None
+    else:   # one buffer: o, then m, then l
+        out = torch.empty(rows * (dh + 2), device=q.device,
+                          dtype=torch.float32)
+        o = out[:rows * dh].view(b, kv, g, dh)
+        m = out[rows * dh:rows * (dh + 1)].view(b, kv, g)
+        l = out[rows * (dh + 1):].view(b, kv, g)
+    vec = (dh * q.element_size()) % 16 == 0 and aligned16(q, k, v)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 _ptr(part_o), _ptr(part_m), _ptr(part_l), out_o.data_ptr(),
-                 _ptr(out_m), _ptr(out_l), b, s, kv, g, dh, n_split, chunk,
-                 1.0 / (dh ** 0.5), tag, stream)
+                 o.data_ptr(), _ptr(m), _ptr(l), _ptr(work), _ptr(cnt), b,
+                 s, kv, g, dh, n_split, chunk, int(vec), 1.0 / (dh ** 0.5),
+                 tag, stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
-    return out_o if normalize else (out_o, out_m, out_l)
+    return o if normalize else (o, m, l)
 
 
 def flash_decode_partial(q, k, v, valid):

@@ -27,8 +27,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS
-from repro_torch.kernels.flash_decode import _ptr, check_cuda, splits
+from repro_torch.kernels.flash_attention import HEAD_DIMS, block_rows
+from repro_torch.kernels.flash_decode import (_ptr, aligned16, check_cuda,
+                                              splits, workspace)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -74,24 +75,22 @@ def _check(name: str, q, k_pages, v_pages, tables, lengths, kv: int,
 
 def paged_flash_decode(q, k_pages, v_pages, tables, lengths):
     """q (B, KV, G, dh); pools (P, page, KV, dh); tables (B, NB) int32;
-    lengths (B,) int32 -> (B, KV, G, dh)."""
+    lengths (B,) int32 -> (B, KV, G, dh).  One launch: the slot range is
+    split as ``flash_decode.splits`` plans it, the splits merged in the
+    same launch."""
     b, kv, g, dh = q.shape
     page, nb, tag = _check("paged_flash_decode", q, k_pages, v_pages,
                            tables, lengths, kv, dh)
-    n_split, chunk = splits(b, kv, nb * page)
-    out = torch.empty((b, kv, g, dh), device=q.device, dtype=v_pages.dtype)
-    part_o = part_m = part_l = None
-    if n_split > 1:
-        part_o = torch.empty((n_split, b, kv, g, dh), device=q.device,
-                             dtype=torch.float32)
-        part_m = torch.empty((n_split, b, kv, g), device=q.device,
-                             dtype=torch.float32)
-        part_l = torch.empty_like(part_m)
+    n_split, chunk = splits(b, kv, g, nb * page, dh)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn("repro_paged_decode", 9, 8)(
+    work, cnt = workspace(q.device, stream, b, kv, g, dh, n_split)
+    out = torch.empty((b, kv, g, dh), device=q.device, dtype=v_pages.dtype)
+    vec = (dh * q.element_size()) % 16 == 0 and aligned16(q, k_pages,
+                                                          v_pages)
+    err = _fn("repro_paged_decode", 8, 9)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), _ptr(part_o), _ptr(part_m),
-        _ptr(part_l), out.data_ptr(), b, kv, g, dh, page, nb, n_split, chunk,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), _ptr(work),
+        _ptr(cnt), b, kv, g, dh, page, nb, n_split, chunk, int(vec),
         1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "
@@ -108,14 +107,18 @@ def paged_flash_verify(q, k_pages, v_pages, tables, lengths):
     if dh not in HEAD_DIMS:
         raise ValueError(f"paged_flash_verify: head_dim {dh} not in "
                          f"{HEAD_DIMS}")
+    if not aligned16(q, k_pages, v_pages):
+        raise ValueError("paged_flash_verify: q and the pools must be "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     if w == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn("repro_paged_verify", 6, 7)(
+    err = _fn("repro_paged_verify", 6, 8)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, w, kv, g,
-        dh, page, nb, 1.0 / (dh ** 0.5), tag, stream)
+        dh, page, nb, block_rows(w * g, b * kv), 1.0 / (dh ** 0.5), tag,
+        stream)
     if err:
         raise RuntimeError(f"paged_flash_verify kernel launch failed: CUDA "
                            f"error {err}")

@@ -705,3 +705,292 @@ def test_cuda_quant_matmul_k_split(cuda, m, k, n, bits, dtype):
     else:
         _close(got, want, dtype)
     assert torch.equal(ops.quant_matmul(x, w_q, scale, bits), got)
+
+
+# ---------------------------------------------------------------------------
+# The attention bodies (csrc/attn_tiles.cuh): the decode split plan and the
+# attention block plan, and the arithmetic of the tensor-core attention and
+# of the in-launch split merge, emulated in torch on the CPU; one launch
+# per decode call and every block-rows plan on the card.
+# ---------------------------------------------------------------------------
+@given(st.integers(1, 64), st.integers(1, 64), st.integers(1, 20),
+       st.integers(1, 32768), st.sampled_from([32, 64, 80, 128, 256]))
+@example(4, 16, 1, 160, 64)        # the dense path's decode batch
+@example(1, 1, 1, 32768, 128)      # the split count's cap
+@example(4, 16, 1, 72, 256)
+@example(64, 1, 1, 512, 64)        # the BH-flat partials
+@example(4, 4, 8, 1024, 128)       # GQA, one head group per kv head
+@example(1, 1, 1, 1, 64)
+@settings(max_examples=200, deadline=None)
+def test_decode_split_plan(b, kv, g, s, dh):
+    """Every slot is walked once (splits of whole warp tiles, each warp a
+    contiguous run); the fewest splits that bring the blocks to
+    TARGET_BLOCKS where some whole-tile split count within the caps (split
+    count, workspace bytes) does; partials within the cap and the counters
+    within their buffer."""
+    from repro_torch.kernels import flash_decode as fd
+    n_split, chunk = fd.splits(b, kv, g, s, dh)
+    unit = fd.WARPS * fd.WARP_TILE
+    assert n_split >= 1 and chunk % unit == 0
+    kpw = chunk // fd.WARPS
+    walked = [key for sp in range(n_split) for w in range(fd.WARPS)
+              for key in range(sp * chunk + w * kpw,
+                               min(s, sp * chunk + (w + 1) * kpw))]
+    assert walked == list(range(s))
+    assert (n_split - 1) * chunk < s                 # no empty split
+    assert n_split <= fd.MAX_SPLITS
+    if n_split > 1:
+        assert fd.work_bytes(b, kv, g, dh, n_split) <= fd.MAX_WORK_BYTES
+    columns = b * kv * fd.head_groups(g)
+    target = -(-fd.TARGET_BLOCKS // columns)
+    n_units = -(-s // unit)
+    cap = max(1, min(fd.MAX_SPLITS,
+                     fd.MAX_WORK_BYTES // fd.work_bytes(b, kv, g, dh)))
+    counts = {-(-n_units // per) for per in range(1, n_units + 1)}
+    if any(target <= c <= cap for c in counts):
+        assert columns * n_split >= fd.TARGET_BLOCKS
+        assert n_split == min(c for c in counts if c >= target)
+    if n_split > 1:
+        work, cnt = fd.workspace(torch.device("cpu"), 0, b, kv, g, dh,
+                                 n_split)
+        assert work.numel() * 4 >= fd.work_bytes(b, kv, g, dh, n_split)
+        assert cnt.numel() >= columns and not cnt.any()
+
+
+@given(st.integers(1, 4096), st.integers(1, 512))
+@example(128, 16)      # the dense path's prefill: 16 rows, 128 blocks
+@example(64, 16)       # gpt_j's prefill
+@example(197, 32)      # vit_large, 2 x 16 heads: 64 rows, 128 blocks
+@example(64, 64)       # the chunked rounds' verify (W = 64, B = 4, KV = 16)
+@settings(max_examples=200, deadline=None)
+def test_attention_block_plan(rows, columns):
+    """Rows per block are 16 or 64 (of the kernel's 16, 32 and 64), the
+    blocks cover every query row once, and they reach FILL_BLOCKS (128 of
+    the 132 SMs) wherever 16-row blocks do: 64-row blocks when those alone
+    fill the card, else 16-row blocks."""
+    from repro_torch.kernels import flash_attention as fa
+    r = fa.block_rows(rows, columns)
+    assert r in (16, 64)
+    n = -(-rows // r)
+    covered = [i for x in range(n) for i in range(x * r, min(rows,
+                                                             (x + 1) * r))]
+    assert covered == list(range(rows))
+    if -(-rows // 16) * columns >= fa.FILL_BLOCKS:
+        assert n * columns >= fa.FILL_BLOCKS
+    assert (r == 64) == (-(-rows // 64) * columns >= fa.FILL_BLOCKS)
+
+
+def _attention_emulated(q, k, v, causal, window, p_dtype=None, kw=16,
+                        n_kw=4):
+    """The tile body's arithmetic on BH-flat fp32 inputs: runs of ``kw``
+    keys dealt round-robin to ``n_kw`` key warps, each with its own online
+    softmax (masked scores -1e30), merged in key-warp order at the end;
+    fp32 inputs as 3xTF32 in both products (ah bh + (ah bl + al bh) for
+    the scores), or with ``p_dtype`` P rounded to that type for P V
+    (16-bit inputs)."""
+    bh, sq, dh = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / dh ** 0.5
+
+    def split(a):
+        hi, lo = _tf32_split(a.contiguous().numpy())
+        return torch.from_numpy(hi), torch.from_numpy(lo)
+
+    def prod(a, b):             # a @ b as the body computes it
+        if p_dtype is not None:
+            return a @ b
+        (ah, al), (bh_, bl) = split(a), split(b)
+        return ah @ bh_ + (ah @ bl + al @ bh_)
+
+    rows = torch.arange(sq)[:, None]
+    parts = []
+    for w in range(n_kw):
+        m = torch.full((bh, sq, 1), -1e30)
+        l = torch.zeros((bh, sq, 1))
+        o = torch.zeros((bh, sq, dh))
+        for k0 in range(w * kw, sk, n_kw * kw):
+            keys = torch.arange(k0, min(sk, k0 + kw))[None, :]
+            s = prod(q, k[:, k0:k0 + kw].transpose(1, 2)) * scale
+            ok = torch.ones_like(keys <= rows)
+            if causal:
+                ok &= keys <= rows
+            if window is not None:
+                ok &= keys > rows - window
+            s = torch.where(ok, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            pv = p if p_dtype is None else p.to(p_dtype).float()
+            o = o * corr + prod(pv, v[:, k0:k0 + kw])
+            m = m_new
+        parts.append((m, l, o))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
+    o = sum(po * torch.exp(pm - m) for pm, _, po in parts)
+    return o / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48)],
+                         ids=["causal", "non-causal", "window"])
+def test_3xtf32_attention_matches_jax(causal, window):
+    """fp32 attention as the tensor-core body computes it (3xTF32 in both
+    products, an online softmax per key warp, key warps merged) within 1e-5 of the output's scale
+    of JAX's Pallas flash_attention (interpret mode) and of
+    ref.attention_gqa_ref."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(23)
+    s, dh = 160, 64
+    q, k, v = (_rand(rng, (2, s, dh)) for _ in range(3))
+    got = _attention_emulated(_t(q), _t(k), _t(v), causal, window).numpy()
+    want = np.asarray(jops.attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     window=window, block_q=32, block_k=32))
+    plain = ref.attention_gqa_ref(_t(q)[:, :, None, None], _t(k)[:, :, None],
+                                  _t(v)[:, :, None], causal=causal,
+                                  window=window)[:, :, 0, 0].numpy()
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    np.testing.assert_allclose(got, plain, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_attention_p_rounding_matches_jax(dtype):
+    """fp16 / bf16 attention as the body computes it (fp32 scores from the
+    16-bit inputs, P rounded to the input type for P V) within HALF_RTOL
+    of the output's scale of the Pallas kernel in interpret mode at that
+    type."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(29)
+    s, dh = 128, 64
+    q, k, v = (torch.from_numpy(_rand(rng, (2, s, dh))).to(tdt)
+               for _ in range(3))
+    got = _attention_emulated(q.float(), k.float(), v.float(), True, None,
+                              p_dtype=tdt).to(tdt)
+    jd = getattr(jnp, dtype)
+    want = jops.attention(*(jnp.asarray(x.float().numpy()).astype(jd)
+                            for x in (q, k, v)), causal=True, block_q=64,
+                          block_k=64)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    tol = HALF_RTOL[tdt] * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+def test_decode_split_merge_matches_jax():
+    """Decode as the one-launch body computes it: fp32 partials of each
+    warp's contiguous run of each split (``flash_decode.splits``), merged
+    warp by warp and then split by split in order, within 1e-6 of JAX's
+    Pallas flash_decode (interpret mode), normalised and unnormalised."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import flash_decode as fd
+    rng = np.random.default_rng(31)
+    bh, s, dh = 8, 256, 64
+    q, k, v = _rand(rng, (bh, dh)), _rand(rng, (bh, s, dh)), _rand(rng, (bh, s, dh))
+    valid = np.arange(s)[None] < rng.integers(1, s + 1, (bh, 1))
+    valid[0, :] = False                      # a row with every key masked
+    n_split, chunk = fd.splits(bh, 1, 1, s, dh)
+    assert n_split > 1
+    kpw = chunk // fd.WARPS
+
+    def partial(lo, hi):
+        if lo >= hi:                         # no key: weighs exactly 0
+            return (torch.zeros(bh, dh), torch.full((bh,), -1e30),
+                    torch.zeros(bh))
+        o, m, l = ref.decode_partial_ref(_t(q), _t(k[:, lo:hi]),
+                                         _t(v[:, lo:hi]),
+                                         _t(valid[:, lo:hi]))
+        return o, m[:, 0], l[:, 0]
+
+    def merge(parts):                        # in order, as the kernel does
+        m = torch.stack([p[1] for p in parts]).amax(0)
+        l = torch.zeros(bh)
+        o = torch.zeros(bh, dh)
+        for po, pm, pl in parts:
+            c = torch.exp(pm - m)
+            l = l + pl * c
+            o = o + po * c[:, None]
+        return o, m, l
+
+    splits = [merge([partial(sp * chunk + w * kpw,
+                             min(s, sp * chunk + (w + 1) * kpw))
+                     for w in range(fd.WARPS)]) for sp in range(n_split)]
+    o, m, l = merge(splits)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(valid))
+    want = np.asarray(jops.decode(*args, block_k=64))
+    np.testing.assert_allclose((o / l[:, None]).numpy(), want, atol=1e-6,
+                               rtol=1e-6)
+    wo, wm, wl = (np.asarray(x) for x in jops.decode_partial(*args,
+                                                             block_k=64))
+    np.testing.assert_allclose(m.numpy(), wm[:, 0], atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose((o / l[:, None]).numpy(), wo / wl, atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("normalize", [True, False],
+                         ids=["normalize", "partial"])
+def test_cuda_decode_one_launch(cuda, normalize):
+    """At the dense path's decode shape (split across blocks) a call is
+    one kernel, normalised or not, and two calls give the same bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_decode as fd
+    b, s, kv, g, dh = 4, 160, 16, 1, 64
+    assert fd.splits(b, kv, g, s, dh)[0] > 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, kv, g, dh), generator=gen, device=cuda)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=cuda)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=cuda)
+    valid = torch.arange(s, device=cuda)[None] < torch.tensor(
+        [[160], [1], [77], [129]], device=cuda)
+    run = lambda: fd.flash_decode_gqa(q, k, v, valid,  # noqa: E731
+                                      normalize=normalize)
+    first = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            second = run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 1 <= len(kernels) <= 10
+    assert len({e.name for e in kernels}) == 1
+    outs = (first,) if normalize else first
+    for a, b_ in zip(outs, (second,) if normalize else second):
+        assert torch.equal(a, b_)
+    want = (ref.decode_gqa_ref(q, k, v, valid) if normalize
+            else ref.decode_gqa_partial_ref(q, k, v, valid))
+    if normalize:
+        torch.testing.assert_close(first, want, atol=1e-4, rtol=1e-4)
+    else:
+        (o, m, l), (ro, rm, rl) = first, want
+        torch.testing.assert_close(o / l[..., None], ro / rl[..., None],
+                                   atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,sq,kv,g,dh,window,rows", [
+    (1, 128, 16, 1, 64, None, 16),        # the dense path's prefill
+    (2, 197, 16, 1, 64, None, 64),        # vit_large's shape
+    (2, 512, 8, 2, 64, None, 64),
+    (1, 300, 4, 2, 128, 64, 16),
+    (2, 300, 8, 1, 256, None, 16),
+    (4, 512, 8, 1, 256, 100, 64)])
+def test_cuda_attention_block_rows(cuda, b, sq, kv, g, dh, window, rows):
+    """The plan's 16 and 64 query rows per block (a 16-row block's four
+    warps split each key tile), each against the plain version in fp32 at
+    the 1e-4 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.block_rows(sq, b * kv * g) == rows
+    gen = torch.Generator(device=cuda).manual_seed(sq + rows)
+    q = torch.randn((b, sq, kv, g, dh), generator=gen, device=cuda)
+    k = torch.randn((b, sq, kv, dh), generator=gen, device=cuda)
+    v = torch.randn((b, sq, kv, dh), generator=gen, device=cuda)
+    got = ops.attention_gqa(q, k, v, causal=True, window=window)
+    want = ref.attention_gqa_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
