@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # one CUDA card, about ten minutes
+    python3 chip_smoke.py        # one CUDA card, about fifteen minutes
 
 Phases, in order; any failure exits non-zero:
 
@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
    tensor-core instructions (``HMMA`` / ``HGMMA`` in ``cuobjdump -sass``)
    of the two matmul libraries, ``libflash_attention`` and
    ``libpaged_decode``: it fails if one of the first three holds none.
-   TF32 is turned off for PyTorch's own matmuls.
+   TF32 is turned off for PyTorch's own matmuls.  While nvcc runs, the
+   serving phases' checkpoints and the int8 / int4 transcodes are
+   written on the host.
 2. Every kernel against its plain PyTorch version on the card (fp32,
    tolerance 1e-4 max abs error; for quantized_matmul and streamed_matmul
    1e-4 of the output's largest magnitude; fp16 / bf16 inputs 2e-3 /
@@ -20,7 +22,7 @@ Phases, in order; any failure exits non-zero:
    one PyTorch library call's (SDPA; for the paged kernels on K/V already
    gathered to dense, the gather not timed; for quantized_matmul
    ``torch.matmul`` on the weight dequantized to fp32 beforehand, not
-   timed) and its bound.  quantized_matmul runs at every shape the quant
+   timed; its ``device_ms`` too) and its bound.  quantized_matmul runs at every shape the quant
    phases give it (decode M=4, prefill M=128, the prefill's head M=1),
    int8 and int4.  fp16 and bf16 cases, and head_dim 256, at the fp16
    phases' shapes (gpt_j decode and prefill, vit_large's non-causal
@@ -28,7 +30,9 @@ Phases, in order; any failure exits non-zero:
    streamed_matmul at gpt2_base's autotune shape (256 x 1024 @ 1024 x
    4096, fp32, TF32 off) at every tile the autotune sweep times, and at
    the reference's sweep shapes in fp32 and bf16; library
-   ``torch.matmul``.  For every timed case also ``device_ms``: the
+   ``torch.matmul``, with its ``device_ms``.  paged_flash_verify also at
+   the speculative rounds' shape (B=4, W=5, NB=11, 6 shared pages).  For
+   every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
    which read host time when the host is the slower side), and the
@@ -88,10 +92,38 @@ Phases, in order; any failure exits non-zero:
    ``PipeloadEngine.run_single`` on 2 x 197 tokens under 300 MiB, kernels
    then plain: flash_attention once per layer, logits within 2e-3 of the
    plain run's largest and the same argmax.
+13. Speculative serving: phase 5's first 4 requests at page size 16
+   through ``Hermes.scheduler`` with a ``DraftModel`` at depth 4: a
+   full-width gpt2_base cut to 2 layers, its own checkpoint from numpy
+   seed 1, under 1450 MiB (below target plus draft, so target layers
+   stream), the planner told to expect acceptance 1.0 (its pick at the
+   default 0.8 is printed).  The planner must serve page size 16 at
+   depth 4; the tokens
+   must be phase 5's (tie rule); the serving loop must launch
+   paged_flash_verify once per layer per verify round, flash_attention
+   once per layer of target and draft per admission, flash_decode once
+   per draft layer per stacked draft step (the script counts
+   ``DraftModel.decode_batch`` calls) and paged_flash_decode never; the
+   ledger's ``draft`` share at its peak must be the draft's manifest
+   bytes, the pool must drain and the draft's device copies must be gone
+   after the session.
+14. The self-draft ceiling: a full-width gpt2_base cut to 4 layers (its
+   own checkpoint, numpy seed 0) serves the same requests under 1150 MiB
+   (below target plus draft) without a draft (the planner's schedule)
+   and with itself as the draft at depth 4 (1 agent, pin 0, fixed
+   through ``Hermes.engine`` and ``BatchScheduler``, as ``serve
+   --num-agents 1 --pin-window 0 --spec-depth 4`` fixes it): the same
+   tokens (tie rule), acceptance 1.0 unless
+   every rejected proposal sits at a tie of the model's top-2 logits
+   (each printed), and fewer verify rounds than the plain run's decode
+   rounds.  Both walls are printed; no speed-up is claimed.
 
-Every serve's ledger peak must stay within its budget, and its device
+Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
+ledger take the budget less cuBLAS's 32 MiB workspace
+(``Hermes.ledger_budget``).  Every serve's ledger peak must stay within
+its budget, and its device
 allocator peak (``torch.cuda.max_memory_allocated``) within the budget
-plus, in paged mode, the page pool's bytes (freed pages keep their rows
+plus, in paged mode (phase 13 included), the page pool's bytes (freed pages keep their rows
 outside the ledger).  On quantized shards the kernels must widen no
 weight to fp32 on the card (every call that could is counted), and their
 allocator peak must stay within the ledger peak plus 48 MiB: the planner
@@ -100,7 +132,10 @@ activations (~6 MB) and the caching allocator's rounding (a reused block
 is not split when under 1 MiB would remain: up to 1 MiB for each
 resident weight tensor above 1 MiB, ~30 on the int4 path).  The plain
 versions widen one weight at a time, so their limit is the budget plus
-three times the largest weight's fp32 bytes.
+three times the largest weight's fp32 bytes.  Phases 13-14 print the
+allocator peak of the warm-up and of the serving loop apart, with the
+bytes the process held before the session (cuBLAS's 32 MiB workspace,
+taken at the process's first matmul and kept).
 
 Then one JSON line with every kernel: launches (over the whole
 ``serve.run`` call of the path that runs it, and inside its serving loop
@@ -109,9 +144,13 @@ streamed_matmul the autotune phase's sweep), fp32 error,
 times (``ms``, ``device_ms``; for the attention kernels also
 ``kernels_per_call`` and ``library_device_ms``) and bounds at the main
 path's shapes (where it runs the kernel at
-several, the chunk rounds' two or quantized_matmul's 16, the mean per
-launch weighted by the serving loop's launches at each; streamed_matmul
-at the autotune shape and the tile the sweep chose).
+several, the chunk rounds' two and the spec rounds' one for
+paged_flash_verify, or quantized_matmul's 16, the mean per launch
+weighted by the serving loops' launches at each; streamed_matmul at the
+autotune shape and the tile the sweep chose).  paged_flash_verify's
+launches add the chunked and the speculative phases'; every attention
+kernel also reports phase 13's launches (``spec_launches``,
+``spec_serve_launches``).
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
 with its times) and prints no result line.
@@ -125,6 +164,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -145,7 +185,7 @@ BUDGET_MB = 900                  # below gpt2_base's ~1.55 GiB of shards
 # below the quantized checkpoint (int8 ~391 MiB, int4 ~197 MiB) plus the
 # KV of 4 in flight (120 MiB), above its decode floor (~232 / ~176 MiB)
 QUANT_BUDGET_MB = {"int8": 300, "int4": 250}
-QUANT_ALLOC_SLACK = 48 * 2**20   # activations + allocator rounding (above)
+ALLOC_SLACK = 48 * 2**20   # activations + allocator rounding (above)
 INT8_LOGIT_RTOL = 0.05           # docs/quantization.md
 TIE_GAP = 1e-4
 # fp16 checkpoints: a tie is a top-2 gap within two units in fp16's last
@@ -166,6 +206,25 @@ GPTJ_BUDGET_MB = 1600
 # 197 tokens (196 patches + class token) through run_single, streamed
 # under a budget below its ~605 MB
 VIT = dict(batch=2, seq=197, budget_mb=300, agents=2)
+# speculative serving at depth 4, so verify windows of W = 5.  Phase 13:
+# the paged phase's first 4 requests with a full-width 2-layer draft of
+# its own weights (~520 MB of shards), under a budget that holds the
+# ~900 MiB of the paged phase plus the draft and its cache rows, below
+# target plus draft (~2.15 GB).  The planner models a verify round's
+# compute as growing with its window (t_decode x R x W), so at the
+# facade's default acceptance 0.8 it keeps plain decoding here unless
+# layers load slowly; the phase tells it to expect the draft's ceiling,
+# 1.0, so the speculative plan is searched on any load path (the
+# measured acceptance of the random draft is ~0).  Phase 14: a
+# 4-layer full-width target (~620 MB) drafting itself, below target plus
+# draft (~1.24 GB).  Pinned whole, the target wins every plan, so its
+# speculative run takes the one schedule that fits the draft beside it,
+# fixed: 1 agent streaming every layer, pin 0, whose 1,125,695,488 ledger
+# bytes and cuBLAS's 32 MiB the budget holds.
+SPEC_W = 5
+SPEC = dict(requests=4, draft_layers=2, budget_mb=1450, acceptance=1.0)
+SELF = dict(layers=4, budget_mb=1150, new_tokens=32, schedule=(1, 0))
+DRAFT_STEPS = [0]                # DraftModel.decode_batch calls
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
 
@@ -489,6 +548,13 @@ def paged_cases(torch, ref, gen):
         paged_case(torch, ref, gen, "main path round 2 B=4 W=64 KV=16 G=1 "
                    "dh=64 page=16 NB=9, 6 shared pages", 4, 64, nb=9,
                    lengths=[128] * 4, rows=14, mapped=8, **main),
+        # the speculative phase's verify rounds at depth 4: 4 rows feed a
+        # 5-token window each through tables of pages_for(160 + 4, 16) =
+        # 11 entries, the 6 prompt pages shared; lengths (pos + 5) from
+        # the first decode round's 133 to the last's 164
+        paged_case(torch, ref, gen, "main path spec round B=4 W=5 KV=16 "
+                   "G=1 dh=64 page=16 NB=11, 6 shared pages", 4, SPEC_W,
+                   nb=11, lengths=[133, 144, 152, 164], **main),
         paged_case(torch, ref, gen, "B=1 W=64 KV=16 G=1 dh=64 page=16 NB=10",
                    1, 64, 16, 1, 64, 16, 10, [128]),
         paged_case(torch, ref, gen, "W=1 B=4 KV=16 G=1 dh=64 page=16 NB=10",
@@ -554,8 +620,9 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
     plain_ms = time_ms(torch, plain)
     dev_ms, per_call, names = device_ms(torch, run)
     w_deq = ref.dequant_ref(w_q, scale, bits=bits)[:k].to(dtype).contiguous()
-    lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
-    del w_deq
+    lib = lambda: torch.matmul(x, w_deq)  # noqa: E731
+    lib_ms, lib_dev = time_ms(torch, lib), device_ms(torch, lib)[0]
+    del w_deq, lib
     nbytes = x.element_size() * (x.numel() + m * n) + 4 * n + w_q.numel()
     b_ms, b_by = bound(nbytes, 2 * m * k * n, dtype_name(x))
     main = "main path " if dtype == torch.float32 else ""
@@ -564,7 +631,7 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
                 f"int{bits} {dtype_name(x)}", max_abs_err=err, limit=limit,
                 ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
                 kernel_names=names, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by)
 
 
 def half_cases(torch, fd, fa, ref, gen):
@@ -623,6 +690,7 @@ def matmul_cases(torch, ref, gen, cfg):
     want = ref.matmul_ref(x, w)
     plain_ms = time_ms(torch, lambda: ref.matmul_ref(x, w))
     lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+    lib_dev = device_ms(torch, lambda: torch.matmul(x, w))[0]
     nbytes = 4 * (m * k + k * n + m * n)
     b_ms, b_by = bound(nbytes, 2 * m * k * n)
     cases = []
@@ -640,7 +708,7 @@ def matmul_cases(torch, ref, gen, cfg):
             limit=TOL * want.abs().max().item(), ms=time_ms(torch, run),
             device_ms=dev_ms, kernels_per_call=per_call,
             kernel_names=names, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by))
+            library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by))
     # one bf16 pass of the same body at the autotune shape, timed
     xh, wh = x.to(torch.bfloat16), w.to(torch.bfloat16)
     run = lambda: sm.streamed_matmul(xh, wh, block_m=64,  # noqa: E731
@@ -882,11 +950,14 @@ def time_split(stats, cfg, quant: str = "fp32") -> str:
                for s, e in zip(st, spans[("load_end", key)]))
     comp = sum(e - s for (k, key), st in spans.items() if k == "comp_start"
                for s, e in zip(st, spans[("comp_end", key)]))
-    prof = json.loads((ckpt_dir(cfg, quant) /
-                       "profile_torch_cuda.json").read_text())
-    return (f"time split: wall {stats.latency_s:.3f}s over {stats.rounds} "
-            f"rounds; shard loads {load:.3f}s summed over agents; layer "
-            f"compute {comp:.3f}s; profile per layer t_load "
+    split = (f"time split: wall {stats.latency_s:.3f}s over {stats.rounds} "
+             f"rounds; shard loads {load:.3f}s summed over agents; layer "
+             f"compute {comp:.3f}s")
+    path = ckpt_dir(cfg, quant) / "profile_torch_cuda.json"
+    if not path.exists():           # a fixed schedule plans nothing
+        return split
+    prof = json.loads(path.read_text())
+    return (f"{split}; profile per layer t_load "
             f"{prof['layer_t_load'] * 1e3:.3f}ms t_comp "
             f"{prof['layer_t_comp'] * 1e3:.3f}ms t_decode "
             f"{prof['layer_t_decode'] * 1e3:.3f}ms")
@@ -955,7 +1026,7 @@ def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
     elif quant != "fp32":
         # the planner fills the budget with ledger bytes; beside them sit
         # a prefill's activations and the caching allocator's rounding
-        limit = stats.peak_bytes + QUANT_ALLOC_SLACK
+        limit = stats.peak_bytes + ALLOC_SLACK
         what = "the ledger peak plus 48 MiB"
     if alloc_peak > limit:
         # checked at the end, so the later paths still report
@@ -990,15 +1061,54 @@ def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
     return outs, stats, launches
 
 
+def checkpoints():
+    """Every checkpoint the serving phases read: [(label, cfg, seed)]."""
+    from repro_torch.configs import get
+    main = get("gpt2_base")
+    return [("gpt2_base", main, 0),
+            ("gpt_j", get("gpt_j").with_(num_layers=GPTJ_LAYERS,
+                                         name=f"gpt-j-{GPTJ_LAYERS}layers"),
+             0),
+            ("vit_large", get("vit_large"), 0),
+            ("spec draft", main.with_(
+                num_layers=SPEC["draft_layers"],
+                name=f"{main.name}-{SPEC['draft_layers']}layers-draft"), 1),
+            ("self-draft", main.with_(num_layers=SELF["layers"],
+                                      name=f"gpt2-base-{SELF['layers']}layers"),
+             0)]
+
+
+def checkpoint(label: str):
+    """(cfg, path) of the checkpoint ``label`` (written if missing)."""
+    from repro_torch.launch.serve import ensure_checkpoint
+    cfg, seed = next((c, s) for name, c, s in checkpoints() if name == label)
+    return cfg, ensure_checkpoint(cfg, seed=seed, root=CKPT_ROOT)
+
+
+def write_checkpoints() -> str:
+    """Write every serving checkpoint and the int8 / int4 transcodes of
+    phase 3's, numpy on the host: ``main`` runs this while nvcc builds the
+    kernels.  Returns the seconds each took."""
+    from repro_torch.checkpoint.partition import ensure_quantized
+    took = []
+    for label, _, _ in checkpoints():
+        t0 = time.perf_counter()
+        cfg, path = checkpoint(label)
+        took.append(f"{label} {time.perf_counter() - t0:.1f}s")
+        if label == "gpt2_base":
+            for quant in ("int8", "int4"):
+                t0 = time.perf_counter()
+                ensure_quantized(path, ckpt_dir(cfg, quant), quant)
+                took.append(f"{label} {quant} "
+                            f"{time.perf_counter() - t0:.1f}s")
+    return ", ".join(took)
+
+
 def phase_main(torch, ops):
     """Phases 3-4: the dense path, kernels then plain versions."""
-    from repro_torch.configs import get
-    from repro_torch.launch.serve import ensure_checkpoint
-    cfg = get("gpt2_base")
-    t0 = time.perf_counter()
-    ensure_checkpoint(cfg, root=CKPT_ROOT)
-    print(f"checkpoint: {cfg.num_layers} layers, d={cfg.d_model}, "
-          f"written in {time.perf_counter() - t0:.1f}s", flush=True)
+    cfg, _ = checkpoint("gpt2_base")
+    print(f"checkpoint: {cfg.num_layers} layers, d={cfg.d_model}",
+          flush=True)
     # profile anew on every run, so the schedule and the launch counts do
     # not depend on an earlier run; the later phases reuse it
     (CKPT_ROOT / cfg.name / "profile_torch_cuda.json").unlink(missing_ok=True)
@@ -1136,8 +1246,9 @@ def quant_row(cases, quant_runs):
     mean = lambda key: (sum(wi * c[key] for wi, c in zip(w, mains))  # noqa
                         / sum(w))
     row = {k: mean(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    row["device_ms"] = (None if any(c["device_ms"] is None for c in mains)
-                        else mean("device_ms"))
+    for key in ("device_ms", "library_device_ms"):
+        row[key] = (None if any(c[key] is None for c in mains)
+                    else mean(key))
     row["bound_by"] = max(zip(w, mains),
                           key=lambda p: p[0] * p[1]["bound_ms"])[1][
                               "bound_by"]
@@ -1211,19 +1322,12 @@ def phase_gptj(torch, ops):
     GPTJ_LAYERS, served under a budget below its shards (kernels, then
     the plain versions; tokens by the tie rule)."""
     from repro_torch.checkpoint import load_manifest
-    from repro_torch.configs import get
-    from repro_torch.launch.serve import ensure_checkpoint
-    cfg = get("gpt_j").with_(num_layers=GPTJ_LAYERS,
-                             name=f"gpt-j-{GPTJ_LAYERS}layers")
-    t0 = time.perf_counter()
-    path = ensure_checkpoint(cfg, root=CKPT_ROOT)
+    cfg, path = checkpoint("gpt_j")
     man = load_manifest(path)
     print(f"gpt_j: {cfg.num_layers} layers, d={cfg.d_model}, "
           f"{cfg.n_heads}x{cfg.head_dim} heads, d_ff {cfg.d_ff}, "
           f"{cfg.dtype}; {man['total_bytes']} B of shards (layers "
-          f"{man['layer_bytes']}), written in "
-          f"{time.perf_counter() - t0:.1f}s; budget {GPTJ_BUDGET_MB} MiB",
-          flush=True)
+          f"{man['layer_bytes']}); budget {GPTJ_BUDGET_MB} MiB", flush=True)
     if GPTJ_BUDGET_MB * 2**20 >= man["total_bytes"]:
         fail("gpt_j: the budget must sit below the checkpoint")
     (path / "profile_torch_cuda.json").unlink(missing_ok=True)
@@ -1245,15 +1349,10 @@ def phase_vit(torch, ops):
     flash_attention once per layer, logits within HALF_RTOL["float16"] of
     the plain run's largest and the same argmax."""
     import numpy as np
-    from repro_torch.configs import get
     from repro_torch.core import PipeloadEngine
-    from repro_torch.launch.serve import ensure_checkpoint
-    cfg = get("vit_large")
-    t0 = time.perf_counter()
-    path = ensure_checkpoint(cfg, root=CKPT_ROOT)
+    cfg, path = checkpoint("vit_large")
     print(f"vit_large: {cfg.num_layers} layers, d={cfg.d_model}, "
-          f"{cfg.dtype}, causal={cfg.causal}, written in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{cfg.dtype}, causal={cfg.causal}", flush=True)
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (VIT["batch"], VIT["seq"]))
     budget = VIT["budget_mb"] * 2**20
@@ -1301,6 +1400,270 @@ def phase_vit(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phases 13-14: speculative serving
+# ---------------------------------------------------------------------------
+def count_draft_steps() -> None:
+    """Count ``DraftModel.decode_batch`` calls in ``DRAFT_STEPS``: each
+    launches flash_decode once per draft layer, so the serving loop's
+    flash_decode launches follow from them.  The count lives here, not in
+    the package."""
+    from repro_torch.core.engine import DraftModel
+    decode_batch = DraftModel.decode_batch
+
+    def counted(self, *a, **kw):
+        DRAFT_STEPS[0] += 1
+        return decode_batch(self, *a, **kw)
+
+    DraftModel.decode_batch = counted
+
+
+def paged_prompts(cfg):
+    """Phase 5's first 4 prompts, drawn as ``serve.run`` draws them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (MAIN["requests"], MAIN["prompt_len"]))
+    prompts[:, :PAGED["shared_prefix"]] = prompts[0, :PAGED["shared_prefix"]]
+    return prompts[:SPEC["requests"]]
+
+
+def serve_spec(torch, ops, cfg, label: str, budget_mb: float, draft=None,
+               new_tokens: int = MAIN["new_tokens"], schedule=None,
+               acceptance: float = 0.8):
+    """Serve phase 5's first 4 requests at page size 16, with ``draft`` at
+    depth SPEC_W - 1 or without one, the launch counts set to 0 just
+    before and read just after: through ``Hermes.scheduler`` (the planner
+    models the draft at ``acceptance``), or with ``schedule`` = (agents,
+    pin) fixed, as ``serve --num-agents --pin-window --spec-depth`` fixes
+    it, through ``Hermes.engine`` and ``BatchScheduler``.  Checks the
+    ledger peak against the budget, the allocator peak (warm-up and
+    serving loop, each printed with the bytes the process held before the
+    session) against the budget plus the pool's bytes, the drained pool
+    and, with a draft, the speculative loop's launches exactly.  Returns
+    (outs, stats, serve launches, wall seconds)."""
+    from repro_torch.core import BatchScheduler, Hermes
+    budget = int(budget_mb * 2**20)
+    total = MAIN["prompt_len"] + new_tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hermes = Hermes(ckpt_dir(cfg), cfg, device="cuda")
+    depth = SPEC_W - 1 if draft is not None else 0
+    if schedule is None:
+        sched = hermes.scheduler(
+            budget_bytes=budget, max_inflight=MAIN["max_inflight"],
+            prompt_len=MAIN["prompt_len"], new_tokens=new_tokens,
+            page_sizes=(PAGED["page_size"],),
+            shared_prefix_len=PAGED["shared_prefix"], draft=draft,
+            spec_depth=depth or None, draft_acceptance=acceptance)
+    else:
+        eng = hermes.engine(budget_bytes=budget, num_agents=schedule[0],
+                            pin_window=schedule[1],
+                            page_size=PAGED["page_size"])
+        sched = BatchScheduler(eng, max_inflight=MAIN["max_inflight"],
+                               max_total_len=total, draft=draft,
+                               spec_depth=depth)
+    try:
+        sched.warmup(prompt_lens=[MAIN["prompt_len"]])
+        torch.cuda.synchronize()
+        warm_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = sched.engine
+        print(f"{label}: {'fixed' if schedule else 'planned'} {eng.m} "
+              f"agents, pin {eng.pin}, inflight {sched.max_inflight}, page "
+              f"size {sched.page_size}, spec depth {sched.spec_depth}",
+              flush=True)
+        for p in paged_prompts(cfg):
+            sched.submit(p, new_tokens)
+        steps0 = DRAFT_STEPS[0]
+        outs, stats = sched.run()
+        steps = DRAFT_STEPS[0] - steps0
+        mapped = sched.pool.mapped_pages
+    finally:
+        sched.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    loop_peak = torch.cuda.max_memory_allocated()
+    alloc_peak = max(warm_peak, loop_peak)
+    check_outputs(outs, cfg.padded_vocab, SPEC["requests"], total)
+    if stats.page_size != PAGED["page_size"]:
+        fail(f"{label}: the planner served page size {stats.page_size}")
+    if stats.peak_bytes > budget:
+        fail(f"{label}: ledger peak {stats.peak_bytes} above the budget")
+    if mapped:
+        fail(f"{label}: {mapped} pages still mapped after the run")
+    limit = budget + stats.cache_bytes_peak
+    what = "the budget plus the paged pool's bytes"
+    print(f"{label}: torch.cuda.max_memory_allocated: warm-up {warm_peak}, "
+          f"serving loop {loop_peak}; {held} B held by the process before "
+          f"the session", flush=True)
+    if alloc_peak > limit:
+        OVER_BUDGET.append(f"{label}: torch.cuda.max_memory_allocated "
+                           f"{alloc_peak} above {limit} ({what})")
+    want = dict.fromkeys(stats.kernel_launches, 0)
+    if draft is not None:
+        if stats.spec_depth != SPEC_W - 1:
+            fail(f"{label}: served spec depth {stats.spec_depth}, not "
+                 f"{depth}")
+        admits = sum(1 for kind, *_ in stats.policy if kind == "admit")
+        want["paged_flash_verify"] = cfg.num_layers * stats.spec_rounds
+        want["flash_attention"] = (cfg.num_layers
+                                   + draft.cfg.num_layers) * admits
+        want["flash_decode"] = draft.cfg.num_layers * steps
+        print(f"{label}: draft {draft.cfg.num_layers} layers, "
+              f"{draft.total_bytes} B of shards; {steps} stacked draft "
+              f"steps; spec_rounds {stats.spec_rounds}, draft_tokens "
+              f"{stats.draft_tokens}, accepted_tokens "
+              f"{stats.accepted_tokens} (acceptance "
+              f"{stats.acceptance_rate:.4f})", flush=True)
+    else:
+        want["paged_flash_decode"] = cfg.num_layers * len(
+            serve_rounds(stats)[0])
+        want["flash_attention"] = cfg.num_layers * serve_rounds(stats)[2]
+    print(f"{label}: kernel launches: whole phase {json.dumps(launches)} "
+          f"(warm-up and profiling included); serving loop "
+          f"{json.dumps(stats.kernel_launches)}, expected "
+          f"{json.dumps(want)}", flush=True)
+    if stats.kernel_launches != want:
+        fail(f"{label}: serving-loop launches {stats.kernel_launches} != "
+             f"{want}")
+    print(f"{label}: rounds {stats.rounds}, {stats.tokens_per_s:.3f} tok/s "
+          f"aggregate, serving loop {stats.latency_s:.3f}s, phase "
+          f"{wall:.1f}s; ledger peak {stats.peak_bytes} B (budget {budget}),"
+          f" breakdown {json.dumps(stats.peak_breakdown)}, "
+          f"torch.cuda.max_memory_allocated {alloc_peak} (limit {limit}: "
+          f"{what}), "
+          f"pages allocated {stats.pages_allocated}, prefix hit pages "
+          f"{stats.prefix_hit_pages}, cow copies {stats.cow_copies}, "
+          f"preemptions {stats.preemptions}, pool peak "
+          f"{stats.pool_pages_peak} pages", flush=True)
+    print(f"{label}: {time_split(stats, cfg)}", flush=True)
+    return outs, stats, launches, wall
+
+
+def phase_spec(torch, ops, cfg, paged_outs):
+    """Phase 13: speculative serving of phase 5's first 4 requests on the
+    full-width checkpoint with a weak full-width 2-layer draft (its own
+    checkpoint, numpy seed 1) at depth 4 through ``Hermes.scheduler``,
+    under a budget below target plus draft: tokens equal phase 5's (tie
+    rule), launches exact, the ledger's draft share equal to the draft's
+    manifest bytes.  The planner is told to expect SPEC["acceptance"];
+    its pick at the facade's default 0.8 is printed beside it."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core import Hermes
+    from repro_torch.core.engine import DraftModel
+    from repro_torch.core.hermes import spec_plan_kw
+    dcfg, dpath = checkpoint("spec draft")
+    dman = load_manifest(dpath)
+    target = load_manifest(ckpt_dir(cfg))["total_bytes"]
+    print(f"spec: draft {dcfg.num_layers} layers, d={dcfg.d_model}, vocab "
+          f"{dcfg.vocab_size}; {dman['total_bytes']} B of shards (layers "
+          f"{dman['layer_bytes']}); target {target} B; budget "
+          f"{SPEC['budget_mb']} MiB", flush=True)
+    if SPEC["budget_mb"] * 2**20 >= target + dman["total_bytes"]:
+        fail("spec: the budget must sit below target plus draft")
+    draft = DraftModel(dpath, dcfg, device="cuda")
+    total = MAIN["prompt_len"] + MAIN["new_tokens"]
+    for acc in (0.8, SPEC["acceptance"]):
+        g = Hermes(ckpt_dir(cfg), cfg, device="cuda").plan_generate(
+            [int(SPEC["budget_mb"] * 2**20)], prompt_len=MAIN["prompt_len"],
+            new_tokens=MAIN["new_tokens"], max_inflight=MAIN["max_inflight"],
+            page_sizes=(PAGED["page_size"],),
+            shared_prefix_len=PAGED["shared_prefix"],
+            **spec_plan_kw(draft, SPEC_W - 1, total, acc))[0]
+        print(f"spec: the planner at acceptance {acc}: depth "
+              f"{g.spec_depth}, {g.num_agents} agents, pin {g.pin_window}, "
+              f"predicted {g.predicted_throughput_tps:.3f} tok/s", flush=True)
+    outs, stats, launches, _ = serve_spec(
+        torch, ops, cfg, "spec", SPEC["budget_mb"], draft,
+        acceptance=SPEC["acceptance"])
+    if stats.peak_breakdown.get("draft") != dman["total_bytes"]:
+        fail(f"spec: the ledger peak's draft share "
+             f"{stats.peak_breakdown.get('draft')} is not the draft's "
+             f"{dman['total_bytes']} manifest bytes")
+    if draft.weights is not None:
+        fail("spec: the draft's device copies outlived its session")
+    same_tokens(torch, cfg, outs, paged_outs, "spec vs paged greedy tokens")
+    return launches, stats
+
+
+def phase_self_draft(torch, ops):
+    """Phase 14: the self-draft ceiling.  A full-width gpt2_base cut to 4
+    layers (its own checkpoint, numpy seed 0) serves phase 5's first 4
+    requests twice under one budget below target plus draft, without a
+    draft and with itself as the draft at depth 4: the tokens must agree
+    (tie rule), acceptance must be 1.0 but for rejections at ties of the
+    model's own top-2 gap, and multi-token commits must leave fewer verify
+    rounds than the plain run's decode rounds.  No speed-up is claimed."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core import BatchScheduler
+    from repro_torch.core.engine import DraftModel
+    cfg, path = checkpoint("self-draft")
+    total = load_manifest(path)["total_bytes"]
+    print(f"self-draft: {cfg.num_layers} layers, {total} B of shards; "
+          f"budget {SELF['budget_mb']} MiB", flush=True)
+    if SELF["budget_mb"] * 2**20 >= 2 * total:
+        fail("self-draft: the budget must sit below target plus draft")
+    new = SELF["new_tokens"]
+    plain, pst, _, pwall = serve_spec(torch, ops, cfg, "self-draft plain",
+                                      SELF["budget_mb"], new_tokens=new)
+    # each round's proposals, beside what the requests held before it
+    rounds = []
+    propose = BatchScheduler._draft_propose
+
+    def recorded(self):
+        props = propose(self)
+        rounds.append([(r.rid, len(r.tokens), r.max_new_tokens - r.generated,
+                        p) for r, p in zip(self.inflight, props)])
+        return props
+
+    BatchScheduler._draft_propose = recorded
+    try:
+        outs, st, launches, wall = serve_spec(
+            torch, ops, cfg, "self-draft spec", SELF["budget_mb"],
+            DraftModel(path, cfg, device="cuda"), new_tokens=new,
+            schedule=SELF["schedule"])
+    finally:
+        BatchScheduler._draft_propose = propose
+    same_tokens(torch, cfg, outs, plain, "self-draft spec vs plain greedy "
+                "tokens")
+    # a rejection: the first proposal that is not the committed token,
+    # inside the request's remaining allowance
+    rejected = []
+    for rows in rounds:
+        for rid, n, remaining, props in rows:
+            toks = list(outs[rid])
+            for j, t in enumerate(props[:remaining]):
+                if t != toks[n + j]:
+                    rejected.append((rid, n + j))
+                    break
+    for rid, at in rejected:
+        gap, limit = tie_gap(torch, cfg, list(outs[rid])[:at])
+        print(f"self-draft: req{rid} proposal rejected at token {at}; "
+              f"top-2 logit gap there {gap:.3e} (tie below {limit:.3e})",
+              flush=True)
+        if gap >= limit:
+            fail(f"self-draft: req{rid}'s proposal rejected at token {at} "
+                 f"outside a tie (gap {gap:.3e})")
+    if (st.acceptance_rate == 1.0) != (not rejected):
+        fail(f"self-draft: acceptance {st.acceptance_rate} against "
+             f"{len(rejected)} rejections found")
+    plain_rounds = len(serve_rounds(pst)[0])
+    print(f"self-draft: acceptance {st.acceptance_rate:.4f} "
+          f"({st.accepted_tokens}/{st.draft_tokens}), {len(rejected)} "
+          f"rejections at ties; spec rounds {st.spec_rounds} against the "
+          f"plain run's {plain_rounds} decode rounds; serving loop "
+          f"{st.latency_s:.3f}s against {pst.latency_s:.3f}s (phases "
+          f"{wall:.1f}s / {pwall:.1f}s)", flush=True)
+    if not st.spec_rounds < plain_rounds:
+        fail("self-draft: no multi-token commit on the card")
+    return launches, st
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -1332,7 +1695,27 @@ def main() -> int:
     print(f"device: {name} ({smi}), torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build.build_all()
+    # nvcc runs in its own processes; the serving phases' checkpoints are
+    # written on the host meanwhile
+    build_error = []
+
+    def run_build():
+        try:
+            build.build_all()
+        except BaseException as exc:      # noqa: BLE001 (re-raised below)
+            build_error.append(exc)
+
+    builder = threading.Thread(target=run_build)
+    builder.start()
+    try:
+        if not args.kernels_only:
+            took = write_checkpoints()
+            print(f"checkpoints written while the kernels built in "
+                  f"{time.perf_counter() - t0:.1f}s ({took})", flush=True)
+    finally:
+        builder.join()
+    if build_error:
+        raise build_error[0]
     for k in build.KERNELS:
         build.library(k)
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
@@ -1380,6 +1763,11 @@ def main() -> int:
     phase_gptj(torch, ops)
     phase_vit(torch, ops)
 
+    # ---- phases 13-14: speculative serving (weak draft, self-draft)
+    count_draft_steps()
+    spec_launches, spec_stats = phase_spec(torch, ops, cfg, paged_outs)
+    phase_self_draft(torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel, launch key, the path's launches, stats);
@@ -1402,6 +1790,16 @@ def main() -> int:
                                "src/repro/kernels/paged_decode.py:113",
                                chunk_launches, chunk_stats),
     }
+    # paged_flash_verify serves two paths: the chunk rounds (two shapes,
+    # an equal share of the chunked loop's launches each) and the spec
+    # rounds; its numbers are the mean per launch over all three
+    for c in cases:
+        if c["kernel"] == "paged_flash_verify" and c["case"].startswith(
+                "main"):
+            c["weight"] = (spec_stats.kernel_launches["paged_flash_verify"]
+                           if "spec round" in c["case"] else
+                           chunk_stats.kernel_launches["paged_flash_verify"]
+                           / 2)
     if OVER_BUDGET:
         fail("device allocator peak above its limit: "
              + "; ".join(OVER_BUDGET))
@@ -1411,18 +1809,24 @@ def main() -> int:
         mine = [c for c in cases if c["kernel"] == kname
                 and c["dtype"] == "float32"]
         # the main path's shapes; where it launches the kernel at several
-        # (the chunk rounds), each takes an equal share of its launches,
-        # so the numbers are their mean per launch
+        # (the chunk and spec rounds), the mean per launch, each shape
+        # weighted by its launches
         mains = [c for c in mine if c["case"].startswith("main")]
+        weights = [c.get("weight", 1) for c in mains]
 
         def mean(f):
             vals = [c[f] for c in mains]
-            return None if None in vals else sum(vals) / len(vals)
+            return None if None in vals else sum(
+                w * v for w, v in zip(weights, vals)) / sum(weights)
+        both = kname == "paged_flash_verify"    # the chunk and spec paths
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launch_key": key,
-            "launches": launches[key],
-            "serve_launches": stats.kernel_launches[key],
+            "launches": launches[key] + (spec_launches[key] if both else 0),
+            "serve_launches": stats.kernel_launches[key] + (
+                spec_stats.kernel_launches[key] if both else 0),
+            "spec_launches": spec_launches[key],
+            "spec_serve_launches": spec_stats.kernel_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -1454,7 +1858,8 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in mm
                         if c["dtype"] == "float32"),
         **{k: best[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}))
+                                "bound_by", "library_ms",
+                                "library_device_ms")}))
     print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi)

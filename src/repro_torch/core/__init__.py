@@ -1,5 +1,6 @@
 """Hermes core, PyTorch port: the slices ported so far (dense and paged
-continuous batching, chunked prefill, quantized weight streaming).  Only
+continuous batching, chunked prefill, quantized weight streaming,
+speculative decoding).  Only
 what is ported is exported here."""
 from repro_torch.core.engine import MODES, PipeloadEngine, RunStats  # noqa: F401
 from repro_torch.core.hermes import Hermes  # noqa: F401

@@ -32,14 +32,20 @@ other leaf and stay quantized on the device.
 
 ``page_size`` charges the single-request KV cache page by page as decode
 reaches new positions (``core/kv_pages.py``), and ``run_batch_round``
-serves the scheduler's paged pools and chunked-prefill windows.
+serves the scheduler's paged pools, chunked-prefill windows and
+speculative verify windows.
 
-Not yet ported (they raise): speculative decoding (``DraftModel``,
-``SpecConfig``) and expert streaming.
+Speculative decoding (``run_generate(speculative=SpecConfig(...))``): a
+``DraftModel`` pinned whole on the device proposes ``depth`` tokens, and
+ONE pipelined round scores the window through the paged verify kernel;
+the longest agreeing prefix plus the target's own next token commit.
+
+Not yet ported (it raises): expert streaming.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 import threading
@@ -53,7 +59,7 @@ from repro_torch.checkpoint.partition import (load_manifest, load_shard,
                                               tree_map)
 from repro_torch.checkpoint.quant import as_tensor
 from repro_torch.core import telemetry as _tele
-from repro_torch.core.kv_pages import pages_for
+from repro_torch.core.kv_pages import BlockTable, PagePool, pages_for
 from repro_torch.core.modules import build_module_fns
 from repro_torch.core.prefetch import PrefetchRuntime
 from repro_torch.models.config import ModelConfig
@@ -82,6 +88,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def blas_workspace_bytes(device: torch.device) -> int:
+    """Device bytes PyTorch's BLAS holds beside the ledger: the cuBLAS
+    workspace of the compute stream (cuBLASLt shares it), taken at the
+    process's first matmul and kept for its lifetime.  0 on the CPU.
+    Where PyTorch does not report the size, its rule: the
+    ``CUBLAS_WORKSPACE_CONFIG`` pairs ``:KiB:count``, by default 32 MiB
+    on compute capability 9 and above, else 4096 KiB x 2 + 16 KiB x 8."""
+    if device.type != "cuda":
+        return 0
+    get = getattr(torch._C, "_cuda_getCublasWorkspaceSize", None)
+    if get is not None:
+        return int(get())
+    config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if config:
+        vals = [int(v) for v in config.split(":")[1:]]
+        return sum(kib * 1024 * n for kib, n in zip(vals[::2], vals[1::2]))
+    if torch.cuda.get_device_capability(device)[0] >= 9:
+        return 32 * 2**20
+    return (4096 * 2 + 16 * 8) * 1024
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device's current (compute) stream: the port's
     ``block_until_ready``.  No-op on the CPU, where ops run eagerly."""
@@ -104,6 +131,11 @@ class RunStats:
     decode_s: float = 0.0
     cache_bytes: int = 0
     kv_cache: bool = False
+    # speculative-decoding extras (0 for non-speculative runs)
+    spec_depth: int = 0
+    spec_rounds: int = 0           # draft-propose / verify rounds run
+    draft_tokens: int = 0          # tokens the draft proposed
+    accepted_tokens: int = 0       # proposals the target confirmed
     # prefetch fault-injection outcomes (REPRO_PREFETCH_FAULT_RATE)
     retries: int = 0
     faults_absorbed: int = 0
@@ -118,6 +150,20 @@ class RunStats:
         """Mean latency per generated token (whole run / tokens)."""
         return self.latency_s / self.new_tokens if self.new_tokens else 0.0
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target accepted."""
+        return (self.accepted_tokens / self.draft_tokens
+                if self.draft_tokens else 0.0)
+
+
+#: Resident-tier owners every acquire/release names (advisory, not an
+#: enum): pin (pinned window, embed/head, baseline weights), stream
+#: (in-flight streamed shards), expert_cache, kv_pages (KV reservations
+#: and mapped pages), draft (the pinned speculative draft's weights) and
+#: spec_headroom (per-request draft dense-cache rows).
+LEDGER_OWNERS = ("pin", "stream", "expert_cache", "kv_pages", "draft",
+                 "spec_headroom")
 
 _AUDIT_ENV = "REPRO_LEDGER_AUDIT"
 
@@ -317,6 +363,117 @@ def _fault_delta(snap: Tuple[int, ...]) -> dict:
     return {"retries": now[0] - snap[0], "faults_absorbed": now[1] - snap[1]}
 
 
+class DraftModel:
+    """A small model pinned WHOLE on the device for speculative drafting.
+
+    Unlike the target, whose layers stream through the Loading Agents,
+    the draft lives resident under the budget, like the pin window:
+    ``pin`` copies every shard to the device and charges the ledger
+    (``owner="draft"``); proposals then run the module fns with no disk
+    traffic.  Its KV cache is an ordinary dense one (``total_len`` slots
+    per row, charged by the caller as extra resident bytes): prefill
+    through the flash-attention kernel, decode through flash decoding.
+
+    Pins are counted: one draft may serve several sessions at once, each
+    pinning it against its own ledger.  The last ``unpin`` frees the
+    device copies, so no draft tensor outlives every ledger charge on the
+    device; the shards stay cached on the host for the next ``pin``."""
+
+    def __init__(self, ckpt_dir, cfg: ModelConfig, *,
+                 attn_impl: Optional[str] = "auto", device="cuda"):
+        self.dir = Path(ckpt_dir)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # read raw: load_manifest rejects expert-split manifests as not
+        # yet ported, and a draft rejects them for a reason of its own
+        self.manifest = json.loads((self.dir / "manifest.json").read_text())
+        if self.manifest.get("expert_split"):
+            raise ValueError("expert-split checkpoints cannot be draft "
+                             "models (the draft must pin whole)")
+        self.fns = build_module_fns(cfg, attn_impl=attn_impl,
+                                    device=self.device)
+        self.shards = {s["name"]: s for s in self.manifest["shards"]}
+        self.layer_names = [s["name"] for s in self.manifest["shards"]
+                            if s["kind"] == "layer"]
+        self.total_bytes = sum(s["bytes"] for s in self.shards.values())
+        self._host: Optional[Dict[str, dict]] = None
+        self.weights: Optional[Dict[str, dict]] = None
+        self._pins = 0
+
+    def cache_bytes(self, batch: int, total_len: int) -> int:
+        return (len(self.layer_names)
+                * self.cfg.cache_bytes(batch, total_len))
+
+    def pin(self, ledger: Optional[_Ledger] = None):
+        """Copy every shard to the device (once, for all pins); charges
+        ``ledger`` for the lot."""
+        if ledger is not None:
+            ledger.acquire(self.total_bytes, owner="draft")
+        self._pins += 1
+        if self.weights is None:
+            if self._host is None:
+                self._host = {name: tree_map(as_tensor,
+                                             load_shard(self.dir, name))
+                              for name in self.shards}
+            self.weights = {name: tree_map(lambda a: a.to(self.device), h)
+                            for name, h in self._host.items()}
+        return self
+
+    def unpin(self, ledger: Optional[_Ledger] = None):
+        """Return the draft's bytes to ``ledger``; the last pin's release
+        frees the device copies (the host copies stay for the next
+        ``pin``)."""
+        if ledger is not None:
+            ledger.release(self.total_bytes, owner="draft")
+        self._pins = max(0, self._pins - 1)
+        if self._pins == 0:
+            self.weights = None
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def prefill(self, tokens, total_len: int):
+        """Prompt pass; returns (last-token logits (B, V), caches)."""
+        assert self.weights is not None, "pin() the draft first"
+        fns, w = self.fns, self.weights
+        x = fns["embed"](w["embed"], self._tokens(tokens))
+        caches: Dict[str, dict] = {}
+        for name in self.layer_names:
+            x, caches[name] = fns["layer_cache"](w[name], x, total_len)
+        return fns["head"](w["head"], x), caches
+
+    def decode(self, token: int, caches, pos: int):
+        """Feed ``token`` at cache slot ``pos``; returns (logits (1, V),
+        caches): the draft's prediction for slot ``pos + 1``."""
+        return self.decode_batch([[int(token)]], caches, int(pos))
+
+    def decode_batch(self, tokens, caches, pos):
+        """Stacked draft step for the serving scheduler: ``tokens`` (R, 1)
+        fed at per-row slots ``pos`` (an int, or (R,) ragged); returns
+        (logits (R, V), caches with leading row dim R).  The caches are
+        written in place."""
+        fns, w = self.fns, self.weights
+        x = fns["embed"](w["embed"], self._tokens(tokens))
+        if not isinstance(pos, int):
+            pos = self._tokens(pos)
+        for name in self.layer_names:
+            x, caches[name] = fns["layer_decode"](w[name], x, caches[name],
+                                                  pos)
+        return fns["head"](w["head"], x), caches
+
+
+@dataclasses.dataclass
+class SpecConfig:
+    """Speculative-decoding knobs for ``run_generate(speculative=...)``:
+    ``depth`` draft tokens are proposed per round (the planner's
+    ``spec_depth``); the draft checkpoint must fit resident next to the
+    pinned window, and the budget check charges it as extra resident
+    bytes."""
+    draft_dir: str
+    draft_cfg: ModelConfig
+    depth: int = 4
+
+
 class PipeloadEngine:
     def __init__(self, ckpt_dir, cfg: ModelConfig, *,
                  mode: str = "pipeload", num_agents: int = 4,
@@ -336,12 +493,14 @@ class PipeloadEngine:
         # pages as positions are reached (None = one dense reservation)
         self.page_size = page_size if page_size and page_size > 0 else None
         self.manifest = load_manifest(ckpt_dir)
+        self.attn_impl = attn_impl
         self.fns = build_module_fns(cfg, attn_impl=attn_impl,
                                     device=self.device)
         self.shards = {s["name"]: s for s in self.manifest["shards"]}
         self.layer_names = [s["name"] for s in self.manifest["shards"]
                             if s["kind"] == "layer"]
         self._resident: Dict[str, dict] = {}
+        self._drafts: Dict[str, DraftModel] = {}
         self.runtime = PrefetchRuntime(workers=self.m, name="pipeload")
         # Loading Agents copy on their own CUDA streams; the Inference
         # Agent computes on this one
@@ -517,14 +676,17 @@ class PipeloadEngine:
                                    fsnap)
 
     def run_generate(self, tokens, new_tokens: int, *,
-                     kv_cache: bool = False, speculative=None
+                     kv_cache: bool = False,
+                     speculative: Optional[SpecConfig] = None
                      ) -> Tuple[torch.Tensor, RunStats]:
         """GPT-style greedy generation: ``kv_cache=False`` re-runs the
         full load+prefix pipeline for every token (§V-B2); ``True``
         prefills once, then decodes token by token against per-layer KV
-        caches."""
+        caches; ``speculative`` (a ``SpecConfig``; needs ``page_size``)
+        runs the draft/verify loop, greedy-token-identical to the
+        non-speculative paths."""
         if speculative is not None:
-            raise _not_ported("speculative decoding")
+            return self._generate_spec(tokens, new_tokens, speculative)
         if kv_cache:
             return self._generate_kv(tokens, new_tokens)
         events: List[Tuple[float, str, str]] = []
@@ -668,6 +830,221 @@ class PipeloadEngine:
                                  cache_bytes=mapped["bytes"], kv_cache=True)
 
     # ------------------------------------------------------------------
+    def _draft_model(self, spec: SpecConfig) -> DraftModel:
+        """One DraftModel per checkpoint dir, cached across runs (on the
+        engine's device, with its kernels), so a repeat run does not read
+        the draft from disk again."""
+        key = str(spec.draft_dir)
+        if key not in self._drafts:
+            self._drafts[key] = DraftModel(spec.draft_dir, spec.draft_cfg,
+                                           attn_impl=self.attn_impl,
+                                           device=self.device)
+        return self._drafts[key]
+
+    def _generate_spec(self, tokens, new_tokens: int, spec: SpecConfig
+                       ) -> Tuple[torch.Tensor, RunStats]:
+        """Speculative draft/verify generation over the PAGED cache.
+
+        Each round: the pinned draft proposes up to ``spec.depth`` tokens
+        (resident decodes, no weight stream); the target scores the whole
+        window, the last committed token and every proposal, in ONE
+        pipelined round (``layer_verify_paged``); the longest agreeing
+        prefix plus the target's own next pick commits.  The window writes
+        go to a copy-on-write BRANCH of the block table, so a rejected
+        suffix rolls back by dropping page references (never a copy).
+        Every committed token is the argmax of target logits over the
+        committed context, whatever the draft proposed."""
+        if not self.page_size:
+            raise ValueError("speculative decoding needs the paged KV "
+                             "cache: construct the engine with page_size")
+        if "layer_verify_paged" not in self.fns:
+            raise ValueError(
+                "speculative decoding needs the stacked GQA verify path; "
+                f"config {self.cfg.name} (attention={self.cfg.attention}, "
+                f"sliding_window={self.cfg.sliding_window}) only supports "
+                "the generic gather path")
+        if new_tokens <= 0:
+            return self.tokens(tokens), RunStats(self.mode, self.m, 0.0, 0,
+                                                 [], kv_cache=True)
+        toks_in = self.tokens(tokens)
+        b, s0 = toks_in.shape
+        if b != 1:
+            raise ValueError("run_generate(speculative=...) is the "
+                             "single-request path; use the scheduler's "
+                             "spec_depth for batched serving")
+        if self.mode == "baseline":
+            raise ValueError("speculative decoding needs a pipelined mode")
+        depth = max(1, int(spec.depth))
+        w_max = depth + 1
+        ps = self.page_size
+        names = self.layer_names
+        n = len(names)
+        total = s0 + new_tokens
+        nb = pages_for(total, ps)
+        page_bytes = n * self.cfg.cache_bytes(1, ps)
+        draft = self._draft_model(spec)
+        draft_cache_bytes = draft.cache_bytes(1, total)
+        # feasibility at the WORST mapped-page count: the full-length table
+        # plus the window's fresh pages and one COW copy of its write page
+        cache_total = (nb + pages_for(w_max, ps) + 1) * page_bytes
+        self._check_kv_budget(cache_total, extra_resident=(
+            draft.total_bytes + draft_cache_bytes))
+
+        events: List[Tuple[float, str, str]] = []
+        ledger = _Ledger(self.budget)
+        fsnap = _fault_snap()
+        t0 = time.perf_counter()
+        self._ensure_aux(ledger, events, t0)
+        draft.pin(ledger)
+        events.append((time.perf_counter() - t0, "draft_pin",
+                       str(draft.total_bytes)))
+        ledger.acquire(draft_cache_bytes, owner="spec_headroom")
+
+        toks: List[int] = toks_in.reshape(-1).tolist()
+        pool = PagePool(ps, page_bytes, ledger)
+        pool_rows = nb + pages_for(w_max, ps) + 2
+        table = BlockTable([pool.alloc() for _ in range(pages_for(s0, ps))])
+
+        # ---- draft prefill (resident and cheap)
+        _, dcaches = draft.prefill(toks_in, total)
+        draft_pos = s0                   # draft-cache slots that match toks
+
+        # ---- target prefill: pipelined cache capture, padded to the page
+        # boundary and written into this request's pages layer by layer
+        pad_len = pages_for(s0, ps) * ps
+        pids = torch.as_tensor(table.pages, device=self.device)
+        cfg = self.cfg
+        pools: Dict[str, dict] = {}
+
+        def prefill_apply(k, w, h):
+            h, cache = self.fns["layer_cache"](w, h, pad_len)
+            pools[names[k]] = {}
+            for leaf, a in cache.items():
+                p = torch.zeros((pool_rows, ps, cfg.n_kv_heads,
+                                 cfg.head_dim), dtype=cfg.torch_dtype,
+                                device=self.device)
+                p[pids] = a[0].reshape((len(table.pages), ps)
+                                       + tuple(a.shape[2:])).to(p.dtype)
+                pools[names[k]][leaf] = p
+            self._sync()
+            events.append((time.perf_counter() - t0, "cache_alloc",
+                           names[k]))
+            return h
+
+        x = self.fns["embed"](self._resident["embed"], toks_in)
+        x = self._run_pipeline(x, ledger, events, t0,
+                               self.mode == "pipeload",
+                               apply_fn=prefill_apply)
+        logits = self.fns["head"](self._resident["head"], x)
+        toks.append(int(torch.argmax(logits, -1)[0]))
+        generated = 1
+        prefill_s = time.perf_counter() - t0
+
+        # ---- draft/verify rounds
+        tr = _tele.get_tracer()
+        spec_rounds = draft_tokens = accepted = 0
+        while generated < new_tokens:
+            k_prop = min(depth, new_tokens - generated - 1)
+            # 1. the draft catches up on committed tokens it has not seen
+            # (<= 2 after the first round), then chains k_prop proposals
+            logits_d = None
+            props: List[int] = []
+            with tr.span("draft_propose", depth=k_prop):
+                for t in toks[draft_pos:]:
+                    logits_d, dcaches = draft.decode(t, dcaches, draft_pos)
+                    draft_pos += 1
+                for j in range(k_prop):
+                    nxt = int(torch.argmax(logits_d, -1)[0])
+                    props.append(nxt)
+                    if j < k_prop - 1:
+                        logits_d, dcaches = draft.decode(nxt, dcaches,
+                                                         draft_pos)
+                        draft_pos += 1
+            # 2. branch the block table copy-on-write and map the verify
+            # window's write range [pos0, pos0 + w_r)
+            pos0 = len(toks) - 1         # slot of the last committed token
+            w_r = k_prop + 1
+            br = table.branch(pool)
+            while len(br.pages) < pages_for(pos0 + w_r, ps):
+                br.pages.append(pool.alloc())
+            cow: List[Tuple[int, int]] = []
+            for pidx in range(pos0 // ps, pages_for(pos0 + w_r, ps)):
+                swap = br.cow(pidx, pool)
+                if swap is not None:
+                    cow.append(swap)
+            if cow:
+                old = torch.as_tensor([o for o, _ in cow], device=self.device)
+                new = torch.as_tensor([nn for _, nn in cow],
+                                      device=self.device)
+                for c in pools.values():
+                    for a in c.values():
+                        a[new] = a[old]
+            # 3. ONE stacked weight-stream round scores the window
+            tab = torch.zeros((1, nb), dtype=torch.int32)
+            tab[0, :len(br.pages)] = torch.as_tensor(br.pages)
+            tab = tab.to(self.device)
+            pos_t = self.tokens([pos0])
+            x = self.fns["embed"](self._resident["embed"],
+                                  self.tokens([[toks[-1]] + props]))
+
+            def verify_apply(k, w, h):
+                h, pools[names[k]] = self.fns["layer_verify_paged"](
+                    w, h, pools[names[k]], tab, pos_t)
+                self._sync()
+                return h
+
+            events.append((time.perf_counter() - t0, "spec_round",
+                           f"w={w_r}"))
+            if tr.enabled:
+                tr.instant("spec_verify", window=w_r)
+            x = self._run_pipeline(x, ledger, events, t0,
+                                   self.mode == "pipeload",
+                                   apply_fn=verify_apply)
+            logits = self.fns["head_all"](self._resident["head"], x)
+            greedy = torch.argmax(logits[0], -1).tolist()      # (w_r,)
+            # 4. accept the longest agreeing prefix + the target's own next
+            # pick (the "bonus" token: its context is fully committed)
+            a = 0
+            while a < k_prop and props[a] == greedy[a]:
+                a += 1
+            old_len = len(toks)
+            toks.extend(props[:a])
+            toks.append(greedy[a])
+            generated += a + 1
+            # 5. rollback: drop references past the committed length, then
+            # commit the branch as the new table
+            br.rollback(pool, pages_for(pos0 + a + 1, ps))
+            if tr.enabled:
+                tr.instant("spec_rollback", accepted=a, proposed=k_prop)
+            table.release_all(pool)
+            table = br
+            # draft-cache slots still agreeing with toks: all it had, minus
+            # proposals past the accepted prefix
+            draft_pos = old_len + max(0, min(a, k_prop - 1))
+            spec_rounds += 1
+            draft_tokens += k_prop
+            accepted += a
+
+        out = torch.as_tensor([toks], dtype=toks_in.dtype, device=self.device)
+        self._sync()
+        lat = time.perf_counter() - t0
+        table.release_all(pool)
+        pools.clear()
+        dcaches.clear()
+        ledger.release(draft_cache_bytes, owner="spec_headroom")
+        draft.unpin(ledger)
+        ledger.audit_check_drained("stream", "kv_pages", "draft",
+                                   "spec_headroom")
+        return out, self._stats(ledger, events, lat, fsnap,
+                                new_tokens=new_tokens, prefill_s=prefill_s,
+                                decode_s=lat - prefill_s,
+                                cache_bytes=pool.mapped_peak_bytes,
+                                kv_cache=True, spec_depth=depth,
+                                spec_rounds=spec_rounds,
+                                draft_tokens=draft_tokens,
+                                accepted_tokens=accepted)
+
+    # ------------------------------------------------------------------
     # Continuous-batching rounds (core/scheduler.py drives these)
     # ------------------------------------------------------------------
     def run_batch_round(self, ledger: _Ledger, events, t0, *,
@@ -706,9 +1083,12 @@ class PipeloadEngine:
                 "run_batch_round needs a pipelined mode (pipeload / "
                 "pipeswitch); baseline keeps the model resident and has "
                 "no round to amortise")
-        if decode_x is not None and decode_x.shape[1] > 1:
-            raise _not_ported("stacked multi-token (speculative verify) "
-                              "decode")
+        if (decode_x is not None and decode_x.shape[1] > 1
+                and paged_pools is None):
+            raise ValueError(
+                "stacked multi-token decode (speculative verify) needs "
+                "paged pools; dense decode_caches take one token per "
+                "round")
         if chunk_x is not None and paged_pools is None:
             raise ValueError(
                 "chunked prefill needs paged pools (chunks write K/V "
@@ -719,7 +1099,11 @@ class PipeloadEngine:
         def apply_fn(k, w, state):
             dx, cx, pxs = state
             if dx is not None and paged_pools is not None:
-                dx, paged_pools[names[k]] = self.fns["layer_decode_paged"](
+                # W>1 stacked states = a speculative verify round: each
+                # request's window [pos, pos+W) scores in one pass
+                fn = (self.fns["layer_verify_paged"] if dx.shape[1] > 1
+                      else self.fns["layer_decode_paged"])
+                dx, paged_pools[names[k]] = fn(
                     w, dx, paged_pools[names[k]], decode_tables, decode_pos)
             elif dx is not None:
                 dx, decode_caches[names[k]] = self.fns["layer_decode"](
@@ -750,11 +1134,14 @@ class PipeloadEngine:
         caches = paged_pools if paged_pools is not None else decode_caches
         return dx, caches, pxs, prefill_caches, cx
 
-    def _kv_floor(self, cache_total: int) -> int:
+    def _kv_floor(self, cache_total: int, *,
+                  extra_resident: int = 0) -> int:
         """Smallest budget that cannot deadlock a KV decode round holding
         ``cache_total`` bytes of cache: other layers + all cache + the
         pinned window + one streaming layer (the whole model for the
-        non-destroying modes)."""
+        non-destroying modes).  ``extra_resident`` adds run-scoped
+        residents outside those tiers: the speculative path's pinned
+        draft and its dense cache."""
         other = sum(s["bytes"] for s in self.shards.values()
                     if s["kind"] != "layer")
         layer_sizes = [self.shards[nm]["bytes"] for nm in self.layer_names]
@@ -763,15 +1150,17 @@ class PipeloadEngine:
             streaming = max(layer_sizes[self.pin:], default=0)
         else:
             pinned, streaming = sum(layer_sizes), 0
-        return other + cache_total + pinned + streaming
+        return other + cache_total + pinned + streaming + extra_resident
 
-    def _check_kv_budget(self, cache_total: int, *, inflight: int = 1):
+    def _check_kv_budget(self, cache_total: int, *, inflight: int = 1,
+                         extra_resident: int = 0):
         """Raise unless the budget clears the decode floor for the full
         multi-request reservation; below it the pipeline deadlocks with
-        every loader parked on S_stop."""
+        every loader parked on S_stop.  ``extra_resident`` adds the
+        speculative draft's pinned bytes."""
         if self.budget is None:
             return
-        floor = self._kv_floor(cache_total)
+        floor = self._kv_floor(cache_total, extra_resident=extra_resident)
         if self.budget < floor:
             per_req = cache_total // max(inflight, 1)
             raise ValueError(

@@ -10,11 +10,19 @@
     g = hermes.plan_generate([b1], quants=("fp32", "int8", "int4"))[0]
     engine = hermes.quantized(g.dtype).engine(...)   # g.dtype = winner
     sel = hermes.autotune(page_size=16)         # kernel tiles / routes
+    spec = hermes.scheduler(budget_bytes=b1, page_sizes=(16,),
+                            draft=DraftModel(draft_dir, draft_cfg),
+                            spec_depth=4)       # speculative serving
 
 The profile is cached in the checkpoint directory as
 ``profile_torch_<device>.json``, so it never collides with the JAX
 package's ``profile.json`` for the same checkpoint, nor with another
 device's timings.
+
+Budgets given to the facade are device budgets: on the card the planner
+and the engine's ledger take ``ledger_budget(b)``, the budget less the
+cuBLAS workspace PyTorch keeps beside the ledger (the reference's budget
+is the ledger's; on the CPU the two are equal).
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.checkpoint.partition import ensure_quantized
-from repro_torch.core.engine import PipeloadEngine, resolve_device
+from repro_torch.core.engine import (DraftModel, PipeloadEngine,
+                                     blas_workspace_bytes, resolve_device)
 from repro_torch.core.planner import (GenPlanEntry, PlanEntry, plan,
                                       plan_generate)
 from repro_torch.core.profiler import (load_profile, profile_model,
@@ -31,6 +40,20 @@ from repro_torch.models.config import ModelConfig
 
 # planner label for "no quantization: stream shards at the ckpt dtype"
 FP_LABEL = "fp32"
+
+
+def spec_plan_kw(draft: DraftModel, spec_depth: Optional[int],
+                 total_len: int, acceptance: float = 0.8) -> Dict:
+    """``plan_generate``'s speculative keywords for ``draft``: a fixed
+    ``spec_depth`` is searched beside plain decoding, none searches {1,
+    2, 4}, at the modelled ``acceptance``.  Each request's draft cache
+    row spans ``total_len`` plus the deepest window."""
+    depths = (spec_depth,) if spec_depth else (1, 2, 4)
+    return dict(spec_depths=depths,
+                spec_draft=dict(bytes=draft.total_bytes,
+                                cache_bytes=draft.cache_bytes(
+                                    1, total_len + max(depths)),
+                                acceptance=acceptance))
 
 
 class Hermes:
@@ -100,11 +123,22 @@ class Hermes:
         return {lb: self.quantized(lb).profile() for lb in labels}
 
     # ---- Pipeline Planner ----------------------------------------------
+    def ledger_budget(self, budget: Optional[int]) -> Optional[int]:
+        """The ledger's share of a device budget: ``budget`` less the
+        BLAS workspace the process holds beside the ledger on this device
+        (``engine.blas_workspace_bytes``; 0 on the CPU).  The planner and
+        the engine both take it, so weights, caches and the draft never
+        fill the bytes cuBLAS keeps."""
+        if budget is None:
+            return None
+        return budget - blas_workspace_bytes(self.device)
+
     def plan(self, budgets: List[Optional[int]],
              max_agents: Optional[int] = None,
              quants: Optional[Sequence[Optional[str]]] = None
              ) -> List[PlanEntry]:
-        return plan(self._profiles(quants), budgets, max_agents)
+        return plan(self._profiles(quants),
+                    [self.ledger_budget(b) for b in budgets], max_agents)
 
     def best_agents(self, budget_bytes: Optional[int]) -> int:
         return self.plan([budget_bytes])[0].num_agents
@@ -118,23 +152,31 @@ class Hermes:
                       quants: Optional[Sequence[Optional[str]]] = None,
                       page_sizes: Sequence[int] = (),
                       shared_prefix_len: int = 0,
+                      spec_depths: Sequence[int] = (),
+                      spec_draft: Optional[Dict] = None,
                       chunk_prefill: int = 0) -> List[GenPlanEntry]:
         """Generation-aware schedule: joint (num_agents, pin_window) with
         KV-cache bytes charged against the budget; ``max_inflight > 1``
         also searches the continuous-batching in-flight count,
         ``page_sizes`` the paged KV reservations (``shared_prefix_len``
         leading prompt tokens shared across requests are charged once),
-        and ``chunk_prefill`` models chunk-joined prefill rounds;
+        ``spec_depths`` + ``spec_draft`` the speculative verify depths (a
+        pinned draft's bytes, cache row and acceptance rate; see
+        ``planner.plan_generate``), and ``chunk_prefill`` models
+        chunk-joined prefill rounds;
         ``quants`` widens the search over shard dtype (KV pages keep the
         model dtype, so the cache bytes are shared)."""
         cb = self.cfg.cache_bytes(batch, prompt_len + new_tokens)
-        return plan_generate(self._profiles(quants), budgets,
+        return plan_generate(self._profiles(quants),
+                             [self.ledger_budget(b) for b in budgets],
                              new_tokens=new_tokens,
                              cache_bytes_per_layer=cb, max_agents=max_agents,
                              max_pin=max_pin, max_inflight=max_inflight,
                              page_sizes=tuple(page_sizes),
                              total_len=prompt_len + new_tokens,
                              shared_prefix_len=shared_prefix_len,
+                             spec_depths=tuple(spec_depths),
+                             spec_draft=spec_draft,
                              chunk_prefill=chunk_prefill)
 
     # ---- Execution Engine ----------------------------------------------
@@ -148,7 +190,7 @@ class Hermes:
             num_agents = self.best_agents(budget_bytes)
         return PipeloadEngine(self.dir, self.cfg, mode=mode,
                               num_agents=num_agents or 1,
-                              budget_bytes=budget_bytes,
+                              budget_bytes=self.ledger_budget(budget_bytes),
                               pin_window=pin_window, attn_impl=attn_impl,
                               page_size=page_size, device=self.device)
 
@@ -165,7 +207,10 @@ class Hermes:
                   chunk_prefill: int = 0,
                   attn_impl: Optional[str] = "auto",
                   quants: Optional[Sequence[Optional[str]]] = None,
-                  autotune: bool = False):
+                  autotune: bool = False,
+                  draft: Optional[DraftModel] = None,
+                  spec_depth: Optional[int] = None,
+                  draft_acceptance: float = 0.8):
         """Continuous-batching serving facade: plan the (num_agents,
         pin_window, inflight) triple for the budget, build the engine and
         wrap it in a ``BatchScheduler`` ready for ``submit()``/``run()``.
@@ -177,11 +222,24 @@ class Hermes:
         ``page_sizes``) joins long prompts into decode rounds; ``quants``
         widens the plan over shard dtype and the engine is built on the
         winning checkpoint variant; ``autotune`` tunes the kernels for the
-        winning (dtype, page size) after planning (``Hermes.autotune``)."""
+        winning (dtype, page size) after planning (``Hermes.autotune``).
+        A ``draft`` (a ``DraftModel`` on this device) adds the
+        SPECULATIVE dimension: ``spec_depth`` fixes the verify depth
+        (None searches {1, 2, 4}) jointly at the modelled
+        ``draft_acceptance``, and the winning depth, 0 when speculation
+        does not pay at this budget, drives the scheduler's
+        draft-and-verify rounds."""
         from repro_torch.core.scheduler import BatchScheduler
+        if chunk_prefill and draft is not None:
+            raise ValueError("chunk_prefill is incompatible with a draft "
+                             "model (speculative rounds own the verify "
+                             "window)")
         if chunk_prefill and not page_sizes:
             raise ValueError("chunk_prefill requires page_sizes (chunk "
                              "rounds write through the paged KV kernel)")
+        spec_kw = ({} if draft is None else spec_plan_kw(
+            draft, spec_depth, max_total_len or prompt_len + new_tokens,
+            draft_acceptance))
         g = self.plan_generate([budget_bytes], prompt_len=prompt_len,
                                new_tokens=new_tokens,
                                max_inflight=max_inflight, quants=quants,
@@ -190,7 +248,7 @@ class Hermes:
                                # plan must not assume prefix hits
                                shared_prefix_len=(shared_prefix_len
                                                   if prefix_cache else 0),
-                               chunk_prefill=chunk_prefill)[0]
+                               chunk_prefill=chunk_prefill, **spec_kw)[0]
         if not g.feasible:
             raise ValueError(
                 f"no feasible serving schedule for budget {budget_bytes}: "
@@ -216,5 +274,7 @@ class Hermes:
                               max_total_len=(max_total_len
                                              or prompt_len + new_tokens),
                               prefix_cache=prefix_cache, seed=seed,
+                              draft=(draft if g.spec_depth else None),
+                              spec_depth=g.spec_depth,
                               chunk_prefill=(chunk_prefill
                                              if g.page_size else 0))

@@ -63,9 +63,20 @@ the chunk's K/V straight into the request's pages.  The final chunk slides
 back to ``[L - C, L)``, re-feeding tokens whose K/V is already paged in,
 and its last column feeds the head for the first generated token.
 
-Not yet ported (they raise): speculative serving and the SLO tier
-(priorities, tenants, shedding).  TTFT/TPOT percentiles are still
-reported.
+**Speculative serving** (``draft`` + ``spec_depth``, paged mode): a
+``DraftModel`` pinned on the device for the whole session proposes
+``spec_depth`` tokens per request per round from its own dense cache rows
+(one per in-flight request, charged to ``spec_headroom``), and the round's
+decode batch widens to each request's verify window ``[last committed,
+proposals...]`` through ``layer_verify_paged``.  The accepted prefix plus
+the target's own next token commit, so one weight stream advances a
+request by up to ``spec_depth + 1`` tokens; every committed token is the
+target's greedy pick.  A rejected proposal's K/V stays in the request's
+own pages past its committed length, where no query reads it, until the
+next round's window writes over it.
+
+Not yet ported (it raises): the SLO tier (priorities, tenants, shedding).
+TTFT/TPOT percentiles are still reported.
 """
 from __future__ import annotations
 
@@ -77,7 +88,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry as _tele
-from repro_torch.core.engine import PipeloadEngine, _Ledger, _not_ported
+from repro_torch.core.engine import (DraftModel, PipeloadEngine, _Ledger,
+                                     _not_ported)
 from repro_torch.core.kv_pages import (BlockTable, PagePool,
                                        PrefixNamespaces, pages_for)
 from repro_torch.kernels import ops as _ops
@@ -99,6 +111,7 @@ class Request:
     finished_round: int = -1
     cache_bytes: int = 0          # ledger reservation while in flight
     table: Optional[BlockTable] = None   # paged mode: page ids + n_shared
+    draft_pos: int = 0            # speculative: draft cache slots valid
     # -- chunked prefill ------------------------------------------------
     prefilling: bool = False      # True while chunks are still feeding
     prefill_pos: int = 0          # tokens whose K/V is already paged in
@@ -141,6 +154,11 @@ class ServeStats:
     cow_copies: int = 0            # copy-on-write page swaps
     preemptions: int = 0           # requests bounced back to the queue
     pool_pages_peak: int = 0       # high-water MAPPED page count
+    # speculative-decoding extras (0 when spec_depth is unset)
+    spec_depth: int = 0            # draft tokens proposed per round
+    spec_rounds: int = 0           # verify rounds executed
+    draft_tokens: int = 0          # proposals the draft emitted
+    accepted_tokens: int = 0       # proposals the target committed
     chunk_size: int = 0            # chunked-prefill chunk tokens (0 = off)
     chunk_jobs: int = 0            # prefill chunks joined into rounds
     ttft_p50_rounds: float = 0.0   # rounds from arrival to first token
@@ -165,6 +183,12 @@ class ServeStats:
     def tokens_per_s(self) -> float:
         return self.new_tokens / self.latency_s if self.latency_s else 0.0
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target accepted."""
+        return (self.accepted_tokens / self.draft_tokens
+                if self.draft_tokens else 0.0)
+
     def event_log(self, kinds=None):
         return [e for e in self.events if kinds is None or e[1] in kinds]
 
@@ -176,19 +200,18 @@ class BatchScheduler:
     and fixes the padded cache shape; ``max_inflight`` caps concurrency,
     and the budget caps it further through admission control.
     ``page_size`` (default: the engine's) turns on paged KV,
-    ``prefix_cache`` its prefix sharing, and ``chunk_prefill`` chunked
-    prefill in paged mode."""
+    ``prefix_cache`` its prefix sharing, ``chunk_prefill`` chunked prefill
+    in paged mode, and ``draft`` with ``spec_depth`` speculative serving
+    in paged mode."""
 
     def __init__(self, engine: PipeloadEngine, *, max_inflight: int = 4,
                  max_total_len: int = 128, page_size: Optional[int] = None,
                  prefix_cache: bool = True, seed: Optional[int] = None,
-                 draft=None, spec_depth: int = 0, chunk_prefill: int = 0,
-                 slo=None):
+                 draft: Optional[DraftModel] = None, spec_depth: int = 0,
+                 chunk_prefill: int = 0, slo=None):
         if engine.mode == "baseline":
             raise ValueError("continuous batching needs a pipelined mode "
                              "(pipeload / pipeswitch)")
-        if draft is not None or spec_depth:
-            raise _not_ported("speculative serving")
         if slo is not None:
             raise _not_ported("the SLO serving tier")
         self.engine = engine
@@ -199,6 +222,23 @@ class BatchScheduler:
         if page_size is None:
             page_size = engine.page_size
         self.page_size = page_size if page_size and page_size > 0 else None
+        # speculative serving: a pinned draft proposes spec_depth tokens per
+        # round per request and one stacked verify round scores them
+        self.spec_depth = max(0, spec_depth) if draft is not None else 0
+        self.draft = draft if self.spec_depth else None
+        if self.spec_depth:
+            if not self.page_size:
+                raise ValueError(
+                    "speculative serving needs paged KV (the verify "
+                    "window rides the block tables); set page_size")
+            if "layer_verify_paged" not in engine.fns:
+                raise ValueError(
+                    "engine's model fns lack layer_verify_paged "
+                    "(speculative verify); architecture unsupported")
+            if draft.device != engine.device:
+                raise ValueError(
+                    f"the draft runs on {draft.device}, the engine on "
+                    f"{engine.device}: build both on one device")
         # chunked prefill: prompts longer than ``chunk`` tokens prefill C
         # tokens per round through the stacked verify window
         self.chunk = 0
@@ -207,6 +247,11 @@ class BatchScheduler:
                 raise ValueError(
                     "chunked prefill needs paged KV (chunks write K/V "
                     "through the block tables); set page_size")
+            if self.spec_depth:
+                raise ValueError(
+                    "chunked prefill and speculative serving are "
+                    "mutually exclusive (both reshape the round); pick "
+                    "one")
             if "layer_verify_paged" not in engine.fns:
                 raise ValueError(
                     "engine's model fns lack layer_verify_paged (the "
@@ -247,20 +292,44 @@ class BatchScheduler:
         self.tree: Optional[PrefixNamespaces] = None
         self._pools: Optional[Dict[str, dict]] = None  # layer -> (P, ps, ..)
         self.preemptions = 0
-        self._req_headroom = 0
         if self.page_size:
             ps = self.page_size
-            self._nb = pages_for(max_total_len, ps)
+            # the verify window writes K/V for [pos, pos + depth]; the last
+            # round's can run past max_total_len, so tables carry those
+            # slots (masked garbage, freed at retirement)
+            self._nb = pages_for(max_total_len + self.spec_depth, ps)
             self._page_bytes = (len(engine.layer_names)
                                 * engine.cfg.cache_bytes(1, ps))
             self.pool = PagePool(ps, self._page_bytes, self.ledger)
             self.tree = PrefixNamespaces(ps) if prefix_cache else None
-            self._req_headroom = 1      # growth headroom per request
+        # ---- speculative state (the draft pinned for the whole session;
+        # its cache rows parallel to self.inflight)
+        self._draft_caches: Optional[Dict[str, dict]] = None  # (R, T, ...)
+        self._spec_rounds = 0
+        self._draft_tokens = 0
+        self._accepted_tokens = 0
+        if self.spec_depth:
+            # growth headroom per request: a verify round can map a whole
+            # window of fresh pages at once
+            self._req_headroom = pages_for(self.spec_depth + 1,
+                                           self.page_size)
+            self._draft_total = max_total_len + self.spec_depth
+            self._draft_cache_bytes = self.draft.cache_bytes(
+                1, self._draft_total)
+            self.draft.pin(self.ledger)
+        else:
+            self._req_headroom = 1 if self.page_size else 0
+        self._draft_pinned = self.spec_depth > 0
 
     # ------------------------------------------------------------------
     def close(self):
-        """End the serving session: tear down the engine's prefetch
-        runtime.  Idempotent."""
+        """End the serving session: unpin the draft (its ledger bytes and
+        its device copies) and tear down the engine's prefetch runtime.
+        Idempotent."""
+        if self.draft is not None and self._draft_pinned:
+            self._draft_caches = None
+            self.draft.unpin(self.ledger)
+            self._draft_pinned = False
         self.engine.close()
 
     def __enter__(self) -> "BatchScheduler":
@@ -287,13 +356,16 @@ class BatchScheduler:
                 f"{self.max_total_len}")
         if self.page_size:
             # the guarantee growth-with-preemption leans on: a request
-            # ALONE can always map its next page
-            per_req = ((pages_for(len(prompt) + max_new_tokens,
-                                  self.page_size) + self._req_headroom)
-                       * self._page_bytes)
+            # ALONE can always map its next page (its whole verify window
+            # in speculative mode, where the draft and its cache row are
+            # charged as extra residents too)
+            per_req = ((pages_for(len(prompt) + max_new_tokens
+                                  + self.spec_depth, self.page_size)
+                        + self._req_headroom) * self._page_bytes)
         else:
             per_req = self._per_req_cache
-        self.engine._check_kv_budget(per_req, inflight=1)
+        self.engine._check_kv_budget(per_req, inflight=1,
+                                     extra_resident=self._spec_resident(1))
         arrival = max(arrival_round, 0)
         req = Request(self._next_rid, prompt, max_new_tokens,
                       arrival_round=arrival, cache_bytes=per_req,
@@ -322,16 +394,29 @@ class BatchScheduler:
             <= eng.budget
 
     # ---- paged-mode admission / growth / preemption ------------------
-    def _fits_paged(self, extra_pages: int, inflight_after: int) -> bool:
+    def _spec_resident(self, inflight: int) -> int:
+        """Speculative mode's extra resident bytes: the pinned draft plus
+        one dense draft-cache row per in-flight request."""
+        if not self.spec_depth:
+            return 0
+        return self.draft.total_bytes + inflight * self._draft_cache_bytes
+
+    def _fits_paged(self, extra_pages: int, inflight_after: int,
+                    rows: Optional[int] = None) -> bool:
         """Paged decode floor: pages actually mapped, plus the new pages,
-        plus one page of growth headroom per in-flight request."""
+        plus growth headroom per in-flight request (one page; a whole
+        verify window of pages in speculative mode, where the pinned draft
+        and ``rows`` draft-cache rows, by default one per in-flight
+        request, are charged as extra residents too)."""
         eng = self.engine
         if eng.budget is None:
             return True
         cache = ((self.pool.mapped_pages + extra_pages
                   + inflight_after * self._req_headroom)
                  * self._page_bytes)
-        return eng._kv_floor(cache) <= eng.budget
+        rows = inflight_after if rows is None else rows
+        return eng._kv_floor(cache, extra_resident=self._spec_resident(
+            rows)) <= eng.budget
 
     def _admit_one_paged(self, req: Request, inflight_after: int) -> bool:
         """Map the request's prompt pages (prefix-tree hits are refcount
@@ -358,6 +443,13 @@ class BatchScheduler:
             # pages are all mapped already; chunking spreads the COMPUTE)
             req.prefilling = True
             req.prefill_pos = 0
+        if self.spec_depth:
+            # the request's dense draft-cache row lives while it is in
+            # flight (never blocks: _fits_paged charged it, and at a
+            # boundary nothing streams)
+            self.ledger.acquire(self._draft_cache_bytes,
+                                owner="spec_headroom",
+                                detail=f"req{req.rid}")
         return True
 
     def _reserve(self, req: Request, inflight_after: int) -> bool:
@@ -380,10 +472,18 @@ class BatchScheduler:
         """Bounce ``victim`` (paged mode) back to the queue, releasing its
         pages exactly; it re-prefills from its tokens so far on
         re-admission."""
+        idx = self.inflight.index(victim)
         self.pool.detail = f"req{victim.rid}"
         victim.table.release_all(self.pool, self._tree())
         self.pool.detail = None
-        self.inflight.remove(victim)
+        if self.spec_depth:
+            self._draft_caches = self._rows_keep(
+                self._draft_caches,
+                [i for i in range(len(self.inflight)) if i != idx])
+            self.ledger.release(self._draft_cache_bytes,
+                                owner="spec_headroom",
+                                detail=f"req{victim.rid}")
+        self.inflight.pop(idx)
         victim.admitted_round = -1
         victim.arrival_round = self.round
         victim.prefilling = False
@@ -405,8 +505,15 @@ class BatchScheduler:
         floor would not clear: an older request's progress is never
         sacrificed for a younger grower.  Returns None when ``req`` was
         the victim; otherwise always succeeds, since once ``req`` is
-        alone, ``submit`` guaranteed its worst case fits."""
-        while not self._fits_paged(1, 0) and len(self.inflight) > 1:
+        alone, ``submit`` guaranteed its worst case fits.
+
+        The floor counts the draft-cache rows of every request in flight,
+        which the ledger holds.  The reference counts none here, so a
+        speculative session whose pages grow to within those rows of the
+        budget parks its loaders on ``S_stop`` for good; the port preempts
+        instead."""
+        while (not self._fits_paged(1, 0, rows=len(self.inflight))
+               and len(self.inflight) > 1):
             victim = self.inflight[-1]
             self._preempt(victim)
             if victim is req:
@@ -418,10 +525,12 @@ class BatchScheduler:
 
     def _grow_pages(self):
         """Round boundary, before admission: map each in-flight decoder's
-        write page (the one its next token lands in), growing across page
-        boundaries and copy-on-writing a shared page before its first
-        divergent write.  The copies land on the compute stream here,
-        before the round that writes the new pages."""
+        WRITE RANGE (the page its next token lands in, or in speculative
+        mode every page the verify window [pos, pos + depth] touches),
+        growing across page boundaries and copy-on-writing shared pages
+        before their first divergent write.  The copies land on the
+        compute stream here, before the round that writes the new
+        pages."""
         if not self.inflight:
             return
         ps = self.page_size
@@ -435,27 +544,30 @@ class BatchScheduler:
                 # with the bytes a sibling wrote)
                 continue
             t = req.table
-            idx = req.pos // ps
-            while len(t.pages) <= idx:
+            lo = req.pos // ps
+            hi = (req.pos + self.spec_depth) // ps
+            while len(t.pages) <= hi:
                 pid = self._alloc_with_preemption(req)
                 if pid is None:             # req itself was the victim
                     break
                 t.pages.append(pid)
-            if req not in self.inflight or not self.pool.is_shared(
-                    t.pages[idx]):
-                continue
-            old = t.pages[idx]
-            new = self._alloc_with_preemption(req)
-            if new is None:                 # req preempted: refs already
-                continue                    # dropped by release_all
-            cow.append((req, old, new))
-            # usually the sibling keeps the old page; if the COW alloc
-            # preempted that sibling, this drop is the LAST reference and
-            # the tree node goes with it
-            tree = self._tree()
-            if self.pool.release(old) and tree is not None:
-                tree.forget(old)
-            t.pages[idx] = new
+            for idx in range(lo, hi + 1):
+                if req not in self.inflight:
+                    break
+                old = t.pages[idx]
+                if not self.pool.is_shared(old):
+                    continue
+                new = self._alloc_with_preemption(req)
+                if new is None:             # req preempted: refs already
+                    break                   # dropped by release_all
+                cow.append((req, old, new))
+                # usually the sibling keeps the old page; if the COW alloc
+                # preempted that sibling, this drop is the LAST reference
+                # and the tree node goes with it
+                tree = self._tree()
+                if self.pool.release(old) and tree is not None:
+                    tree.forget(old)
+                t.pages[idx] = new
         # drop copies whose OWNER was preempted after queuing them (its
         # freed target id may already be re-mapped by a later grower, and
         # the batched copy would write one destination twice)
@@ -578,6 +690,10 @@ class BatchScheduler:
                 self.pool.detail = f"req{req.rid}"
                 req.table.release_all(self.pool, self._tree())
                 self.pool.detail = None
+                if self.spec_depth:
+                    self.ledger.release(self._draft_cache_bytes,
+                                        owner="spec_headroom",
+                                        detail=f"req{req.rid}")
             else:
                 self.ledger.release(req.cache_bytes, owner="kv_pages",
                                     detail=f"req{req.rid}")
@@ -593,38 +709,79 @@ class BatchScheduler:
             if tr.enabled:
                 tr.instant("retire", rid=req.rid, round=self.round)
 
-    def _drop_rows(self, keep: List[int]):
-        if self._caches is None:
-            return
-        if not keep:
-            self._caches = None
-            return
+    # ---- stacked cache rows, parallel to self.inflight: the dense KV
+    # caches, and in speculative mode the draft's
+    def _rows_keep(self, stack, keep: List[int]):
+        """Keep rows ``keep`` of a stacked cache dict (leaves (R, T, ...)),
+        layer by layer in place, so each layer's old rows are freed as
+        soon as its kept rows are copied: the copy is never all layers at
+        once.  None when no row is left."""
+        if stack is None or not keep:
+            return None
         idx = torch.as_tensor(keep, dtype=torch.long,
                               device=self.engine.device)
-        # layer by layer, so each layer's old rows are freed as soon as
-        # its kept rows are copied: the copy is never all layers at once
-        for name, c in self._caches.items():
-            self._caches[name] = {k: a.index_select(0, idx)
-                                  for k, a in c.items()}
+        for name, c in stack.items():
+            stack[name] = {k: a.index_select(0, idx) for k, a in c.items()}
+        return stack
 
-    def _append_rows(self, new_caches: List[Dict[str, dict]]):
-        stacks = ([self._caches] if self._caches is not None else []) \
-            + new_caches
-        if not stacks:
-            return
-        if len(stacks) == 1:
-            self._caches = stacks[0]
-            return
-        # layer by layer, dropping each layer's old rows and prefill
-        # captures once merged: the merge holds at most one layer's cache
-        # twice, not the whole KV reservation
+    @staticmethod
+    def _rows_concat(stacks):
+        """Concatenate stacked cache dicts (None entries skipped) along the
+        row dim, layer by layer, dropping each layer's sources once merged:
+        the merge holds at most one layer's cache twice, not the whole
+        reservation."""
+        stacks = [s for s in stacks if s is not None]
+        if len(stacks) < 2:
+            return stacks[0] if stacks else None
         merged = {}
         for name in list(stacks[0]):
             merged[name] = {k: torch.cat([s[name][k] for s in stacks])
                             for k in stacks[0][name]}
             for s in stacks:
                 del s[name]
-        self._caches = merged
+        return merged
+
+    def _draft_propose(self) -> List[List[int]]:
+        tr = _tele.get_tracer()
+        if not tr.enabled:
+            return self._draft_propose_inner()
+        with tr.span("draft_propose", rows=len(self.inflight),
+                     depth=self.spec_depth):
+            return self._draft_propose_inner()
+
+    def _draft_propose_inner(self) -> List[List[int]]:
+        """One stacked draft pass over every in-flight request: catch the
+        draft cache up to the committed tokens, then chain ``spec_depth``
+        greedy proposals per row.
+
+        Rows may need different catch-up counts (1 after a partial accept,
+        2 after a full accept: the bonus token was never drafted).  The
+        batch feeds every row its last ``C = max(gap)`` committed tokens at
+        their own slots: rows with a smaller gap RE-feed tokens already in
+        their draft cache, rewriting those slots with the K/V of the same
+        token at the same position, so one stacked step serves the ragged
+        batch."""
+        reqs = self.inflight
+        c = max(len(r.tokens) - r.draft_pos for r in reqs)
+        logits = None
+        for i in range(c):
+            toks = [[r.tokens[len(r.tokens) - c + i]] for r in reqs]
+            pos = [len(r.tokens) - c + i for r in reqs]
+            logits, self._draft_caches = self.draft.decode_batch(
+                toks, self._draft_caches, pos)
+        for r in reqs:
+            r.draft_pos = len(r.tokens)
+        props: List[List[int]] = [[] for _ in reqs]
+        cur = torch.argmax(logits, -1)                          # (R,)
+        for j in range(self.spec_depth):
+            for i, t in enumerate(cur.tolist()):
+                props[i].append(t)
+            if j < self.spec_depth - 1:
+                pos = [len(r.tokens) + j for r in reqs]
+                logits, self._draft_caches = self.draft.decode_batch(
+                    cur[:, None], self._draft_caches, pos)
+                cur = torch.argmax(logits, -1)
+        return props
 
     def _first_token(self, req: Request) -> None:
         if req.generated == 0 and req.first_token_round < 0:
@@ -670,11 +827,20 @@ class BatchScheduler:
         chunkers = ([r for r in self.inflight if r.prefilling]
                     + [r for r in admitted if r.prefilling])
         pre_admits = [r for r in admitted if not r.prefilling]
-        # ---- the decode batch: stacked last tokens, ragged device pos
-        dec_x = dec_pos = None
+        # ---- the decode batch: stacked last tokens, ragged device pos;
+        # speculative mode widens each row to its verify window [last
+        # committed token, draft proposals...]
+        dec_x = dec_pos = props = None
         if decoders:
-            dec_x = fns["embed"](emb, eng.tokens([[r.tokens[-1]]
-                                                  for r in decoders]))
+            if self.spec_depth:
+                # spec mode never chunks (the constructor enforces it), so
+                # the decode rows stay parallel to self.inflight
+                props = self._draft_propose()
+                rows = [[r.tokens[-1]] + props[i]
+                        for i, r in enumerate(decoders)]
+            else:
+                rows = [[r.tokens[-1]] for r in decoders]
+            dec_x = fns["embed"](emb, eng.tokens(rows))
             dec_pos = eng.tokens([r.pos for r in decoders])
         # ---- the chunk batch: row i feeds C tokens at [start, start + C);
         # the FINAL chunk slides back to [L - C, L), re-feeding tokens
@@ -724,10 +890,37 @@ class BatchScheduler:
                     prefill_xs=pre_xs, prefill_total=self.max_total_len)
             self._caches = caches
 
-        # ---- heads: one greedy token per request this round (the token
-        # readbacks are the round's host round trips)
+        # ---- heads: one greedy token per request this round, or in
+        # speculative mode the accepted proposal prefix plus the target's
+        # bonus token (the token readbacks are the round's host round
+        # trips)
         head = eng._resident["head"]
-        if dec_x is not None:
+        if dec_x is not None and self.spec_depth:
+            greedy = torch.argmax(fns["head_all"](head, dec_x),
+                                  -1).tolist()                 # (R, W)
+            self._spec_rounds += 1
+            for row, req in enumerate(decoders):
+                prop = props[row]
+                a = 0
+                while a < len(prop) and prop[a] == greedy[row][a]:
+                    a += 1
+                # accepted prefix + the target's token after it, clamped to
+                # the request's remaining allowance (any prefix of it is
+                # the exact greedy continuation)
+                remaining = req.max_new_tokens - req.generated
+                commit = (prop[:a] + [greedy[row][a]])[:remaining]
+                old_len = len(req.tokens)
+                req.tokens.extend(commit)
+                req.generated += len(commit)
+                # draft slots old_len..old_len+depth-2 hold the proposals'
+                # K/V; they stay valid while the proposal matched
+                req.draft_pos = old_len + max(
+                    0, min(a, self.spec_depth - 1, len(commit)))
+                # count only proposals that could commit: near
+                # max_new_tokens the window's tail is clamped away
+                self._draft_tokens += min(len(prop), remaining)
+                self._accepted_tokens += min(a, remaining)
+        elif dec_x is not None:
             nxt = torch.argmax(fns["head"](head, dec_x), -1).tolist()
             for row, req in enumerate(decoders):
                 req.tokens.append(int(nxt[row]))
@@ -750,10 +943,21 @@ class BatchScheduler:
             self._first_token(req)
             req.tokens.append(int(torch.argmax(logits, -1)[0]))
             req.generated += 1           # re-prefills resume, not reset
+        if self.spec_depth and admitted:
+            # seed each admission's draft-cache row from its own prompt
+            # prefill (the generated first token is caught up next round)
+            rows = []
+            for req in admitted:
+                _, dc = self.draft.prefill([req.tokens[:-1]],
+                                           self._draft_total)
+                req.draft_pos = len(req.tokens) - 1
+                rows.append(dc)
+            self._draft_caches = self._rows_concat(
+                [self._draft_caches] + rows)
 
         # ---- merge admissions, then retire finishers
         if not self.page_size:
-            self._append_rows(pre_caches)
+            self._caches = self._rows_concat([self._caches] + pre_caches)
         self.inflight.extend(admitted)
         self._max_seen = max(self._max_seen, len(self.inflight))
         finished = [r for r in self.inflight if r.done]
@@ -761,7 +965,10 @@ class BatchScheduler:
             keep = [i for i, r in enumerate(self.inflight) if not r.done]
             self.inflight = [self.inflight[i] for i in keep]
             if not self.page_size:       # paged rows live in the pool
-                self._drop_rows(keep)
+                self._caches = self._rows_keep(self._caches, keep)
+            elif self.spec_depth:
+                self._draft_caches = self._rows_keep(self._draft_caches,
+                                                     keep)
             self._retire(finished)
         self.round += 1
         return bool(self.inflight or self.queue)
@@ -787,6 +994,12 @@ class BatchScheduler:
                 cow_copies=self.pool.stats.cow_copies,
                 preemptions=self.preemptions,
                 pool_pages_peak=self.pool.mapped_peak)
+        spec_kw = {}
+        if self.spec_depth:
+            spec_kw = dict(spec_depth=self.spec_depth,
+                           spec_rounds=self._spec_rounds,
+                           draft_tokens=self._draft_tokens,
+                           accepted_tokens=self._accepted_tokens)
         # paged mode: the pool records the true mapped high-water on every
         # alloc (a boundary sample would miss pages a preemption freed)
         cache_peak = (self.pool.mapped_peak_bytes if self.page_size
@@ -794,8 +1007,10 @@ class BatchScheduler:
         faults = _tele.counter_values("prefetch.retries",
                                       "prefetch.faults_absorbed")
         # every request retired: the request-scoped tiers must have
-        # drained exactly (audit mode raises naming the leaking owner)
-        self.ledger.audit_check_drained("stream", "kv_pages")
+        # drained exactly (audit mode raises naming the leaking owner; the
+        # pinned window and draft stay resident for the session)
+        self.ledger.audit_check_drained("stream", "kv_pages",
+                                        "spec_headroom")
         stats = ServeStats(
             rounds=self.round, latency_s=lat, peak_bytes=self.ledger.peak,
             loads=sum(1 for e in self.events if e[1] == "load_end"),
@@ -803,7 +1018,7 @@ class BatchScheduler:
             new_tokens=sum(r.generated for r in self.done.values()),
             requests=len(self.done), max_inflight_seen=self._max_seen,
             cache_bytes_peak=cache_peak, events=self.events,
-            seed=self.seed, **paged_kw, chunk_size=self.chunk,
+            seed=self.seed, **paged_kw, **spec_kw, chunk_size=self.chunk,
             chunk_jobs=self._chunk_jobs,
             retries=faults[0] - self._fault_base[0],
             faults_absorbed=faults[1] - self._fault_base[1],
@@ -826,6 +1041,8 @@ class BatchScheduler:
         m.gauge("serve.cache_peak_bytes").set(stats.cache_bytes_peak)
         for owner, nbytes in stats.peak_breakdown.items():
             m.gauge(f"ledger.peak.{owner}_bytes").set(nbytes)
+        if stats.draft_tokens:
+            m.gauge("serve.acceptance_rate").set(stats.acceptance_rate)
         if stats.page_size:
             m.gauge("serve.prefix_hit_pages").set(stats.prefix_hit_pages)
 
@@ -864,9 +1081,10 @@ class BatchScheduler:
         """Run the serving modules once at every serving shape (the prefill
         per distinct prompt length; the stacked decode, paged or dense, and
         in chunked mode the chunk window, at every batch size up to
-        ``max_inflight``) so kernels are built and the allocator is warm
-        before the timed loop.  Paged shapes run against a scratch pool,
-        never the serving one."""
+        ``max_inflight``; in speculative mode the verify window and the
+        draft's prefill and stacked decode) so kernels are built and the
+        allocator is warm before the timed loop.  Paged shapes run against
+        a scratch pool, never the serving one."""
         eng = self.engine
         fns = eng.fns
         emb = eng._resident.get("embed") or eng._load("embed")
@@ -880,20 +1098,44 @@ class BatchScheduler:
             px, _ = fns["layer_cache"](w0, fns["embed"](emb, zeros(1, s)), T)
             fns["head"](head, px)
         if self.page_size:
-            # the warm-up tables point every slot at page 0
+            # the warm-up tables point every slot at page 0; speculative
+            # serving decodes only through W-wide verify windows, so it
+            # runs those shapes instead, and the draft's own
             pool1 = self._pool_like(1)
+            w = self.spec_depth + 1
             for r in range(1, self.max_inflight + 1):
                 tbr = torch.zeros((r, self._nb), dtype=torch.int32,
                                   device=eng.device)
-                dr, _ = fns["layer_decode_paged"](
-                    w0, fns["embed"](emb, zeros(r, 1)), pool1, tbr, zeros(r))
-                fns["head"](head, dr)
+                if self.spec_depth:
+                    dr, _ = fns["layer_verify_paged"](
+                        w0, fns["embed"](emb, zeros(r, w)), pool1, tbr,
+                        zeros(r))
+                    fns["head_all"](head, dr)
+                else:
+                    dr, _ = fns["layer_decode_paged"](
+                        w0, fns["embed"](emb, zeros(r, 1)), pool1, tbr,
+                        zeros(r))
+                    fns["head"](head, dr)
                 if self.chunk:
                     dc, _ = fns["layer_verify_paged"](
                         w0, fns["embed"](emb, zeros(r, self.chunk)), pool1,
                         tbr, zeros(r))
                     fns["head"](head, dc)
             del pool1
+            if self.spec_depth:
+                for s in sorted(set(int(p) for p in prompt_lens)):
+                    self.draft.prefill(zeros(1, s), self._draft_total)
+                # the stacked draft step at every row count on ONE stack of
+                # cache rows, regrown leaf by leaf: no two stacks are alive
+                # at once beside the pinned draft and layer 0
+                _, dcr = self.draft.prefill(zeros(1, 1), self._draft_total)
+                for r in range(1, self.max_inflight + 1):
+                    for c in dcr.values():
+                        for k, a in c.items():
+                            if a.shape[0] != r:
+                                c[k] = a.new_zeros((r,) + a.shape[1:])
+                    self.draft.decode_batch(zeros(r, 1), dcr, zeros(r))
+                del dcr
         else:
             _, c1 = fns["layer_cache"](w0, fns["embed"](emb, zeros(1, 1)), T)
             for r in range(1, self.max_inflight + 1):

@@ -29,12 +29,23 @@ prompt's pages once across the fleet (``--no-prefix-cache`` turns the
 sharing off).  ``--chunk-prefill C`` (needs ``--page-size``) splits
 prompts longer than C into page-aligned chunks joined into decode rounds.
 
+``--draft-arch`` turns on SPECULATIVE serving (needs ``--page-size``): a
+small draft model, pinned whole on the device under the budget like the
+pin window, proposes ``--spec-depth`` tokens per request per round; the
+target scores each request's whole window in ONE stacked verify round
+over the paged block tables, and the accepted prefix plus the target's
+bonus token commit together, so a round advances each request by up to
+``depth + 1`` tokens for one weight stream.  The draft must share the
+target's vocabulary; greedy outputs are the non-speculative ones.
+``--spec-depth 0`` (the default with a draft) lets the planner search the
+depth jointly with the rest of the schedule.
+
 Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
 profile is cached as ``profile_torch_<device>.json``.  The flags of
-slices not yet ported (speculation, the SLO tier, trace replay) exit with
-a "not yet ported in repro_torch" error.
+slices not yet ported (the SLO tier, trace replay) exit with a "not yet
+ported in repro_torch" error.
 """
 from __future__ import annotations
 
@@ -53,6 +64,8 @@ from repro_torch.checkpoint import partition_and_save
 from repro_torch.configs import get, names
 from repro_torch.core import BatchScheduler, Hermes
 from repro_torch.core import telemetry as tele
+from repro_torch.core.engine import DraftModel
+from repro_torch.core.hermes import spec_plan_kw
 from repro_torch.models.dense_lm import init_params
 
 CKPT_ROOT = Path(tempfile.gettempdir()) / "repro_torch_ckpts"
@@ -103,7 +116,8 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         shared_prefix: int = 0, chunk_prefill: int = 0,
         trace_out: str | None = None, metrics_out: str | None = None,
         device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto",
-        autotune: bool = False):
+        autotune: bool = False, draft_arch: str | None = None,
+        spec_depth: int = 0):
     """Serve ``requests`` seeded prompts; returns ``(outs, stats)``.
     ``arch`` is a registered name (cut by ``reduced``) or a model config
     served as given, e.g. one whose depth a caller cut; its checkpoint
@@ -112,6 +126,10 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")
+    if chunk_prefill and draft_arch:
+        raise SystemExit("error: --chunk-prefill is incompatible with "
+                         "--draft-arch (speculative rounds own the verify "
+                         "window)")
     tele.metrics().reset()
     if trace_out:
         tele.enable()
@@ -123,6 +141,26 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         cfg = arch
     ckpt = ensure_checkpoint(cfg, root=ckpt_root)
     hermes = Hermes(ckpt, cfg, device=device)
+    draft = None
+    if draft_arch:
+        if not page_size:
+            raise SystemExit("error: --draft-arch needs --page-size (the "
+                             "verify window rides the paged KV block "
+                             "tables)")
+        if not kv_cache:
+            raise SystemExit("error: --draft-arch needs the KV-cache "
+                             "scheduler; drop --no-kv-cache")
+        dcfg = get(draft_arch)
+        if reduced:
+            dcfg = dcfg.reduced()       # 2 layers: a genuinely small draft
+        dcfg = dcfg.with_(name=dcfg.name + "-draft")
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"error: draft vocab ({dcfg.vocab_size}) must match the "
+                f"target's ({cfg.vocab_size}): proposals are target token "
+                f"ids")
+        draft = DraftModel(ensure_checkpoint(dcfg, root=ckpt_root), dcfg,
+                           attn_impl=attn_impl, device=device)
     # fixed dtype = a one-entry search; "auto" lets the planner pick the
     # shard precision jointly with the schedule
     quants = ("fp32", "int8", "int4") if quant == "auto" else (quant,)
@@ -162,6 +200,8 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         outs = {i: row for i, row in enumerate(out.cpu().numpy())}
         return outs, stats
 
+    spec_kw = {} if draft is None else spec_plan_kw(draft, spec_depth,
+                                                    total_len)
     g = hermes.plan_generate([budget], prompt_len=prompt_len,
                              new_tokens=new_tokens,
                              max_inflight=max_inflight,
@@ -171,7 +211,7 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
                              # the plan must not assume hits
                              shared_prefix_len=(shared_prefix
                                                 if prefix_cache else 0),
-                             chunk_prefill=chunk_prefill)[0]
+                             chunk_prefill=chunk_prefill, **spec_kw)[0]
     if not g.feasible:
         raise SystemExit(
             f"error: no feasible serving schedule for budget="
@@ -195,12 +235,16 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     hermes = hermes.quantized(g.dtype)
     agents = num_agents or g.num_agents
     pin = g.pin_window if pin_window is None else pin_window
+    # an explicit --spec-depth pins the verify depth; 0 defers to the
+    # planner's joint pick (which may conclude speculation does not pay)
+    depth = (spec_depth or g.spec_depth) if draft is not None else 0
     print(f"planner(serve): budget={budget_mb}MB -> {agents} agents, "
           f"pin={pin}, inflight={g.inflight}, dtype={g.dtype}, predicted "
           f"{g.predicted_throughput_tps:.1f} tok/s aggregate, peak "
           f"{g.predicted_peak_bytes/2**20:.0f}MB "
           f"(cache {g.cache_bytes/2**20:.1f}MB"
           + (f", page size {g.page_size}" if g.page_size else "")
+          + (f", spec depth {depth}" if depth else "")
           + (f", chunk {chunk_prefill}" if chunk_prefill else "") + ")")
     eng = hermes.engine(mode="pipeload", budget_bytes=budget,
                         num_agents=agents, pin_window=pin,
@@ -208,6 +252,8 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     sched = BatchScheduler(eng, max_inflight=g.inflight,
                            max_total_len=total_len,
                            prefix_cache=prefix_cache, seed=seed,
+                           draft=(draft if depth else None),
+                           spec_depth=depth,
                            chunk_prefill=(chunk_prefill if g.page_size
                                           else 0))
     try:
@@ -252,6 +298,12 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         rows["chunk_prefill"] = (f"{stats.chunk_size}-token chunks, "
                                  f"{stats.chunk_jobs} jobs joined into "
                                  "decode rounds")
+    if stats.spec_depth:
+        rows["spec_depth"] = stats.spec_depth
+        rows["spec_accepted"] = (f"{stats.accepted_tokens}/"
+                                 f"{stats.draft_tokens} "
+                                 f"({stats.acceptance_rate:.0%}) over "
+                                 f"{stats.spec_rounds} verify rounds")
     print(tele.summary_table(rows, title="serve summary"))
     print(format_peak_breakdown(peak_breakdown_report(stats)))
     print(format_drift(drift_report(g, stats)))
@@ -297,10 +349,13 @@ def main(argv=None):
                     "page sharing")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="first N prompt tokens identical across requests")
-    ap.add_argument("--draft-arch", default=None,
-                    help="speculative serving (not yet ported)")
+    ap.add_argument("--draft-arch", default=None, choices=names(),
+                    type=lambda a: a.replace("-", "_").replace(".", "_"),
+                    help="speculative serving: draft architecture (needs "
+                    "--page-size; must share the target's vocabulary)")
     ap.add_argument("--spec-depth", type=int, default=0,
-                    help="speculative depth (not yet ported)")
+                    help="draft tokens per verify round (0 = planner "
+                    "searches {1, 2, 4})")
     ap.add_argument("--autotune", action="store_true",
                     help="tune the kernels' tiles / paged route for the "
                     "planned dtype and page size (cached per device)")
@@ -325,9 +380,7 @@ def main(argv=None):
                     help="write the end-of-run metrics-registry snapshot")
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    unported = [("--draft-arch", args.draft_arch),
-                ("--spec-depth", args.spec_depth),
-                ("--trace", args.trace),
+    unported = [("--trace", args.trace),
                 ("--tenants", args.tenants),
                 ("--slo-ttft-ms", args.slo_ttft_ms),
                 ("--slo-tpot-ms", args.slo_tpot_ms),
@@ -344,7 +397,8 @@ def main(argv=None):
         prefix_cache=not args.no_prefix_cache,
         shared_prefix=args.shared_prefix, chunk_prefill=args.chunk_prefill,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
-        device=args.device, autotune=args.autotune)
+        device=args.device, autotune=args.autotune,
+        draft_arch=args.draft_arch, spec_depth=args.spec_depth)
 
 
 if __name__ == "__main__":

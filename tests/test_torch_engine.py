@@ -12,6 +12,7 @@ from repro.core import PipeloadEngine as JaxEngine
 from repro.models.dense_lm import init_params as jax_init
 from repro_torch.configs import get as torch_get
 from repro_torch.core import PipeloadEngine, engine as torch_engine
+from repro_torch.core.engine import SpecConfig
 
 GEOM = dict(num_layers=4, d_model=128, n_heads=4, n_kv_heads=4,
             head_dim=32, d_ff=512, vocab_size=1000, vocab_pad_to=8)
@@ -116,13 +117,49 @@ def test_cuda_requested_without_card_raises(ckpt):
 
 
 def test_unported_options_raise(ckpt, toks):
-    """Paged KV is ported; speculative decoding and the stacked verify
-    decode round it needs still raise."""
+    """Paged KV and speculative decoding are ported: the single-request
+    speculative path rejects a batch of 2, and a stacked W=2 verify round
+    without paged pools raises, with the reference's ValueErrors."""
     _, tcfg, path = ckpt
     with PipeloadEngine(path, tcfg, page_size=4, device="cpu") as te:
         assert te.page_size == 4
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            te.run_generate(toks, 3, speculative=object())
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="single-request path"):
+            te.run_generate(toks, 3, speculative=SpecConfig(path, tcfg))
+        with pytest.raises(ValueError, match="needs paged pools"):
             te.run_batch_round(None, [], 0.0,
                                decode_x=torch.zeros((1, 2, 128)))
+
+
+@pytest.mark.parametrize("config, nbytes", [
+    (":4096:8", 32 * 2**20),
+    (":4096:2:16:8", (4096 * 2 + 16 * 8) * 1024),
+])
+def test_blas_workspace_bytes(monkeypatch, config, nbytes):
+    """The cuBLAS workspace PyTorch keeps beside the ledger: nothing on the
+    CPU; on the card PyTorch's own size, or its CUBLAS_WORKSPACE_CONFIG
+    rule where it does not report one."""
+    assert torch_engine.blas_workspace_bytes(torch.device("cpu")) == 0
+    monkeypatch.delattr(torch._C, "_cuda_getCublasWorkspaceSize",
+                        raising=False)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", config)
+    assert torch_engine.blas_workspace_bytes(torch.device("cuda")) == nbytes
+
+
+def test_facade_plans_within_the_ledger_budget(ckpt, monkeypatch):
+    """Hermes gives the planner and the engine the device budget less the
+    BLAS workspace: equal on the CPU, 32 MiB less where cuBLAS keeps 32
+    MiB."""
+    from repro_torch.core import Hermes
+    from repro_torch.core import hermes as hermes_mod
+    _, tcfg, path = ckpt
+    hermes = Hermes(path, tcfg, device="cpu")
+    budget = 8 * 2**20
+    assert hermes.ledger_budget(budget) == budget
+    assert hermes.ledger_budget(None) is None
+    assert hermes.plan_generate([budget])[0].budget_bytes == budget
+    monkeypatch.setattr(hermes_mod, "blas_workspace_bytes",
+                        lambda device: 2**20)
+    assert hermes.ledger_budget(budget) == budget - 2**20
+    assert hermes.plan_generate([budget])[0].budget_bytes == budget - 2**20
+    with hermes.engine(budget_bytes=budget, num_agents=1) as eng:
+        assert eng.budget == budget - 2**20

@@ -258,7 +258,9 @@ def test_cuda_paged_decode_matches_plain(cuda, b, kv, g, dh, page, nb,
     (1, 64, 16, 1, 64, 16, 10, [128]),
     (2, 1, 4, 8, 128, 16, 8, [77, 128]),
     (3, 3, 2, 2, 32, 5, 9, [3, 44, 45]),
-    (2, 70, 2, 2, 64, 1, 90, [70, 90])])
+    (2, 70, 2, 2, 64, 1, 90, [70, 90]),
+    # a speculative serving round at depth 4: W = 5 per row
+    (4, 5, 16, 1, 64, 16, 11, [133, 140, 152, 164])])
 def test_cuda_paged_verify_matches_plain(cuda, b, w, kv, g, dh, page, nb,
                                          lengths):
     args = _cuda_paged(cuda, page * nb + w, b, w, kv, g, dh, page, nb,

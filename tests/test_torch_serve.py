@@ -19,6 +19,7 @@ from repro.launch.serve import poisson_arrivals as jax_arrivals
 from repro.models.dense_lm import init_params as jax_init
 from repro_torch.configs import get as torch_get
 from repro_torch.core import BatchScheduler, Hermes, PipeloadEngine
+from repro_torch.core.engine import DraftModel
 from repro_torch.launch import serve
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -107,13 +108,22 @@ def test_hermes_scheduler_facade(ckpt, tmp_path):
 
 
 def test_scheduler_rejects_unported_modes(ckpt):
-    """Paged KV and chunked prefill are ported; speculation and the SLO
-    tier still raise, and submit takes no SLO keywords (priorities,
-    tenants)."""
+    """Paged KV, chunked prefill and speculation are ported: a draft
+    without a page size raises "needs paged KV", and a spec_depth without
+    a draft serves without speculation.  The SLO tier still raises, and
+    submit takes no SLO keywords (priorities, tenants)."""
     _, tcfg, path = ckpt
     eng = PipeloadEngine(path, tcfg, device="cpu")
-    for kw in (dict(draft=object()), dict(spec_depth=2),
-               dict(slo=object())):
+    with pytest.raises(ValueError, match="needs paged KV"):
+        BatchScheduler(eng, draft=DraftModel(path, tcfg, device="cpu"),
+                       spec_depth=2)
+    assert BatchScheduler(eng, spec_depth=2).spec_depth == 0
+    spec = BatchScheduler(eng, page_size=4, spec_depth=2,
+                          draft=DraftModel(path, tcfg, device="cpu"))
+    assert spec.spec_depth == 2 and spec._nb == 33    # (128 + 2) / 4
+    spec.close()
+    eng = PipeloadEngine(path, tcfg, device="cpu")
+    for kw in (dict(slo=object()),):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BatchScheduler(eng, **kw)
     sched = BatchScheduler(eng, page_size=4, chunk_prefill=8)
@@ -138,8 +148,8 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--slo-ttft-ms", "100"],
-                                   ["--spec-depth", "2"],
-                                   ["--draft-arch", "gpt2_base"],
+                                   ["--slo-tpot-ms", "50"],
+                                   ["--trace", "trace.json"],
                                    ["--tenants", "2"]])
 def test_serve_cli_unported_flags_exit(flags, capsys):
     with pytest.raises(SystemExit, match="not yet ported in repro_torch"):
