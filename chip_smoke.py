@@ -43,20 +43,21 @@ Phases, in order; any failure exits non-zero:
    multiplies fp32 inputs.
 3. The dense path at full width: a full-size gpt2_base checkpoint (24
    layers, d=1024, fp32, random weights from a numpy seed) served through
-   ``repro_torch.launch.serve.run`` — 8 requests, 128-token prompts, 32 new
-   tokens, up to 4 in flight, under a budget below the model's size so
+   ``repro_torch.launch.serve.run`` — the first wave of 4 requests,
+   128-token prompts, 32 new tokens, 4 in flight, under a budget below
+   the model's size so
    layers stream and are destroyed.  The profile is measured anew.  The
    serving loop must launch flash_decode exactly once per layer per
    decode round and flash_attention once per layer per admitted request's
    prefill.
-4. Phase 3's first 4 requests through the plain versions
+4. Phase 3's 4 requests through the plain versions
    (``attn_impl=None``): the greedy tokens must equal phase 3's, unless
    the first differing step is a tie (top-2 logit gap below 1e-4).
 5. The paged path: the same requests with their first 96 prompt tokens
    shared, ``page_size=16``.  The planner must pick page size 16, the
    prefix tree must hit, and the serving loop must launch
    paged_flash_decode exactly once per layer per decode round.
-6. Phase 5's first 4 requests through the plain versions; tokens as in
+6. Phase 5's 4 requests through the plain versions; tokens as in
    phase 4.
 7. The chunked-prefill path: the first 4 of phase 5's requests, 16 new
    tokens, ``chunk_prefill=64``.  Chunk jobs must run, flash_attention
@@ -117,6 +118,25 @@ Phases, in order; any failure exits non-zero:
    every rejected proposal sits at a tie of the model's top-2 logits
    (each printed), and fewer verify rounds than the plain run's decode
    rounds.  Both walls are printed; no speed-up is claimed.
+15. The SLO multi-tenant tier: phase 3's checkpoint through
+   ``serve.run(tenants=2, requests=12, prompt_len=192, new_tokens=16,
+   shared_prefix=32, arrival_rate=0.5, page_size=16, chunk_prefill=64,
+   max_inflight=4)`` under 900 MiB with ``slo_ttft_ms`` 4.5 rounds of the
+   plan's predicted round latency and shedding on (``SLO_PATH``).  It
+   must serve page size 16 with 64-token chunks, preempt a request in a
+   round in which a higher class is admitted, shed one request and let
+   one meet its TTFT target, hit a tenant's prefix, and keep the tenants
+   apart at every round boundary (no page mapped by two tenants' requests
+   or held by two tenants' prefix trees).  The same trace then goes
+   through the plain versions on the kernel run's schedule (agents, pin,
+   in-flight count, page size, chunk and ``SLO``, fixed through
+   ``Hermes.engine`` and ``BatchScheduler``): the same policy sequence,
+   and the same tokens for every request not shed (tie rule).  The
+   serving loop must launch paged_flash_verify once per layer per round
+   with a chunker, paged_flash_decode once per layer per decode round and
+   flash_attention once per layer per monolithic prefill, as derived from
+   the policy log and the prompt lengths; the ledger peak must stay within
+   the budget less cuBLAS's workspace.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -150,7 +170,8 @@ weighted by the serving loops' launches at each; streamed_matmul at the
 autotune shape and the tile the sweep chose).  paged_flash_verify's
 launches add the chunked and the speculative phases'; every attention
 kernel also reports phase 13's launches (``spec_launches``,
-``spec_serve_launches``).
+``spec_serve_launches``) and phase 15's (``slo_launches``,
+``slo_serve_launches``).  Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
 with its times) and prints no result line.
@@ -224,6 +245,19 @@ VIT = dict(batch=2, seq=197, budget_mb=300, agents=2)
 SPEC_W = 5
 SPEC = dict(requests=4, draft_layers=2, budget_mb=1450, acceptance=1.0)
 SELF = dict(layers=4, budget_mb=1150, new_tokens=32, schedule=(1, 0))
+# phase 15, the SLO tier on phase 3's checkpoint and budget: two tenants'
+# 12 requests from a seeded trace (Poisson arrivals at 0.5 per round,
+# lognormal prompts of mean 96 clipped to [4, 192], geometric outputs of
+# mean 8 up to 16, priority classes 0-2, a 32-token system prompt per
+# tenant reused by 60% of its requests), paged at 16 with 64-token chunks,
+# at most 4 in flight, a TTFT target of 4.5 rounds of the plan's round
+# latency (4 rounds) with shedding.  Trace seed 2: served at tiny width on
+# the CPU at 2, 3 and 4 in flight, it preempts for a higher class, sheds,
+# meets the target and hits each tenant's prefix
+SLO_PATH = dict(tenants=2, requests=12, prompt_len=192, new_tokens=16,
+                shared_prefix=32, arrival_rate=0.5, page_size=16,
+                chunk_prefill=64, max_inflight=4, seed=2)
+SLO_TTFT_ROUNDS = 4
 DRAFT_STEPS = [0]                # DraftModel.decode_batch calls
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
@@ -555,6 +589,16 @@ def paged_cases(torch, ref, gen):
         paged_case(torch, ref, gen, "main path spec round B=4 W=5 KV=16 "
                    "G=1 dh=64 page=16 NB=11, 6 shared pages", 4, SPEC_W,
                    nb=11, lengths=[133, 144, 152, 164], **main),
+        # the SLO phase's shapes: tables of pages_for(208, 16) = 13
+        # entries, two tenants' 2-page system prompts, prompts up to 192;
+        # a decode batch of 4 and a chunk round of 3 windows
+        paged_case(torch, ref, gen, "slo path B=4 KV=16 G=1 dh=64 page=16 "
+                   "NB=13, 2 shared pages", 4, None, nb=13,
+                   lengths=[97, 150, 181, 207], **dict(main, shared=2)),
+        paged_case(torch, ref, gen, "slo path chunk round B=3 W=64 KV=16 "
+                   "G=1 dh=64 page=16 NB=13, 2 shared pages", 3, 64, nb=13,
+                   lengths=[64, 128, 192], mapped=12,
+                   **dict(main, shared=2)),
         paged_case(torch, ref, gen, "B=1 W=64 KV=16 G=1 dh=64 page=16 NB=10",
                    1, 64, 16, 1, 64, 16, 10, [128]),
         paged_case(torch, ref, gen, "W=1 B=4 KV=16 G=1 dh=64 page=16 NB=10",
@@ -1112,12 +1156,14 @@ def phase_main(torch, ops):
     # profile anew on every run, so the schedule and the launch counts do
     # not depend on an earlier run; the later phases reuse it
     (CKPT_ROOT / cfg.name / "profile_torch_cuda.json").unlink(missing_ok=True)
-    outs, stats, launches = run_path(torch, ops, cfg, "dense", "auto")
+    # the first wave of 4 requests: the script's time limit is shared by
+    # every path
+    outs, stats, launches = run_path(torch, ops, cfg, "dense", "auto",
+                                     requests=MAIN["max_inflight"])
     if not (launches["flash_decode"] and launches["flash_attention"]):
         fail(f"a kernel of the dense path never launched: {launches}")
     if launches["quantized_matmul"]:
         fail(f"fp32 shards launched quantized_matmul: {launches}")
-    # the first wave only: the script's time limit is shared by every path
     outs_plain, _, _ = run_path(torch, ops, cfg, "dense", None,
                                 requests=MAIN["max_inflight"])
     same_tokens(torch, cfg, outs, outs_plain, "dense kernel vs plain "
@@ -1127,8 +1173,10 @@ def phase_main(torch, ops):
 
 def phase_paged(torch, ops, cfg, dense_stats):
     """Phases 5-6: paged KV with prefix sharing, kernels then plain."""
+    # the first wave only, as in the dense phase
     outs, stats, launches = run_path(torch, ops, cfg, "paged", "auto",
-                                     **PAGED)
+                                     **dict(PAGED,
+                                            requests=MAIN["max_inflight"]))
     if stats.page_size != PAGED["page_size"]:
         fail(f"paged: the planner served page size {stats.page_size} at "
              f"{BUDGET_MB} MiB, not {PAGED['page_size']}")
@@ -1143,7 +1191,6 @@ def phase_paged(torch, ops, cfg, dense_stats):
           f"{stats.pool_pages_peak} pages; kv_pages at the ledger peak "
           f"{stats.peak_breakdown.get('kv_pages', 0)} B (dense phase "
           f"{dense_stats.peak_breakdown.get('kv_pages', 0)} B)", flush=True)
-    # the first wave only, as in the dense phase
     outs_plain, _, _ = run_path(torch, ops, cfg, "paged", None,
                                 **dict(PAGED, requests=MAIN["max_inflight"]))
     same_tokens(torch, cfg, outs, outs_plain, "paged kernel vs plain "
@@ -1664,6 +1711,245 @@ def phase_self_draft(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the SLO multi-tenant serving tier
+# ---------------------------------------------------------------------------
+def tenant_isolation(sched, admitted) -> None:
+    """Fail unless, at this round boundary, no physical page is mapped by
+    requests of two tenants and no page is indexed by two tenants' prefix
+    trees (nor by one tenant's tree while another tenant maps it)."""
+    owner = {}
+    for r in sched.inflight + admitted:
+        for pid in r.table.pages:
+            if owner.setdefault(pid, r.tenant) != r.tenant:
+                fail(f"slo: page {pid} mapped by tenants {owner[pid]} and "
+                     f"{r.tenant} at round {sched.round}")
+    held = {}
+    for tenant in (sched.tree.tenants if sched.tree is not None else []):
+        for pid in sched.tree.tree(tenant)._where:
+            if held.setdefault(pid, tenant) != tenant:
+                fail(f"slo: page {pid} in the prefix trees of {held[pid]} "
+                     f"and {tenant} at round {sched.round}")
+            if owner.get(pid, tenant) != tenant:
+                fail(f"slo: page {pid} of {tenant}'s prefix tree mapped by "
+                     f"{owner[pid]} at round {sched.round}")
+
+
+def slo_serve_rounds(policy, lengths: dict, chunk: int):
+    """(decode rounds, chunk rounds, monolithic prefills) of an SLO serving
+    loop, from its policy log and each request's prompt length: an
+    admission of L tokens (its prompt and the tokens it generated before a
+    preemption) feeds ceil(L / C) chunk rounds from its admission round
+    when L > C, else one monolithic prefill in that round, and either way
+    samples a token in the last of them; it then decodes one token per
+    round through its retirement round, or until the boundary that
+    preempts it (a preemption mid-chunk ends the chunk rounds there)."""
+    decode, chunks, prefills = set(), set(), 0
+    gen = dict.fromkeys(lengths, 0)
+    live = {}                     # rid -> (admission round, chunk rounds)
+    for kind, rid, r, _ in policy:
+        if kind == "admit":
+            n = lengths[rid] + gen[rid]
+            k = -(-n // chunk) if chunk and n > chunk else 0
+            prefills += not k
+            live[rid] = (r, k)
+            continue
+        if kind not in ("preempt", "retire"):
+            continue
+        a, k = live.pop(rid)
+        end = r if kind == "preempt" else r + 1   # rounds it took part in
+        chunks.update(range(a, min(a + k, end)))
+        first = a + max(k, 1)                     # its first decode round
+        if first - 1 < end:                       # its first token landed
+            gen[rid] += 1 + max(0, end - first)
+            decode.update(range(first, end))
+    return decode, chunks, prefills
+
+
+def phase_slo(torch, ops, cfg):
+    """Phase 15: the SLO multi-tenant tier through ``serve.run`` on phase
+    3's checkpoint, then the same trace through the plain versions on the
+    kernel run's schedule fixed through ``Hermes.engine`` and
+    ``BatchScheduler``.  Checks: a priority preemption in the round a
+    higher class is admitted, a shed request and one that meets its TTFT
+    target; tenant isolation at every round boundary of both runs, prefix
+    hits within a tenant; the same policy sequence and the same tokens
+    (tie rule) from the plain partner; the serving loop's launches exact;
+    the ledger peak within the budget less cuBLAS's workspace and the
+    allocator peak within the budget plus the pool's bytes."""
+    from repro_torch.core import BatchScheduler, Hermes
+    from repro_torch.core.engine import blas_workspace_bytes
+    from repro_torch.launch import serve as serve_mod
+    budget = int(BUDGET_MB * 2**20)
+    path = SLO_PATH
+    hermes = Hermes(ckpt_dir(cfg), cfg, device="cuda")
+    total = path["prompt_len"] + path["new_tokens"]
+    g = hermes.plan_generate(
+        [budget], prompt_len=path["prompt_len"], new_tokens=path["new_tokens"],
+        max_inflight=path["max_inflight"], page_sizes=(path["page_size"],),
+        shared_prefix_len=path["shared_prefix"],
+        chunk_prefill=path["chunk_prefill"])[0]
+    rl = g.predicted_per_token_s
+    ttft_ms = (SLO_TTFT_ROUNDS + 0.5) * rl * 1e3
+    print(f"slo: the plan's predicted round latency {rl * 1e3:.3f} ms "
+          f"({g.num_agents} agents, pin {g.pin_window}, inflight "
+          f"{g.inflight}, page size {g.page_size}); --slo-ttft-ms "
+          f"{ttft_ms:.3f} = {SLO_TTFT_ROUNDS + 0.5} rounds of it, shed on; "
+          f"trace seed {path['seed']}", flush=True)
+    seen = {"sched": None, "boundaries": 0, "trace": None}
+    admit, submit_trace = BatchScheduler._admit, serve_mod.submit_trace
+
+    def checked_admit(self):
+        admitted = admit(self)
+        if seen["sched"] is None:
+            seen["sched"] = self
+        tenant_isolation(self, admitted)
+        seen["boundaries"] += 1
+        return admitted
+
+    def recorded_submit(sched, trace, **kw):
+        seen["trace"] = list(trace)
+        return submit_trace(sched, trace, **kw)
+
+    BatchScheduler._admit = checked_admit
+    serve_mod.submit_trace = recorded_submit
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs, stats = serve_mod.run(
+            "gpt2_base", budget_mb=BUDGET_MB, reduced=False, device="cuda",
+            ckpt_root=CKPT_ROOT, attn_impl="auto", slo_ttft_ms=ttft_ms,
+            slo_shed=True, **path)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        alloc_peak = torch.cuda.max_memory_allocated()
+        sched, trace = seen["sched"], seen["trace"]
+        kernel_boundaries = seen["boundaries"]
+        slo = sched.slo
+        print(f"slo: served {sched.engine.m} agents, pin {sched.engine.pin}, "
+              f"inflight {sched.max_inflight}, page size {sched.page_size}, "
+              f"chunk {sched.chunk}, SLO {slo}; tenant isolation held at "
+              f"{kernel_boundaries} round boundaries", flush=True)
+        if (stats.page_size, sched.chunk) != (path["page_size"],
+                                              path["chunk_prefill"]):
+            fail(f"slo: served page size {stats.page_size}, chunk "
+                 f"{sched.chunk}")
+        if slo is None or not slo.shed or slo.ttft_rounds is None:
+            fail(f"slo: the run served no shedding TTFT target: {slo}")
+        # the plain partner: the same trace on the kernel run's schedule
+        eng = hermes.engine(budget_bytes=budget, num_agents=sched.engine.m,
+                            pin_window=sched.engine.pin, attn_impl=None,
+                            page_size=sched.page_size)
+        plain = BatchScheduler(eng, max_inflight=sched.max_inflight,
+                               max_total_len=sched.max_total_len,
+                               seed=path["seed"], chunk_prefill=sched.chunk,
+                               slo=slo)
+        seen["boundaries"] = 0
+        t1 = time.perf_counter()
+        try:
+            plain.warmup(prompt_lens=[path["prompt_len"]])
+            rids = submit_trace(plain, trace)
+            pouts, pstats = plain.run()
+        finally:
+            plain.close()
+        pwall = time.perf_counter() - t1
+    finally:
+        BatchScheduler._admit = admit
+        serve_mod.submit_trace = submit_trace
+    if rids != {t.rid: t.rid for t in trace}:
+        fail("slo: trace ids are not the scheduler's")
+    shed = sorted(r for r, q in sched.done.items() if q.rejected)
+    met = sorted(r for r, q in sched.done.items() if sched._req_slo(q)[2])
+    served = sorted(set(sched.done) - set(shed))
+    for t in trace:
+        toks = list(outs[t.rid])
+        if t.rid in served and (toks[:len(t.prompt)] != t.prompt
+                                or len(toks) != len(t.prompt)
+                                + t.new_tokens):
+            fail(f"slo: req{t.rid} is not its trace request served whole")
+    prio = {t.rid: t.priority for t in trace}
+    admits = {}
+    for kind, rid, r, _ in stats.policy:
+        if kind == "admit":
+            admits.setdefault(r, []).append(rid)
+    bounced = [(rid, r) for kind, rid, r, _ in stats.policy
+               if kind == "preempt" and any(prio[a] > prio[rid]
+                                            for a in admits.get(r, []))]
+    print(f"slo: {len(trace)} requests of tenants "
+          f"{sorted({t.tenant for t in trace})}, priorities "
+          f"{[t.priority for t in trace]}, prompts "
+          f"{[len(t.prompt) for t in trace]}, arrivals "
+          f"{[t.arrival_round for t in trace]}", flush=True)
+    print(f"slo: rounds {stats.rounds}; ttft p50/p99 "
+          f"{stats.ttft_p50_rounds:.1f} / {stats.ttft_p99_rounds:.1f} "
+          f"rounds, tpot p50/p99 {stats.tpot_p50_rounds:.3f} / "
+          f"{stats.tpot_p99_rounds:.3f} rounds ({stats.ttft_p50_s:.3f} / "
+          f"{stats.ttft_p99_s:.3f} s, {stats.tpot_p50_s:.3f} / "
+          f"{stats.tpot_p99_s:.3f} s); slo_attained "
+          f"{stats.slo_attained:.4f}, goodput_tokens {stats.goodput_tokens} "
+          f"of {stats.new_tokens} ({stats.goodput_tokens_per_s:.3f} tok/s), "
+          f"slo_rejections {stats.slo_rejections} {shed}, tenants "
+          f"{stats.tenants}, preemptions {stats.preemptions} (by a higher "
+          f"class admitted in the same round: {bounced}), prefix hit "
+          f"pages {stats.prefix_hit_pages} by tenant "
+          f"{sched.tree.hits_by_tenant()}, chunk jobs {stats.chunk_jobs}",
+          flush=True)
+    if not bounced:
+        fail("slo: no priority preemption")
+    if not shed or not met:
+        fail(f"slo: shed {shed}, met its TTFT target {met}: each must be "
+             f"non-empty")
+    if stats.prefix_hit_pages <= 0:
+        fail("slo: no prefix hit within a tenant")
+    if [p[:3] for p in pstats.policy] != [p[:3] for p in stats.policy]:
+        fail(f"slo: the plain partner's policy differs: "
+             f"{[p[:3] for p in pstats.policy]} against "
+             f"{[p[:3] for p in stats.policy]}")
+    print(f"slo: plain partner: the same {len(stats.policy)} policy "
+          f"decisions; tenant isolation held at {seen['boundaries']} round "
+          f"boundaries; serving loop {pstats.latency_s:.3f}s, plain run "
+          f"{pwall:.1f}s", flush=True)
+    same_tokens(torch, cfg, {r: outs[r] for r in served},
+                {r: pouts[r] for r in served}, "slo kernel vs plain greedy "
+                "tokens")
+    decode, chunks, prefills = slo_serve_rounds(
+        stats.policy, {t.rid: len(t.prompt) for t in trace}, sched.chunk)
+    want = dict.fromkeys(stats.kernel_launches, 0)
+    paged = ops.tuned_paged_impl() != "gather"
+    want["paged_flash_decode" if paged else "flash_decode"] = (
+        cfg.num_layers * len(decode))
+    want["paged_flash_verify"] = cfg.num_layers * len(chunks)
+    want["flash_attention"] = cfg.num_layers * prefills
+    print(f"slo: kernel launches: serve.run {json.dumps(launches)} "
+          f"(profiling and warm-up included); serving loop "
+          f"{json.dumps(stats.kernel_launches)}, expected {json.dumps(want)} "
+          f"({len(decode)} decode rounds, {len(chunks)} chunk rounds, "
+          f"{prefills} monolithic prefills)", flush=True)
+    if stats.kernel_launches != want:
+        fail(f"slo: serving-loop launches {stats.kernel_launches} != {want}")
+    ledger_budget = budget - blas_workspace_bytes(torch.device("cuda"))
+    limit = budget + stats.cache_bytes_peak
+    print(f"slo: {stats.tokens_per_s:.3f} tok/s aggregate, serving loop "
+          f"{stats.latency_s:.3f}s, serve.run {wall:.1f}s; ledger peak "
+          f"{stats.peak_bytes} B (ledger budget {ledger_budget}), breakdown "
+          f"{json.dumps(stats.peak_breakdown)}, kv_pages at the peak "
+          f"{stats.peak_breakdown.get('kv_pages', 0)} B, pool peak "
+          f"{stats.pool_pages_peak} pages ({stats.cache_bytes_peak} B), "
+          f"torch.cuda.max_memory_allocated {alloc_peak} (limit {limit}: "
+          f"the budget plus the paged pool's bytes), shard loads "
+          f"{stats.loads}", flush=True)
+    print(f"slo: {time_split(stats, cfg)}", flush=True)
+    if stats.peak_bytes > ledger_budget:
+        fail(f"slo: ledger peak {stats.peak_bytes} above the budget less "
+             f"cuBLAS's workspace ({ledger_budget})")
+    if alloc_peak > limit:
+        OVER_BUDGET.append(f"slo: torch.cuda.max_memory_allocated "
+                           f"{alloc_peak} above {limit} (the budget plus the "
+                           f"paged pool's bytes)")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -1738,12 +2024,21 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f}s ({smi})", flush=True)
         return 0
 
+    walls = {"1-2": time.perf_counter() - t_start}
+
+    def timed(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[label] = time.perf_counter() - t
+        return out
+
     # ---- phases 3-7: the dense, paged and chunked paths; each path's
     # launch counts are set to 0 just before it and read just after
-    cfg, dense_launches, dense_stats = phase_main(torch, ops)
-    paged_outs, paged_launches, paged_stats = phase_paged(torch, ops, cfg,
-                                                          dense_stats)
-    chunk_launches, chunk_stats = phase_chunked(torch, ops, cfg, paged_outs)
+    cfg, dense_launches, dense_stats = timed("3-4", phase_main, torch, ops)
+    paged_outs, paged_launches, paged_stats = timed(
+        "5-6", phase_paged, torch, ops, cfg, dense_stats)
+    chunk_launches, chunk_stats = timed("7", phase_chunked, torch, ops, cfg,
+                                        paged_outs)
 
     # ---- phases 8-9: the quant paths
     import numpy as np
@@ -1754,19 +2049,24 @@ def main() -> int:
     quant_launches, quant_stats = {}, {}
     for quant in ("int8", "int4"):
         bits = 8 if quant == "int8" else 4
-        quant_launches[bits], quant_stats[bits] = phase_quant(
-            torch, ops, cfg, quant, fp32_logits, prompt)
+        quant_launches[bits], quant_stats[bits] = timed(
+            "8" if bits == 8 else "9", phase_quant, torch, ops, cfg, quant,
+            fp32_logits, prompt)
 
     # ---- phase 10: kernel autotune; 11-12: the fp16 models
-    tune_launches, tune_stats, tuned = phase_autotune(torch, ops, cfg,
-                                                      paged_outs)
-    phase_gptj(torch, ops)
-    phase_vit(torch, ops)
+    tune_launches, tune_stats, tuned = timed("10", phase_autotune, torch,
+                                             ops, cfg, paged_outs)
+    timed("11", phase_gptj, torch, ops)
+    timed("12", phase_vit, torch, ops)
 
     # ---- phases 13-14: speculative serving (weak draft, self-draft)
     count_draft_steps()
-    spec_launches, spec_stats = phase_spec(torch, ops, cfg, paged_outs)
-    phase_self_draft(torch, ops)
+    spec_launches, spec_stats = timed("13", phase_spec, torch, ops, cfg,
+                                      paged_outs)
+    timed("14", phase_self_draft, torch, ops)
+
+    # ---- phase 15: the SLO multi-tenant tier
+    slo_launches, slo_stats = timed("15", phase_slo, torch, ops, cfg)
 
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1827,6 +2127,8 @@ def main() -> int:
                 spec_stats.kernel_launches[key] if both else 0),
             "spec_launches": spec_launches[key],
             "spec_serve_launches": spec_stats.kernel_launches[key],
+            "slo_launches": slo_launches[key],
+            "slo_serve_launches": slo_stats.kernel_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -1860,6 +2162,8 @@ def main() -> int:
         **{k: best[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms",
                                 "library_device_ms")}))
+    print("chip_smoke: phase walls "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()), flush=True)
     print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(smi)

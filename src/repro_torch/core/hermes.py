@@ -13,6 +13,8 @@
     spec = hermes.scheduler(budget_bytes=b1, page_sizes=(16,),
                             draft=DraftModel(draft_dir, draft_cfg),
                             spec_depth=4)       # speculative serving
+    tier = hermes.scheduler(budget_bytes=b1, page_sizes=(16,),
+                            slo_ttft_s=2.0)     # SLO in plan rounds
 
 The profile is cached in the checkpoint directory as
 ``profile_torch_<device>.json``, so it never collides with the JAX
@@ -154,6 +156,8 @@ class Hermes:
                       shared_prefix_len: int = 0,
                       spec_depths: Sequence[int] = (),
                       spec_draft: Optional[Dict] = None,
+                      slo_ttft_s: Optional[float] = None,
+                      slo_tpot_s: Optional[float] = None,
                       chunk_prefill: int = 0) -> List[GenPlanEntry]:
         """Generation-aware schedule: joint (num_agents, pin_window) with
         KV-cache bytes charged against the budget; ``max_inflight > 1``
@@ -162,8 +166,9 @@ class Hermes:
         leading prompt tokens shared across requests are charged once),
         ``spec_depths`` + ``spec_draft`` the speculative verify depths (a
         pinned draft's bytes, cache row and acceptance rate; see
-        ``planner.plan_generate``), and ``chunk_prefill`` models
-        chunk-joined prefill rounds;
+        ``planner.plan_generate``), ``slo_ttft_s`` / ``slo_tpot_s`` gate the
+        capacity-first search on predicted TTFT / TPOT, and
+        ``chunk_prefill`` models chunk-joined prefill rounds;
         ``quants`` widens the search over shard dtype (KV pages keep the
         model dtype, so the cache bytes are shared)."""
         cb = self.cfg.cache_bytes(batch, prompt_len + new_tokens)
@@ -177,6 +182,7 @@ class Hermes:
                              shared_prefix_len=shared_prefix_len,
                              spec_depths=tuple(spec_depths),
                              spec_draft=spec_draft,
+                             slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s,
                              chunk_prefill=chunk_prefill)
 
     # ---- Execution Engine ----------------------------------------------
@@ -210,7 +216,10 @@ class Hermes:
                   autotune: bool = False,
                   draft: Optional[DraftModel] = None,
                   spec_depth: Optional[int] = None,
-                  draft_acceptance: float = 0.8):
+                  draft_acceptance: float = 0.8,
+                  slo=None,
+                  slo_ttft_s: Optional[float] = None,
+                  slo_tpot_s: Optional[float] = None):
         """Continuous-batching serving facade: plan the (num_agents,
         pin_window, inflight) triple for the budget, build the engine and
         wrap it in a ``BatchScheduler`` ready for ``submit()``/``run()``.
@@ -228,8 +237,12 @@ class Hermes:
         (None searches {1, 2, 4}) jointly at the modelled
         ``draft_acceptance``, and the winning depth, 0 when speculation
         does not pay at this budget, drives the scheduler's
-        draft-and-verify rounds."""
-        from repro_torch.core.scheduler import BatchScheduler
+        draft-and-verify rounds.  ``slo`` (a rounds-based
+        ``scheduler.SLO``) arms the serving tier's accounting and shedding;
+        ``slo_ttft_s`` / ``slo_tpot_s`` gate the planner's search, and when
+        only they are given, the winning schedule's predicted round
+        latency turns them into the rounds-based ``SLO``."""
+        from repro_torch.core.scheduler import SLO, BatchScheduler
         if chunk_prefill and draft is not None:
             raise ValueError("chunk_prefill is incompatible with a draft "
                              "model (speculative rounds own the verify "
@@ -248,6 +261,7 @@ class Hermes:
                                # plan must not assume prefix hits
                                shared_prefix_len=(shared_prefix_len
                                                   if prefix_cache else 0),
+                               slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s,
                                chunk_prefill=chunk_prefill, **spec_kw)[0]
         if not g.feasible:
             raise ValueError(
@@ -270,6 +284,15 @@ class Hermes:
                                       else g.pin_window),
                           attn_impl=attn_impl,
                           page_size=g.page_size or None)
+        if slo is None and (slo_ttft_s or slo_tpot_s):
+            # seconds -> the scheduler's rounds clock, through the winning
+            # schedule's predicted round latency
+            rl = g.predicted_per_token_s
+            if rl and rl > 0:
+                slo = SLO(ttft_rounds=(max(int(slo_ttft_s / rl), 1)
+                                       if slo_ttft_s else None),
+                          tpot_rounds=((slo_tpot_s / rl)
+                                       if slo_tpot_s else None))
         return BatchScheduler(eng, max_inflight=g.inflight,
                               max_total_len=(max_total_len
                                              or prompt_len + new_tokens),
@@ -277,4 +300,5 @@ class Hermes:
                               draft=(draft if g.spec_depth else None),
                               spec_depth=g.spec_depth,
                               chunk_prefill=(chunk_prefill
-                                             if g.page_size else 0))
+                                             if g.page_size else 0),
+                              slo=slo)

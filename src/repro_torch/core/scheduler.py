@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: one weight stream serves every request.
 
-PyTorch port of ``repro/core/scheduler.py``, dense mode.  PIPELOAD's
+PyTorch port of ``repro/core/scheduler.py``.  PIPELOAD's
 dominant cost is streaming layer weights, paid once per pipeline round;
 the scheduler amortises it: each round, layer ``k`` is loaded once,
 applied to the stacked single-token states of ALL in-flight requests
@@ -15,7 +15,8 @@ detection, which happens the instant a request's last token is sampled):
 
 Memory protocol: every request's KV cache is charged to the engine's
 ``_Ledger`` — the same budget the streamed weights draw from.  Admission
-is FIFO and blocks whenever the post-admission decode floor
+is FIFO within a priority class and blocks whenever the post-admission
+decode floor
 
     other_bytes + pinned + all in-flight caches + one streaming layer
 
@@ -40,10 +41,11 @@ are carved into fixed-size pages mapped through per-request block tables.
     in-flight request.
   * Decode grows a request one page at a time as its position crosses a
     page boundary; a write into a shared page copy-on-writes it first.
-  * If growth cannot clear the floor, the YOUNGEST in-flight request is
-    preempted: its pages are freed and it re-queues with its tokens so
-    far (re-prefilled on re-admission).  The oldest request always fits
-    alone (``submit`` enforced it), so serving never deadlocks.
+  * If growth cannot clear the floor, the lowest-priority YOUNGEST
+    in-flight request is preempted: its pages are freed and it re-queues
+    with its tokens so far (re-prefilled on re-admission).  The oldest
+    request always fits alone (``submit`` enforced it), so serving never
+    deadlocks.
   * Retirement drops one reference per page: pages shared with a live
     sibling survive until the last sharer retires.
 
@@ -75,8 +77,23 @@ target's greedy pick.  A rejected proposal's K/V stays in the request's
 own pages past its committed length, where no query reads it, until the
 next round's window writes over it.
 
-Not yet ported (it raises): the SLO tier (priorities, tenants, shedding).
-TTFT/TPOT percentiles are still reported.
+**Serving tier** (multi-tenant SLO serving on the mechanisms above):
+
+  * *Priority classes with preemption.*  ``submit(..., priority=p)``
+    orders the queue by ``(-priority, arrival_round, rid)``, and admission
+    may bounce an in-flight request of a strictly lower class back to the
+    queue, for a concurrency slot or for cache room, in paged and dense
+    mode alike.  The victim is always the lowest-priority, youngest
+    in-flight request, the order growth preemption uses too; preemption
+    only flows downhill, so a boundary's admission loop ends.
+  * *Per-tenant prefix namespaces.*  ``submit(..., tenant=t)`` keys the
+    prefix index by tenant (``PrefixNamespaces``): prompt pages share
+    within a tenant, never across.
+  * *SLO accounting and shedding.*  ``slo=SLO(...)`` sets TTFT / TPOT
+    targets in ROUNDS, the deterministic clock; ``ServeStats`` reports
+    their p50 / p99 in rounds and seconds and goodput under the SLO, and
+    ``SLO.shed=True`` rejects a queued request at admission once its TTFT
+    target is out of reach.
 """
 from __future__ import annotations
 
@@ -88,13 +105,26 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry as _tele
-from repro_torch.core.engine import (DraftModel, PipeloadEngine, _Ledger,
-                                     _not_ported)
+from repro_torch.core.engine import DraftModel, PipeloadEngine, _Ledger
 from repro_torch.core.kv_pages import (BlockTable, PagePool,
                                        PrefixNamespaces, pages_for)
 from repro_torch.kernels import ops as _ops
 
-TENANT = "default"    # the one prefix namespace (tenants are not ported)
+@dataclasses.dataclass(frozen=True)
+class SLO:
+    """Service-level objectives in ROUNDS, the scheduler's deterministic
+    clock, so a replayed trace attains or misses them identically on any
+    machine (policy never reads the wall clock).
+
+    ``ttft_rounds``: a request attains its TTFT target when its first token
+    lands within that many rounds of arrival (inclusive: 1 means the
+    arrival round itself).  ``tpot_rounds``: mean rounds per token after
+    the first.  ``shed=True`` rejects a queued request at admission once
+    its TTFT target is out of reach (its queueing delay plus its own
+    prefill rounds already exceed it)."""
+    ttft_rounds: Optional[int] = None
+    tpot_rounds: Optional[float] = None
+    shed: bool = False
 
 
 @dataclasses.dataclass
@@ -104,6 +134,8 @@ class Request:
     prompt: np.ndarray            # (S,) int token ids
     max_new_tokens: int
     arrival_round: int = 0        # earliest boundary it may be admitted at
+    priority: int = 0             # higher = admitted (and kept) first
+    tenant: str = "default"       # prefix-namespace key
     # -- scheduler state ------------------------------------------------
     tokens: List[int] = dataclasses.field(default_factory=list)
     generated: int = 0
@@ -118,6 +150,7 @@ class Request:
     born_round: int = 0           # original arrival (preemption re-queues
                                   # move arrival_round; TTFT uses this)
     first_token_round: int = -1
+    rejected: bool = False        # shed by SLO admission control
     t_arrival: float = -1.0       # wall-clock marks (observability only)
     t_first: float = -1.0
     t_done: float = -1.0
@@ -159,6 +192,8 @@ class ServeStats:
     spec_rounds: int = 0           # verify rounds executed
     draft_tokens: int = 0          # proposals the draft emitted
     accepted_tokens: int = 0       # proposals the target committed
+    # serving-tier extras (SLO / multi-tenant / chunked prefill)
+    tenants: int = 0               # distinct tenant namespaces served
     chunk_size: int = 0            # chunked-prefill chunk tokens (0 = off)
     chunk_jobs: int = 0            # prefill chunks joined into rounds
     ttft_p50_rounds: float = 0.0   # rounds from arrival to first token
@@ -169,7 +204,11 @@ class ServeStats:
     ttft_p99_s: float = 0.0
     tpot_p50_s: float = 0.0
     tpot_p99_s: float = 0.0
-    # (kind, rid, round, t_wall) for every admit / retire decision
+    slo_attained: float = 1.0      # fraction of requests meeting the SLO
+    goodput_tokens: int = 0        # tokens from requests meeting the SLO
+    slo_rejections: int = 0        # requests shed at admission
+    # (kind, rid, round, t_wall) for every admit / preempt / retire /
+    # reject decision
     policy: List[Tuple[str, int, int, float]] = dataclasses.field(
         default_factory=list)
     retries: int = 0
@@ -182,6 +221,13 @@ class ServeStats:
     @property
     def tokens_per_s(self) -> float:
         return self.new_tokens / self.latency_s if self.latency_s else 0.0
+
+    @property
+    def goodput_tokens_per_s(self) -> float:
+        """Goodput under the SLO: only tokens of requests that met every
+        target count."""
+        return (self.goodput_tokens / self.latency_s
+                if self.latency_s else 0.0)
 
     @property
     def acceptance_rate(self) -> float:
@@ -201,19 +247,18 @@ class BatchScheduler:
     and the budget caps it further through admission control.
     ``page_size`` (default: the engine's) turns on paged KV,
     ``prefix_cache`` its prefix sharing, ``chunk_prefill`` chunked prefill
-    in paged mode, and ``draft`` with ``spec_depth`` speculative serving
-    in paged mode."""
+    in paged mode, ``draft`` with ``spec_depth`` speculative serving
+    in paged mode, and ``slo`` (an ``SLO`` in rounds) the serving tier's
+    accounting and shedding."""
 
     def __init__(self, engine: PipeloadEngine, *, max_inflight: int = 4,
                  max_total_len: int = 128, page_size: Optional[int] = None,
                  prefix_cache: bool = True, seed: Optional[int] = None,
                  draft: Optional[DraftModel] = None, spec_depth: int = 0,
-                 chunk_prefill: int = 0, slo=None):
+                 chunk_prefill: int = 0, slo: Optional[SLO] = None):
         if engine.mode == "baseline":
             raise ValueError("continuous batching needs a pipelined mode "
                              "(pipeload / pipeswitch)")
-        if slo is not None:
-            raise _not_ported("the SLO serving tier")
         self.engine = engine
         self.max_inflight = max(1, max_inflight)
         self.max_total_len = max_total_len
@@ -261,16 +306,19 @@ class BatchScheduler:
             # rounds
             ps = self.page_size
             self.chunk = -(-int(chunk_prefill) // ps) * ps
+        self.slo = slo
+        self.slo_rejections = 0
         self.policy_log: List[Tuple[str, int, int, float]] = []
         self._chunk_jobs = 0
         m = _tele.metrics()
         self._m_admits = m.counter("sched.admits")
         self._m_preempts = m.counter("sched.preemptions")
         self._m_retires = m.counter("sched.retires")
+        self._m_rejects = m.counter("sched.rejections")
         self._fault_base = _tele.counter_values("prefetch.retries",
                                                 "prefetch.faults_absorbed")
         self.seed = seed
-        self.queue: List[Request] = []   # by (arrival, rid)
+        self.queue: List[Request] = []   # by (-priority, arrival, rid)
         self.inflight: List[Request] = []
         self.done: Dict[int, Request] = {}
         self.round = 0
@@ -340,12 +388,16 @@ class BatchScheduler:
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
-               arrival_round: int = 0) -> int:
-        """Queue a request; returns its id.  Raises if it could NEVER be
-        admitted: too long for ``max_total_len``, or a cache reservation
-        above the budget floor even with nothing else in flight (paged
-        mode: every page of its final length, unshared, plus the
-        admission headroom)."""
+               arrival_round: int = 0, *, priority: int = 0,
+               tenant: str = "default") -> int:
+        """Queue a request; returns its id.  ``priority`` orders admission
+        (higher first, FIFO within a class), and a strictly higher class
+        may preempt the lowest-priority youngest in-flight request to get
+        in; ``tenant`` names the prefix namespace its prompt pages share
+        within.  Raises if it could NEVER be admitted: too long for
+        ``max_total_len``, or a cache reservation above the budget floor
+        even with nothing else in flight (paged mode: every page of its
+        final length, unshared, plus the admission headroom)."""
         prompt = np.asarray(prompt).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -368,7 +420,8 @@ class BatchScheduler:
                                      extra_resident=self._spec_resident(1))
         arrival = max(arrival_round, 0)
         req = Request(self._next_rid, prompt, max_new_tokens,
-                      arrival_round=arrival, cache_bytes=per_req,
+                      arrival_round=arrival, priority=int(priority),
+                      tenant=str(tenant), cache_bytes=per_req,
                       born_round=arrival)
         self._next_rid += 1
         self.queue.append(req)
@@ -376,13 +429,15 @@ class BatchScheduler:
         return req.rid
 
     def _sort_queue(self) -> None:
-        """FIFO by arrival (a preempted request re-enters with
-        arrival_round = now)."""
-        self.queue.sort(key=lambda r: (r.arrival_round, r.rid))
+        """Higher classes first, FIFO by arrival within a class (a
+        preempted request re-enters with arrival_round = now, behind its
+        class's newest arrivals)."""
+        self.queue.sort(key=lambda r: (-r.priority, r.arrival_round, r.rid))
 
-    def _tree(self):
-        """The prefix index (None when prefix caching is off)."""
-        return self.tree.tree(TENANT) if self.tree is not None else None
+    def _tree(self, req: Request):
+        """The request's tenant namespace of the prefix index (None when
+        prefix caching is off)."""
+        return self.tree.tree(req.tenant) if self.tree is not None else None
 
     def _fits(self, extra_cache: int) -> bool:
         """Would the decode floor still clear the budget after granting
@@ -424,7 +479,7 @@ class BatchScheduler:
         this boundary."""
         toks = req.tokens or [int(t) for t in req.prompt]
         n_pages = pages_for(len(toks), self.page_size)
-        tree = self._tree()
+        tree = self._tree(req)      # the tenant's own namespace
         walk = tree.walk(toks) if tree is not None else None
         shared = len(walk[0]) if walk is not None else 0
         if not self._fits_paged(n_pages - shared, inflight_after):
@@ -469,20 +524,28 @@ class BatchScheduler:
         return True
 
     def _preempt(self, victim: Request) -> None:
-        """Bounce ``victim`` (paged mode) back to the queue, releasing its
-        pages exactly; it re-prefills from its tokens so far on
+        """Bounce ``victim`` back to the queue, releasing its ledger bytes
+        exactly (its pages in paged mode, with its draft-cache row in
+        speculative mode; the whole dense reservation and its rows of the
+        stacked caches otherwise); it re-prefills from its tokens so far on
         re-admission."""
         idx = self.inflight.index(victim)
-        self.pool.detail = f"req{victim.rid}"
-        victim.table.release_all(self.pool, self._tree())
-        self.pool.detail = None
-        if self.spec_depth:
-            self._draft_caches = self._rows_keep(
-                self._draft_caches,
-                [i for i in range(len(self.inflight)) if i != idx])
-            self.ledger.release(self._draft_cache_bytes,
-                                owner="spec_headroom",
+        keep = [i for i in range(len(self.inflight)) if i != idx]
+        if self.page_size:
+            self.pool.detail = f"req{victim.rid}"
+            victim.table.release_all(self.pool, self._tree(victim))
+            self.pool.detail = None
+            if self.spec_depth:
+                self._draft_caches = self._rows_keep(self._draft_caches,
+                                                     keep)
+                self.ledger.release(self._draft_cache_bytes,
+                                    owner="spec_headroom",
+                                    detail=f"req{victim.rid}")
+        else:
+            self.ledger.release(victim.cache_bytes, owner="kv_pages",
                                 detail=f"req{victim.rid}")
+            self._cache_resident -= victim.cache_bytes
+            self._caches = self._rows_keep(self._caches, keep)
         self.inflight.pop(idx)
         victim.admitted_round = -1
         victim.arrival_round = self.round
@@ -499,13 +562,26 @@ class BatchScheduler:
         if tr.enabled:
             tr.instant("preempt", rid=victim.rid, round=self.round)
 
+    def _victim(self, below: Optional[int] = None) -> Optional[Request]:
+        """The preemption victim: lowest priority first, the youngest
+        admission within a class (all priorities equal: the youngest).
+        ``below`` restricts it to strictly lower classes (admission
+        preemption flows downhill only); growth passes None and may pick
+        any request, the grower included."""
+        cands = [r for r in self.inflight
+                 if below is None or r.priority < below]
+        if not cands:
+            return None
+        order = {id(r): i for i, r in enumerate(self.inflight)}
+        return min(cands, key=lambda r: (r.priority, -order[id(r)]))
+
     def _alloc_with_preemption(self, req: Request) -> Optional[int]:
-        """Map one more page for ``req``, preempting the YOUNGEST in-flight
-        request (the last admitted), possibly ``req`` itself, while the
-        floor would not clear: an older request's progress is never
-        sacrificed for a younger grower.  Returns None when ``req`` was
-        the victim; otherwise always succeeds, since once ``req`` is
-        alone, ``submit`` guaranteed its worst case fits.
+        """Map one more page for ``req``, preempting the lowest-priority
+        YOUNGEST in-flight request (``_victim``), possibly ``req`` itself,
+        while the floor would not clear: within a class an older request's
+        progress is never sacrificed for a younger grower.  Returns None
+        when ``req`` was the victim; otherwise always succeeds, since once
+        ``req`` is alone, ``submit`` guaranteed its worst case fits.
 
         The floor counts the draft-cache rows of every request in flight,
         which the ledger holds.  The reference counts none here, so a
@@ -514,7 +590,7 @@ class BatchScheduler:
         instead."""
         while (not self._fits_paged(1, 0, rows=len(self.inflight))
                and len(self.inflight) > 1):
-            victim = self.inflight[-1]
+            victim = self._victim()
             self._preempt(victim)
             if victim is req:
                 return None
@@ -563,8 +639,8 @@ class BatchScheduler:
                 cow.append((req, old, new))
                 # usually the sibling keeps the old page; if the COW alloc
                 # preempted that sibling, this drop is the LAST reference
-                # and the tree node goes with it
-                tree = self._tree()
+                # and the node of the owner's tenant tree goes with it
+                tree = self._tree(req)
                 if self.pool.release(old) and tree is not None:
                     tree.forget(old)
                 t.pages[idx] = new
@@ -652,23 +728,78 @@ class BatchScheduler:
             tb[i, :len(r.table.pages)] = r.table.pages
         return torch.from_numpy(tb).to(self.engine.device)
 
+    def _chunk_rounds(self, req: Request) -> int:
+        """Rounds this request's prefill takes once admitted: 1 for the
+        monolithic path, ``ceil(L / C)`` chunk rounds otherwise."""
+        n = len(req.tokens) or len(req.prompt)
+        if not (self.chunk and self.page_size and n > self.chunk):
+            return 1
+        return -(-n // self.chunk)
+
+    def _shed(self, req: Request) -> bool:
+        """SLO admission control: reject a queued request whose TTFT target
+        is out of reach even if admitted at this boundary (its queueing
+        delay plus its own prefill rounds already exceed it)."""
+        if (self.slo is None or not self.slo.shed
+                or self.slo.ttft_rounds is None):
+            return False
+        if req.first_token_round >= 0:
+            # a preempted request already has its first token: its TTFT
+            # is decided, so it is never shed
+            return False
+        best_ttft = (self.round - req.born_round) + self._chunk_rounds(req)
+        if best_ttft <= self.slo.ttft_rounds:
+            return False
+        self.queue.remove(req)
+        req.rejected = True
+        req.finished_round = self.round
+        self.done[req.rid] = req
+        self.slo_rejections += 1
+        now = time.perf_counter() - self._t0
+        self.events.append((now, "reject", f"req{req.rid}"))
+        self.policy_log.append(("reject", req.rid, self.round, now))
+        self._m_rejects.inc()
+        tr = _tele.get_tracer()
+        if tr.enabled:
+            tr.instant("reject", rid=req.rid, round=self.round)
+        return True
+
     def _admit(self) -> List[Request]:
-        """FIFO head-of-line admission at the current boundary: skipping
-        the head never helps (dense mode reserves one padded size for
-        everyone; paged mode's head is also the next to shrink via
-        sharing), and blocking is deadlock-free (``submit`` rejected
-        anything that cannot fit alone)."""
+        """Priority-ordered admission at the current boundary: strict
+        head-of-line within the eligible queue (sorted by class, FIFO
+        inside one).  Skipping the head never helps (dense mode reserves
+        one padded size for everyone; paged mode's head is also the next
+        to shrink via sharing), and blocking is deadlock-free (``submit``
+        rejected anything that cannot fit alone).  The head is shed first
+        if its TTFT target is out of reach; a head that does not fit may
+        preempt strictly-lower-priority in-flight requests (``_victim``)
+        for a concurrency slot, then for cache room."""
         admitted: List[Request] = []
         while self.queue:
-            req = self.queue[0]
-            if req.arrival_round > self.round:
+            eligible = [r for r in self.queue
+                        if r.arrival_round <= self.round]
+            if not eligible:
                 break
+            req = eligible[0]           # queue order: class, then FIFO
+            if self._shed(req):
+                continue
             if len(self.inflight) + len(admitted) >= self.max_inflight:
+                victim = self._victim(below=req.priority)
+                if victim is None:
+                    break
+                self._preempt(victim)
+                continue                # the victim re-queued: look again
+            ok = self._reserve(req, len(self.inflight) + len(admitted) + 1)
+            while not ok:
+                victim = self._victim(below=req.priority)
+                if victim is None:
+                    break
+                self._preempt(victim)
+                ok = self._reserve(req,
+                                   len(self.inflight) + len(admitted) + 1)
+            if not ok:
                 break
-            if not self._reserve(req,
-                                 len(self.inflight) + len(admitted) + 1):
-                break
-            self.queue.pop(0)
+            self.queue.remove(req)
             req.admitted_round = self.round
             now = time.perf_counter() - self._t0
             self.events.append((now, "admit", f"req{req.rid}"))
@@ -688,7 +819,7 @@ class BatchScheduler:
         for req in finished:
             if self.page_size:
                 self.pool.detail = f"req{req.rid}"
-                req.table.release_all(self.pool, self._tree())
+                req.table.release_all(self.pool, self._tree(req))
                 self.pool.detail = None
                 if self.spec_depth:
                     self.ledger.release(self._draft_cache_bytes,
@@ -1024,7 +1155,7 @@ class BatchScheduler:
             faults_absorbed=faults[1] - self._fault_base[1],
             peak_breakdown=dict(self.ledger.peak_breakdown),
             kernel_launches=launches,
-            policy=list(self.policy_log), **self._latency_stats())
+            policy=list(self.policy_log), **self._slo_stats())
         self._record_metrics(stats)
         return outs, stats
 
@@ -1046,20 +1177,48 @@ class BatchScheduler:
         if stats.page_size:
             m.gauge("serve.prefix_hit_pages").set(stats.prefix_hit_pages)
 
-    def _latency_stats(self) -> Dict:
-        """Round-based TTFT/TPOT percentiles (deterministic under a fixed
-        trace) and their wall-clock mirrors."""
+    # ---- serving-tier accounting -------------------------------------
+    def _req_slo(self, req: Request
+                 ) -> Tuple[Optional[float], Optional[float], bool]:
+        """(ttft_rounds, tpot_rounds, meets_slo) of one finished request.
+        TTFT counts from the ORIGINAL arrival (``born_round``; preemption
+        moves ``arrival_round``); TPOT is the mean rounds per token after
+        the first.  A shed request has neither and misses."""
+        if req.rejected or req.first_token_round < 0:
+            return None, None, False
+        ttft = float(req.first_token_round - req.born_round + 1)
+        tpot = (float(req.finished_round - req.first_token_round)
+                / (req.generated - 1) if req.generated > 1 else 0.0)
+        ok = True
+        if self.slo is not None:
+            if (self.slo.ttft_rounds is not None
+                    and ttft > self.slo.ttft_rounds):
+                ok = False
+            if (self.slo.tpot_rounds is not None
+                    and tpot > self.slo.tpot_rounds):
+                ok = False
+        return ttft, tpot, ok
+
+    def _slo_stats(self) -> Dict:
+        """The serving tier's ``ServeStats`` fields: round-based TTFT/TPOT
+        percentiles (deterministic under a fixed trace), their wall-clock
+        mirrors, goodput under the SLO, rejections and tenants."""
+        reqs = list(self.done.values())
         ttfts, tpots, ttfts_s, tpots_s = [], [], [], []
-        for r in self.done.values():
-            if r.first_token_round < 0:
-                continue
-            ttfts.append(float(r.first_token_round - r.born_round + 1))
-            tpots.append(float(r.finished_round - r.first_token_round)
-                         / (r.generated - 1) if r.generated > 1 else 0.0)
-            if r.t_first >= 0 and r.t_arrival >= 0:
-                ttfts_s.append(r.t_first - r.t_arrival)
-            if r.generated > 1 and r.t_done >= 0 and r.t_first >= 0:
-                tpots_s.append((r.t_done - r.t_first) / (r.generated - 1))
+        good_tokens, attained = 0, 0
+        for r in reqs:
+            ttft, tpot, ok = self._req_slo(r)
+            if ttft is not None:
+                ttfts.append(ttft)
+                tpots.append(tpot)
+                if r.t_first >= 0 and r.t_arrival >= 0:
+                    ttfts_s.append(r.t_first - r.t_arrival)
+                if r.generated > 1 and r.t_done >= 0 and r.t_first >= 0:
+                    tpots_s.append((r.t_done - r.t_first)
+                                   / (r.generated - 1))
+            if ok:
+                attained += 1
+                good_tokens += r.generated
 
         def pct(xs, q):
             return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
@@ -1069,12 +1228,16 @@ class BatchScheduler:
             m.histogram("serve.ttft_s").observe(v)
         for v in tpots_s:
             m.histogram("serve.tpot_s").observe(v)
-        return dict(ttft_p50_rounds=pct(ttfts, 50),
+        return dict(tenants=len({r.tenant for r in reqs}),
+                    ttft_p50_rounds=pct(ttfts, 50),
                     ttft_p99_rounds=pct(ttfts, 99),
                     tpot_p50_rounds=pct(tpots, 50),
                     tpot_p99_rounds=pct(tpots, 99),
                     ttft_p50_s=pct(ttfts_s, 50), ttft_p99_s=pct(ttfts_s, 99),
-                    tpot_p50_s=pct(tpots_s, 50), tpot_p99_s=pct(tpots_s, 99))
+                    tpot_p50_s=pct(tpots_s, 50), tpot_p99_s=pct(tpots_s, 99),
+                    slo_attained=attained / len(reqs) if reqs else 1.0,
+                    goodput_tokens=good_tokens,
+                    slo_rejections=self.slo_rejections)
 
     # ------------------------------------------------------------------
     def warmup(self, prompt_lens=()) -> "BatchScheduler":

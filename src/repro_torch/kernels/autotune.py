@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
 
 CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
@@ -65,9 +66,9 @@ def default_cache_path() -> Path:
 
 
 def _device(device=None) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """The device an entry point tunes on: the card unless the caller asks
+    for the CPU (``engine.resolve_device``, which raises without a card)."""
+    return resolve_device("cuda" if device is None else device)
 
 
 def device_arch(device=None) -> str:

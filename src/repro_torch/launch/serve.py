@@ -40,12 +40,26 @@ target's vocabulary; greedy outputs are the non-speculative ones.
 ``--spec-depth 0`` (the default with a draft) lets the planner search the
 depth jointly with the rest of the schedule.
 
+The SLO multi-tenant tier: ``--tenants N`` serves a seeded heavy-tailed
+multi-tenant trace (``repro_torch.data.traces``: Poisson arrivals at
+``--arrival-rate``, lognormal prompts up to ``--prompt-len``, geometric
+outputs up to ``--new-tokens``, priority classes 0..2, and a per-tenant
+system prompt of ``--shared-prefix`` tokens that 60% of a tenant's
+requests reuse); ``--trace FILE`` replays a saved one.  Each request
+carries its priority (a higher class may preempt a lower one) and its
+tenant (prefix pages share within a tenant, never across).
+``--slo-ttft-ms`` / ``--slo-tpot-ms`` gate the planner's search and,
+through the planned round latency, set the scheduler's rounds-based
+``SLO``; ``--slo-shed`` rejects requests whose TTFT target is out of
+reach at admission.
+
 Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
-profile is cached as ``profile_torch_<device>.json``.  The flags of
-slices not yet ported (the SLO tier, trace replay) exit with a "not yet
-ported in repro_torch" error.
+profile is cached as ``profile_torch_<device>.json``.  An ``--arch`` of a
+family not yet ported (MoE, MLA, VLM, recurrent, encoder-decoder) exits
+with a "not yet ported in repro_torch" error before any checkpoint is
+written.
 """
 from __future__ import annotations
 
@@ -62,10 +76,13 @@ from repro_torch.analysis.report import (drift_report, format_drift,
                                          peak_breakdown_report)
 from repro_torch.checkpoint import partition_and_save
 from repro_torch.configs import get, names
-from repro_torch.core import BatchScheduler, Hermes
+from repro_torch.core import SLO, BatchScheduler, Hermes
 from repro_torch.core import telemetry as tele
-from repro_torch.core.engine import DraftModel
+from repro_torch.core.engine import DraftModel, resolve_device
 from repro_torch.core.hermes import spec_plan_kw
+from repro_torch.core.modules import check_engine_family
+from repro_torch.data.traces import (load_trace, make_trace, submit_trace,
+                                     trace_max_len)
 from repro_torch.models.dense_lm import init_params
 
 CKPT_ROOT = Path(tempfile.gettempdir()) / "repro_torch_ckpts"
@@ -103,8 +120,14 @@ def export_telemetry(trace_out: str | None, metrics_out: str | None):
         print(f"metrics: wrote {metrics_out}")
 
 
-def _not_ported(flag: str):
-    raise SystemExit(f"error: {flag} is not yet ported in repro_torch")
+def check_ported(cfg, flag: str, name: str) -> None:
+    """Exit with a "not yet ported" error for a model the port cannot
+    serve yet, before anything is written for it."""
+    try:
+        check_engine_family(cfg, where="serving")
+    except NotImplementedError:
+        raise SystemExit(f"error: {flag} {name} is not yet ported in "
+                         f"repro_torch") from None
 
 
 def run(arch, *, budget_mb: float | None = None, requests: int = 4,
@@ -117,12 +140,20 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         trace_out: str | None = None, metrics_out: str | None = None,
         device: str = "cuda", ckpt_root=None, attn_impl: str | None = "auto",
         autotune: bool = False, draft_arch: str | None = None,
-        spec_depth: int = 0):
-    """Serve ``requests`` seeded prompts; returns ``(outs, stats)``.
-    ``arch`` is a registered name (cut by ``reduced``) or a model config
-    served as given, e.g. one whose depth a caller cut; its checkpoint
-    directory is named by ``cfg.name``.  ``attn_impl=None`` runs the
-    kernels' plain PyTorch versions."""
+        spec_depth: int = 0, trace: str | None = None, tenants: int = 0,
+        slo_ttft_ms: float | None = None, slo_tpot_ms: float | None = None,
+        slo_shed: bool = False):
+    """Serve ``requests`` seeded prompts (or, with ``tenants`` / ``trace``,
+    a multi-tenant trace); returns ``(outs, stats)``.  ``arch`` is a
+    registered name (cut by ``reduced``) or a model config served as
+    given, e.g. one whose depth a caller cut; its checkpoint directory is
+    named by ``cfg.name``.  ``attn_impl=None`` runs the kernels' plain
+    PyTorch versions."""
+    resolve_device(device)              # no card: raise before any work
+    cfg = get(arch) if isinstance(arch, str) else arch
+    check_ported(cfg, "--arch", arch if isinstance(arch, str) else cfg.name)
+    if draft_arch:
+        check_ported(get(draft_arch), "--draft-arch", draft_arch)
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")
@@ -130,15 +161,14 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         raise SystemExit("error: --chunk-prefill is incompatible with "
                          "--draft-arch (speculative rounds own the verify "
                          "window)")
+    if (trace or tenants) and not kv_cache:
+        raise SystemExit("error: --trace/--tenants need the KV-cache "
+                         "scheduler; drop --no-kv-cache")
     tele.metrics().reset()
     if trace_out:
         tele.enable()
-    if isinstance(arch, str):
-        cfg = get(arch)
-        if reduced:
-            cfg = cfg.reduced().with_(num_layers=8)
-    else:
-        cfg = arch
+    if isinstance(arch, str) and reduced:
+        cfg = cfg.reduced().with_(num_layers=8)
     ckpt = ensure_checkpoint(cfg, root=ckpt_root)
     hermes = Hermes(ckpt, cfg, device=device)
     draft = None
@@ -172,7 +202,21 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         # shared-system-prompt trace: every request opens with the same
         # tokens (what the prefix tree maps once across the fleet)
         prompts[:, :shared_prefix] = prompts[0, :shared_prefix]
+    serve_trace = None
+    if trace:
+        serve_trace = load_trace(trace)
+    elif tenants:
+        # seeded heavy-tailed multi-tenant mix: prompt_len / new_tokens
+        # bound the distributions, so the planned reservation still fits
+        serve_trace = make_trace(
+            requests, tenants=tenants, seed=seed, vocab=cfg.vocab_size,
+            arrival_rate=arrival_rate or 1.0,
+            prompt_mean=max(prompt_len // 2, 4), max_prompt=prompt_len,
+            new_mean=max(new_tokens // 2, 1), max_new=new_tokens,
+            prefix_len=shared_prefix, share_prefix=0.6)
     total_len = prompt_len + new_tokens
+    if serve_trace:
+        total_len = max(total_len, trace_max_len(serve_trace))
 
     if not kv_cache:
         # paper's engine (§V-B2): sequential re-prefill
@@ -211,6 +255,10 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
                              # the plan must not assume hits
                              shared_prefix_len=(shared_prefix
                                                 if prefix_cache else 0),
+                             slo_ttft_s=(slo_ttft_ms / 1e3
+                                         if slo_ttft_ms else None),
+                             slo_tpot_s=(slo_tpot_ms / 1e3
+                                         if slo_tpot_ms else None),
                              chunk_prefill=chunk_prefill, **spec_kw)[0]
     if not g.feasible:
         raise SystemExit(
@@ -246,6 +294,23 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
           + (f", page size {g.page_size}" if g.page_size else "")
           + (f", spec depth {depth}" if depth else "")
           + (f", chunk {chunk_prefill}" if chunk_prefill else "") + ")")
+    if slo_ttft_ms or slo_tpot_ms:
+        print(f"planner(slo): predicted ttft {g.predicted_ttft_s*1e3:.0f}ms"
+              f" / tpot {g.predicted_tpot_s*1e3:.1f}ms -> "
+              f"{'MEETS' if g.slo_ok else 'MISSES'} the target"
+              + ("" if g.slo_ok else " (serving degraded: no feasible "
+                 "schedule attains it)"))
+    slo = None
+    if slo_ttft_ms or slo_tpot_ms:
+        # seconds targets -> the scheduler's deterministic rounds clock,
+        # through the planned round latency (as the facade converts them)
+        rl = g.predicted_per_token_s
+        if rl and rl > 0 and np.isfinite(rl):
+            slo = SLO(ttft_rounds=(max(int(slo_ttft_ms / 1e3 / rl), 1)
+                                   if slo_ttft_ms else None),
+                      tpot_rounds=((slo_tpot_ms / 1e3 / rl)
+                                   if slo_tpot_ms else None),
+                      shed=slo_shed)
     eng = hermes.engine(mode="pipeload", budget_bytes=budget,
                         num_agents=agents, pin_window=pin,
                         attn_impl=attn_impl, page_size=g.page_size or None)
@@ -255,12 +320,17 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
                            draft=(draft if depth else None),
                            spec_depth=depth,
                            chunk_prefill=(chunk_prefill if g.page_size
-                                          else 0))
+                                          else 0),
+                           slo=slo)
     try:
         sched.warmup(prompt_lens=[prompt_len])
-        arrivals = poisson_arrivals(requests, arrival_rate, rng)
-        for i in range(requests):
-            sched.submit(prompts[i], new_tokens, arrival_round=arrivals[i])
+        if serve_trace is not None:
+            submit_trace(sched, serve_trace)
+        else:
+            arrivals = poisson_arrivals(requests, arrival_rate, rng)
+            for i in range(requests):
+                sched.submit(prompts[i], new_tokens,
+                             arrival_round=arrivals[i])
         t0 = time.time()
         outs, stats = sched.run()
         dt = time.time() - t0
@@ -298,6 +368,17 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         rows["chunk_prefill"] = (f"{stats.chunk_size}-token chunks, "
                                  f"{stats.chunk_jobs} jobs joined into "
                                  "decode rounds")
+    if serve_trace is not None or slo is not None:
+        rows["ttft_p50_p99_rounds"] = (f"{stats.ttft_p50_rounds:.1f} / "
+                                       f"{stats.ttft_p99_rounds:.1f}")
+        rows["tpot_p50_p99_rounds"] = (f"{stats.tpot_p50_rounds:.2f} / "
+                                       f"{stats.tpot_p99_rounds:.2f}")
+        rows["slo_attained"] = f"{stats.slo_attained:.0%}"
+        rows["goodput_tokens"] = (f"{stats.goodput_tokens} "
+                                  f"({stats.goodput_tokens_per_s:.1f} "
+                                  "tok/s)")
+        rows["shed"] = stats.slo_rejections
+        rows["tenants"] = stats.tenants
     if stats.spec_depth:
         rows["spec_depth"] = stats.spec_depth
         rows["spec_accepted"] = (f"{stats.accepted_tokens}/"
@@ -308,8 +389,12 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     print(format_peak_breakdown(peak_breakdown_report(stats)))
     print(format_drift(drift_report(g, stats)))
     for rid, req in sorted(sched.done.items()):
-        print(f"  req{rid}: arrived r{req.born_round} admitted "
-              f"r{req.admitted_round} finished r{req.finished_round}")
+        tag = (f" [{req.tenant} p{req.priority}]"
+               if serve_trace is not None else "")
+        state = ("SHED" if req.rejected else
+                 f"admitted r{req.admitted_round} finished "
+                 f"r{req.finished_round}")
+        print(f"  req{rid}{tag}: arrived r{req.born_round} {state}")
     export_telemetry(trace_out, metrics_out)
     return outs, stats
 
@@ -360,19 +445,24 @@ def main(argv=None):
                     help="tune the kernels' tiles / paged route for the "
                     "planned dtype and page size (cached per device)")
     ap.add_argument("--trace", default=None,
-                    help="multi-tenant trace replay (not yet ported)")
+                    help="replay a saved multi-tenant JSON trace "
+                    "(repro_torch.data.traces.save_trace) verbatim")
     ap.add_argument("--tenants", type=int, default=0,
-                    help="multi-tenant trace (not yet ported)")
+                    help="generate a seeded heavy-tailed multi-tenant "
+                    "trace with N tenants (Zipf mix, priority classes, "
+                    "per-tenant prefix namespaces)")
     ap.add_argument("--chunk-prefill", type=int, default=0,
                     help="split prompts longer than C tokens into "
                     "page-aligned chunks joined into decode rounds "
                     "(needs --page-size)")
     ap.add_argument("--slo-ttft-ms", type=float, default=None,
-                    help="SLO tier (not yet ported)")
+                    help="time-to-first-token target: gates the planner "
+                    "and sets the scheduler's rounds-based SLO")
     ap.add_argument("--slo-tpot-ms", type=float, default=None,
-                    help="SLO tier (not yet ported)")
+                    help="time-per-output-token target (as --slo-ttft-ms)")
     ap.add_argument("--slo-shed", action="store_true",
-                    help="SLO tier (not yet ported)")
+                    help="reject requests at admission once their best "
+                    "TTFT already misses the --slo-ttft-ms target")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="enable the span tracer and write the run as "
                     "Chrome trace-event JSON")
@@ -380,14 +470,6 @@ def main(argv=None):
                     help="write the end-of-run metrics-registry snapshot")
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
-    unported = [("--trace", args.trace),
-                ("--tenants", args.tenants),
-                ("--slo-ttft-ms", args.slo_ttft_ms),
-                ("--slo-tpot-ms", args.slo_tpot_ms),
-                ("--slo-shed", args.slo_shed)]
-    for flag, value in unported:
-        if value:
-            _not_ported(flag)
     run(args.arch, budget_mb=args.budget_mb, requests=args.requests,
         prompt_len=args.prompt_len, new_tokens=args.new_tokens,
         reduced=not args.full, num_agents=args.num_agents,
@@ -398,7 +480,10 @@ def main(argv=None):
         shared_prefix=args.shared_prefix, chunk_prefill=args.chunk_prefill,
         trace_out=args.trace_out, metrics_out=args.metrics_out,
         device=args.device, autotune=args.autotune,
-        draft_arch=args.draft_arch, spec_depth=args.spec_depth)
+        draft_arch=args.draft_arch, spec_depth=args.spec_depth,
+        trace=args.trace, tenants=args.tenants,
+        slo_ttft_ms=args.slo_ttft_ms, slo_tpot_ms=args.slo_tpot_ms,
+        slo_shed=args.slo_shed)
 
 
 if __name__ == "__main__":

@@ -121,6 +121,24 @@ def test_default_cache_path_is_the_ports_own(monkeypatch, tmp_path):
     assert autotune.device_arch("cpu") == "cpu"
 
 
+def test_entry_points_without_a_device_need_the_card(tmp_path, monkeypatch):
+    """With no ``device`` every entry point tunes on the card, and without
+    one it raises rather than timing the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cache = AutotuneCache(tmp_path / "at.json")
+    cfg = get_config("gpt2_base")
+    calls = [lambda: autotune.device_arch(),
+             lambda: autotune.tune_matmul(8, 64, 128, cache=cache, reps=1),
+             lambda: autotune.tune_paged_decode(4, cache=cache, reps=1),
+             lambda: autotune.tune_for_model(cfg, cache_path=tmp_path / "m",
+                                             reps=1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert cache.entries == {} and not (tmp_path / "at.json").exists()
+    assert autotune.device_arch("cpu") == "cpu"
+
+
 def test_tune_matmul_caches_winner(tmp_path, monkeypatch):
     cache = AutotuneCache(tmp_path / "at.json")
     calls = {"n": 0}

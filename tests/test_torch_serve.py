@@ -18,7 +18,7 @@ from repro.core import PipeloadEngine as JaxEngine
 from repro.launch.serve import poisson_arrivals as jax_arrivals
 from repro.models.dense_lm import init_params as jax_init
 from repro_torch.configs import get as torch_get
-from repro_torch.core import BatchScheduler, Hermes, PipeloadEngine
+from repro_torch.core import SLO, BatchScheduler, Hermes, PipeloadEngine
 from repro_torch.core.engine import DraftModel
 from repro_torch.launch import serve
 
@@ -108,10 +108,10 @@ def test_hermes_scheduler_facade(ckpt, tmp_path):
 
 
 def test_scheduler_rejects_unported_modes(ckpt):
-    """Paged KV, chunked prefill and speculation are ported: a draft
-    without a page size raises "needs paged KV", and a spec_depth without
-    a draft serves without speculation.  The SLO tier still raises, and
-    submit takes no SLO keywords (priorities, tenants)."""
+    """Paged KV, chunked prefill, speculation and the SLO tier are ported:
+    a draft without a page size raises "needs paged KV", and a spec_depth
+    without a draft serves without speculation; an ``SLO`` builds, and
+    ``submit`` takes a priority and a tenant and queues by class."""
     _, tcfg, path = ckpt
     eng = PipeloadEngine(path, tcfg, device="cpu")
     with pytest.raises(ValueError, match="needs paged KV"):
@@ -123,14 +123,15 @@ def test_scheduler_rejects_unported_modes(ckpt):
     assert spec.spec_depth == 2 and spec._nb == 33    # (128 + 2) / 4
     spec.close()
     eng = PipeloadEngine(path, tcfg, device="cpu")
-    for kw in (dict(slo=object()),):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            BatchScheduler(eng, **kw)
+    slo = SLO(ttft_rounds=3, shed=True)
+    assert BatchScheduler(eng, slo=slo).slo == slo
     sched = BatchScheduler(eng, page_size=4, chunk_prefill=8)
     assert (sched.page_size, sched.chunk) == (4, 8)
-    for kw in (dict(priority=1), dict(tenant="t1")):
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            sched.submit(np.arange(6), 2, **kw)
+    low = sched.submit(np.arange(6), 2)
+    high = sched.submit(np.arange(6), 2, priority=1, tenant="t1")
+    assert [r.rid for r in sched.queue] == [high, low]
+    assert (sched.queue[0].priority, sched.queue[0].tenant) == (1, "t1")
+    assert (sched.queue[1].priority, sched.queue[1].tenant) == (0, "default")
     with pytest.raises(ValueError, match="needs paged KV"):
         BatchScheduler(eng, chunk_prefill=8)
     eng.close()
@@ -147,13 +148,19 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "gpt2-base-smoke" / "profile_torch_cpu.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--slo-ttft-ms", "100"],
-                                   ["--slo-tpot-ms", "50"],
-                                   ["--trace", "trace.json"],
-                                   ["--tenants", "2"]])
-def test_serve_cli_unported_flags_exit(flags, capsys):
-    with pytest.raises(SystemExit, match="not yet ported in repro_torch"):
+@pytest.mark.parametrize("flags", [["--arch", "qwen3_moe_30b_a3b"],
+                                   ["--arch", "minicpm3_4b"],
+                                   ["--arch", "qwen2_vl_2b"],
+                                   ["--arch", "xlstm_1_3b"]])
+def test_serve_cli_unported_flags_exit(flags, capsys, tmp_path,
+                                       monkeypatch):
+    """Families the port cannot serve yet exit before any checkpoint is
+    written."""
+    monkeypatch.setattr(serve, "CKPT_ROOT", tmp_path)
+    with pytest.raises(SystemExit, match=f"error: --arch {flags[1]} is not "
+                       "yet ported in repro_torch"):
         serve.main(["--device", "cpu"] + flags)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -161,7 +168,8 @@ def test_import_leaves_out_jax_and_repro():
             "repro_torch.kernels.build, repro_torch.checkpoint.quant, "
             "repro_torch.kernels.quant_matmul, "
             "repro_torch.kernels.autotune, "
-            "repro_torch.kernels.streamed_matmul\n"
+            "repro_torch.kernels.streamed_matmul, "
+            "repro_torch.data.traces\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
