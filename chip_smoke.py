@@ -31,7 +31,10 @@ Phases, in order; any failure exits non-zero:
    4096, fp32, TF32 off) at every tile the autotune sweep times, and at
    the reference's sweep shapes in fp32 and bf16; library
    ``torch.matmul``, with its ``device_ms``.  paged_flash_verify also at
-   the speculative rounds' shape (B=4, W=5, NB=11, 6 shared pages).  For
+   the speculative rounds' shape (B=4, W=5, NB=11, 6 shared pages).
+   flash_attention and flash_decode also at phase 16's GQA shapes (32
+   query heads on 4 KV heads, G=8, head_dim 128): the prefill B=1 S=32 in
+   fp32, fp16 and bf16, the decode B=2 S=40 in fp32 and fp16.  For
    every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
@@ -137,6 +140,31 @@ Phases, in order; any failure exits non-zero:
    flash_attention once per layer per monolithic prefill, as derived from
    the policy log and the prompt lengths; the ledger peak must stay within
    the budget less cuBLAS's workspace.
+16. MoE expert streaming: qwen3_moe_30b_a3b at full width (d 2048, 32
+   query heads on 4 KV heads x 128, 128 experts top-8 of d_ff 768, vocab
+   151936 -> 153600), depth cut to 2 of 48 layers, stored in fp16 (no
+   bf16 shard is readable), routers x8 after init (``MOE_ROUTER_SCALE``),
+   written expert-split from numpy seed 0: 2 requests of 32 + 8 tokens
+   through ``serve.run`` under ``MOE_BUDGET_MB``, kernels then plain
+   versions on the same schedule.  The serving loop must launch
+   flash_attention once per layer per prefill and flash_decode once per
+   layer per decode round; the expert cache must evict (it cannot hold
+   both layers' experts).  Every router call of the serving loop is
+   recorded in both runs: up to the first call whose top-8 picks differ
+   (and before any round that read a differing token) the kernel run's
+   router logits at layer l (from 0) must be within (l + 1) x
+   ``HALF_RTOL["float16"]`` of the call's largest |logit| of the plain
+   run's, and a differing pick must sit at a plain top-8 margin (8th minus
+   9th logit) below twice its row's logit difference; the first differing
+   pick is printed.  The tokens must be
+   the plain run's, unless the first differing step is a tie of the
+   head's top-2 logits (``TIE_RTOL_HALF``) or the picks first differed
+   in that round or an earlier one; the ledger peak within the budget
+   less cuBLAS's workspace with an ``expert_cache`` share, the allocator
+   peak within the budget; the expert loads equal to the misses,
+   ``streamed_bytes`` to the manifest bytes of every load, and the
+   telemetry counters' hits and misses over the serving loop to the
+   stats'.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -170,8 +198,9 @@ weighted by the serving loops' launches at each; streamed_matmul at the
 autotune shape and the tile the sweep chose).  paged_flash_verify's
 launches add the chunked and the speculative phases'; every attention
 kernel also reports phase 13's launches (``spec_launches``,
-``spec_serve_launches``) and phase 15's (``slo_launches``,
-``slo_serve_launches``).  Before them, each phase's wall.
+``spec_serve_launches``), phase 15's (``slo_launches``,
+``slo_serve_launches``) and phase 16's (``moe_launches``,
+``moe_serve_launches``).  Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
 with its times) and prints no result line.
@@ -258,6 +287,23 @@ SLO_PATH = dict(tenants=2, requests=12, prompt_len=192, new_tokens=16,
                 shared_prefix=32, arrival_rate=0.5, page_size=16,
                 chunk_prefill=64, max_inflight=4, seed=2)
 SLO_TTFT_ROUNDS = 4
+# phase 16, qwen3_moe_30b_a3b at full width, depth cut to 2 of 48 layers,
+# fp16: embed and head 629,145,600 B each, a layer's attention+router
+# shard 38,805,504 B, 128 experts of 9,437,184 B per layer (1,207,959,552
+# B).  The scheduler's expert floor is every expert of one layer (a
+# 40-token prefill may touch all 128), which is also the smallest cache
+# the planner offers; the next, both layers' experts, does not fit.  The
+# budget holds the embed, head, KV, that cache and ONE streaming layer
+# but not two (2,524,971,008 ledger bytes after cuBLAS's 32 MiB, against
+# 2,505,388,032 with one layer and 2,544,193,536 with two), so the
+# planner can pin no layer: every layer streams and is destroyed, and the
+# cache evicts one layer's experts for the other's.  Random routers over
+# 128 experts are near-uniform; scaled x8 (as the reference's fixture
+# scales them) their top-8 picks rarely sit at a tie
+MOE_LAYERS = 2
+MOE_PATH = dict(requests=2, prompt_len=32, new_tokens=8, max_inflight=2)
+MOE_BUDGET_MB = 2440
+MOE_ROUTER_SCALE = 8.0
 DRAFT_STEPS = [0]                # DraftModel.decode_batch calls
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
@@ -713,6 +759,23 @@ def half_cases(torch, fd, fa, ref, gen):
     return cases
 
 
+def moe_cases(torch, fd, fa, ref, gen):
+    """Phase 16's attention shapes: GQA with 32 query heads on 4 KV heads
+    (G=8) at head_dim 128; a 32-token prefill per request, and the decode
+    batch of 2 rows against 40-slot caches."""
+    cases = []
+    for name in ("float32", "float16", "bfloat16"):
+        cases.append(attention_case(
+            torch, fa, ref, gen, f"qwen3_moe prefill B=1 S=32 H=32 KV=4 "
+            f"dh=128 causal {name}", 1, 32, 4, 8, 128,
+            dtype=getattr(torch, name)))
+    for name in ("float32", "float16"):
+        cases.append(decode_case(
+            torch, fd, ref, gen, f"qwen3_moe decode B=2 S=40 KV=4 G=8 "
+            f"dh=128 {name}", 2, 40, 4, 8, 128, dtype=getattr(torch, name)))
+    return cases
+
+
 def autotune_shape(cfg):
     """The shape ``tune_for_model`` times the streamed matmul at: 256
     tokens x d_model @ d_model x d_ff."""
@@ -824,6 +887,7 @@ def phase_kernels(torch):
     cases += [quant_case(torch, ref, gen, *shape, bits)
               for bits in (8, 4) for shape in quant_shapes(get("gpt2_base"))]
     cases += half_cases(torch, fd, fa, ref, gen)
+    cases += moe_cases(torch, fd, fa, ref, gen)
     cases += matmul_cases(torch, ref, gen, get("gpt2_base"))
     for c in cases:
         line = (f"  {c['kernel']:<18} {c['case']:<44} max_abs_err "
@@ -1105,28 +1169,57 @@ def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
     return outs, stats, launches
 
 
+def scale_routers(params) -> None:
+    """Phase 16's router scale, applied to the numpy params before they
+    are written."""
+    import numpy as np
+    params["layers"]["moe"]["router"] *= np.float32(MOE_ROUTER_SCALE)
+
+
 def checkpoints():
-    """Every checkpoint the serving phases read: [(label, cfg, seed)]."""
+    """Every checkpoint the serving phases read: [(label, cfg, seed,
+    transform of the numpy params before they are written, or None)]."""
     from repro_torch.configs import get
     main = get("gpt2_base")
-    return [("gpt2_base", main, 0),
+    return [("gpt2_base", main, 0, None),
             ("gpt_j", get("gpt_j").with_(num_layers=GPTJ_LAYERS,
                                          name=f"gpt-j-{GPTJ_LAYERS}layers"),
-             0),
-            ("vit_large", get("vit_large"), 0),
+             0, None),
+            ("vit_large", get("vit_large"), 0, None),
             ("spec draft", main.with_(
                 num_layers=SPEC["draft_layers"],
-                name=f"{main.name}-{SPEC['draft_layers']}layers-draft"), 1),
+                name=f"{main.name}-{SPEC['draft_layers']}layers-draft"), 1,
+             None),
             ("self-draft", main.with_(num_layers=SELF["layers"],
                                       name=f"gpt2-base-{SELF['layers']}layers"),
-             0)]
+             0, None),
+            ("qwen3_moe", get("qwen3_moe_30b_a3b").with_(
+                num_layers=MOE_LAYERS, dtype="float16",
+                name=f"qwen3-moe-30b-a3b-{MOE_LAYERS}layers-fp16"), 0,
+             scale_routers)]
 
 
 def checkpoint(label: str):
-    """(cfg, path) of the checkpoint ``label`` (written if missing)."""
-    from repro_torch.launch.serve import ensure_checkpoint
-    cfg, seed = next((c, s) for name, c, s in checkpoints() if name == label)
-    return cfg, ensure_checkpoint(cfg, seed=seed, root=CKPT_ROOT)
+    """(cfg, path) of the checkpoint ``label``, written from its seed if
+    missing (an MoE one expert-split, as ``partition_and_save`` does by
+    default)."""
+    import numpy as np
+    from repro_torch.checkpoint import partition_and_save
+    from repro_torch.models.dense_lm import init_params
+    cfg, seed, transform = next((c, s, t) for name, c, s, t in checkpoints()
+                                if name == label)
+    path = ckpt_dir(cfg)
+    if not (path / "manifest.json").exists():
+        params = init_params(np.random.default_rng(seed), cfg)
+        if transform is not None:
+            transform(params)
+        partition_and_save(params, cfg, path)
+    return cfg, path
+
+
+# the largest checkpoint (3.75 GB), written in a thread of its own beside
+# the rest: numpy releases the GIL in its generators and file writes
+PARALLEL_CHECKPOINT = "qwen3_moe"
 
 
 def write_checkpoints() -> str:
@@ -1134,8 +1227,9 @@ def write_checkpoints() -> str:
     phase 3's, numpy on the host: ``main`` runs this while nvcc builds the
     kernels.  Returns the seconds each took."""
     from repro_torch.checkpoint.partition import ensure_quantized
-    took = []
-    for label, _, _ in checkpoints():
+    took, errors = [], []
+
+    def write(label: str) -> None:
         t0 = time.perf_counter()
         cfg, path = checkpoint(label)
         took.append(f"{label} {time.perf_counter() - t0:.1f}s")
@@ -1145,6 +1239,23 @@ def write_checkpoints() -> str:
                 ensure_quantized(path, ckpt_dir(cfg, quant), quant)
                 took.append(f"{label} {quant} "
                             f"{time.perf_counter() - t0:.1f}s")
+
+    def write_parallel() -> None:
+        try:
+            write(PARALLEL_CHECKPOINT)
+        except BaseException as exc:      # noqa: BLE001 (re-raised below)
+            errors.append(exc)
+
+    writer = threading.Thread(target=write_parallel)
+    writer.start()
+    try:
+        for label, *_ in checkpoints():
+            if label != PARALLEL_CHECKPOINT:
+                write(label)
+    finally:
+        writer.join()
+    if errors:
+        raise errors[0]
     return ", ".join(took)
 
 
@@ -1950,6 +2061,229 @@ def phase_slo(torch, ops, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: MoE expert streaming
+# ---------------------------------------------------------------------------
+def router_picks(torch, cfg, calls, plain_calls, before: float):
+    """Hold the kernel run's router calls to the plain run's, call for call
+    (``[(round, layer name, fp32 logits, top-k ids)]`` each, in order), up
+    to the first call whose top-k picks differ, and over rounds before
+    ``before`` only (later rounds read a differing token).  Fails if the
+    calls differ in round, layer or shape; if up to the first differing
+    pick the logits of layer l (from 0) differ by more than (l + 1) x
+    ``HALF_RTOL["float16"]`` of the call's largest |logit| (each fp16
+    layer adds its roundings to the residual stream the router reads); or
+    if a differing pick sits at a plain top-k margin that twice the row's
+    largest logit difference cannot close.  Returns the first differing
+    pick as ``{"round", "call", "rows"}``, or None."""
+    k = cfg.top_k
+    if ([(r, n, t.shape) for r, n, t, _ in calls]
+            != [(r, n, t.shape) for r, n, t, _ in plain_calls]):
+        fail("moe: the kernel and plain runs made different router calls")
+    worst, checked, flip = {}, 0, None
+    for call, ((rnd, name, got, ids), (_, _, want, plain_ids)) in enumerate(
+            zip(calls, plain_calls)):
+        if rnd >= before:
+            break
+        layer = int(name.split("_")[1])
+        delta = (got - want).abs()
+        rel = (delta.max() / want.abs().max()).item()
+        limit = (layer + 1) * HALF_RTOL["float16"]
+        worst[layer], checked = max(worst.get(layer, 0.0), rel), checked + 1
+        if rel > limit:
+            fail(f"moe: router logits of round {rnd} call {call} ({name}) "
+                 f"differ by {rel:.3e} of the largest |logit| (limit "
+                 f"{limit:.1e}) before any pick differed")
+        ids, plain_ids = ids.sort(-1).values, plain_ids.sort(-1).values
+        rows = (ids != plain_ids).any(-1).nonzero().flatten().tolist()
+        if not rows:
+            continue
+        top = torch.topk(want, k + 1, dim=-1).values
+        for row in rows:
+            margin = (top[row, k - 1] - top[row, k]).item()
+            # a swap of the k-th and (k+1)-th logits needs their
+            # differences between the runs to sum to the margin
+            room = 2 * delta[row].max().item()
+            print(f"moe: router picks differ first at round {rnd} call "
+                  f"{call} ({name}) row {row}: kernels {ids[row].tolist()}, "
+                  f"plain {plain_ids[row].tolist()}; plain top-{k} margin "
+                  f"{margin:.3e}, twice the row's largest logit difference "
+                  f"{room:.3e}", flush=True)
+            if margin >= room:
+                fail(f"moe: round {rnd} call {call} row {row} picked other "
+                     f"experts than the plain run at a margin the logit "
+                     f"difference cannot close")
+        flip = {"round": rnd, "call": call, "rows": rows}
+        break
+    picks = (f"differ first at round {flip['round']}" if flip
+             else "identical")
+    per_layer = ", ".join(f"layer {l} {w:.3e}" for l, w in worst.items())
+    print(f"moe: router logits held to the plain run's at {checked} of "
+          f"{len(calls)} calls: largest difference of the call's largest "
+          f"|logit| {per_layer} (limit (layer + 1) x "
+          f"{HALF_RTOL['float16']}); top-{k} picks {picks}", flush=True)
+    return flip
+
+
+def moe_tokens(torch, cfg, outs, other, policy, prompt_len: int, calls,
+               plain_calls) -> str:
+    """Fail unless each request's tokens equal ``other``'s, or first differ
+    at a tie: of the head's top-2 logits (``tie_gap``), or of the router,
+    where ``router_picks`` finds the two runs' expert picks first differ in
+    the round that sampled the differing token or an earlier one (an
+    expert picked differently there wrote the K/V that round reads)."""
+    admitted = {rid: r for kind, rid, r, _ in policy if kind == "admit"}
+    first = {}
+    for rid in sorted(outs):
+        toks, ref_toks = list(outs[rid]), list(other[rid])
+        diff = [i for i in range(len(toks)) if toks[i] != ref_toks[i]]
+        if diff:
+            first[rid] = (diff[0], admitted[rid] + diff[0] - prompt_len)
+    flip = router_picks(torch, cfg, calls, plain_calls,
+                        min((rnd for _, rnd in first.values()),
+                            default=float("inf")) + 1)
+    for rid, (i, rnd) in first.items():
+        gap, limit = tie_gap(torch, cfg, outs[rid][:i])
+        picked = flip is not None and flip["round"] <= rnd
+        where = (f"from round {flip['round']}" if picked
+                 else "in no round up to it")
+        print(f"moe: req{rid} tokens differ first at {i} (round {rnd}); "
+              f"plain top-2 logit gap there {gap:.3e} (tie below "
+              f"{limit:.3e}); router picks differ {where}", flush=True)
+        if gap >= limit and not picked:
+            fail(f"moe: req{rid} greedy tokens differ at step {i}")
+    verdict = "differ only at ties" if first else "identical"
+    print(f"moe kernel vs plain greedy tokens: {verdict}", flush=True)
+    return verdict
+
+
+def phase_moe(torch, ops):
+    """Phase 16: expert-streaming MoE, qwen3_moe_30b_a3b at full width cut
+    to MOE_LAYERS layers, through ``serve.run`` under MOE_BUDGET_MB,
+    kernels then plain versions on the same plan.  Checks: launches exact,
+    every layer streamed and destroyed each round, the expert cache below
+    both layers' experts and evicting, router logits and picks held to the
+    plain run's (``router_picks``), tokens equal (a head tie, or a
+    differing pick in that round or before, excused and printed), the
+    ledger peak within the budget less cuBLAS's workspace with an
+    ``expert_cache`` share, the allocator peak within the budget
+    (run_path), expert loads equal to the misses, streamed bytes equal to
+    the manifest bytes of every load, and the telemetry counters over the
+    serving loop equal to the stats' hits and misses."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.engine import blas_workspace_bytes
+    from repro_torch.core.expert_stream import ExpertStreamEngine
+    from repro_torch.core.scheduler import BatchScheduler
+    from repro_torch.models import moe
+    cfg, path = checkpoint("qwen3_moe")
+    man = load_manifest(path)
+    rows = {s["name"]: s for s in man["shards"]}
+    budget = int(MOE_BUDGET_MB * 2**20)
+    ledger_budget = budget - blas_workspace_bytes(torch.device("cuda"))
+    print(f"moe: {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.head_dim} heads on {cfg.n_kv_heads} KV, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.expert_d_ff}, "
+          f"{cfg.dtype}; {man['total_bytes']} B of shards (attention+router "
+          f"layers {man['layer_bytes']}, experts "
+          f"{man['expert_total_bytes']}); budget {MOE_BUDGET_MB} MiB "
+          f"(ledger {ledger_budget})", flush=True)
+    (path / "profile_torch_cuda.json").unlink(missing_ok=True)
+    # the round a router call serves (None outside the serving loop), the
+    # serving loop's router calls [[round, layer name, fp32 logits, top-k
+    # ids]] and the telemetry counters' (hits, misses) over it
+    seen = {"round": None, "calls": [], "counters": None}
+    router_logits, step = moe.router_logits, BatchScheduler.step
+    experts, run = ExpertStreamEngine._experts, BatchScheduler.run
+
+    def recorded_logits(router, x_flat):
+        logits = router_logits(router, x_flat)
+        if seen["round"] is not None:
+            seen["calls"].append([seen["round"], None,
+                                  logits.detach().cpu(), None])
+        return logits
+
+    def recorded_picks(self, layer_name, top_ids):
+        # the routed ids the call just made, as the expert engine gets them
+        if seen["round"] is not None:
+            call = seen["calls"][-1]
+            call[1], call[3] = layer_name, top_ids.cpu()
+        return experts(self, layer_name, top_ids)
+
+    def tagged_step(self):
+        seen["round"] = self.round
+        try:
+            return step(self)
+        finally:
+            seen["round"] = None
+
+    def counted_run(self):
+        c0 = tele.counter_values("expert.hits", "expert.misses")
+        out = run(self)
+        c1 = tele.counter_values("expert.hits", "expert.misses")
+        seen["counters"] = (c1[0] - c0[0], c1[1] - c0[1])
+        return out
+
+    moe.router_logits, BatchScheduler.step = recorded_logits, tagged_step
+    ExpertStreamEngine._experts = recorded_picks
+    BatchScheduler.run = counted_run
+    runs = {}
+    try:
+        for impl in ("auto", None):
+            seen["calls"] = []
+            outs, stats, launches = run_path(
+                torch, ops, cfg, "moe", impl, arch=cfg,
+                budget_mb=MOE_BUDGET_MB, **MOE_PATH)
+            runs[impl] = (outs, stats, launches, seen["calls"],
+                          seen["counters"])
+    finally:
+        moe.router_logits, BatchScheduler.step = router_logits, step
+        ExpertStreamEngine._experts, BatchScheduler.run = experts, run
+    for impl, (_, st, _, calls, counters) in runs.items():
+        how = "kernels" if impl else "plain"
+        loads = [rows[key] for _, kind, key in st.events
+                 if kind == "load_end"]
+        expert_loads = sum(1 for r in loads if r["kind"] == "expert")
+        layer_loads = sum(1 for r in loads if r["kind"] == "layer")
+        print(f"moe ({how}): rounds {st.rounds}, serving loop "
+              f"{st.latency_s:.3f}s, {st.tokens_per_s:.3f} tok/s; expert "
+              f"hit rate {st.expert_hit_rate:.4f} ({st.expert_hits} hits, "
+              f"{st.expert_misses} misses, {st.expert_evictions} evicted), "
+              f"unique experts per round {st.unique_experts_per_round:.2f}, "
+              f"expert cache {st.expert_cache_bytes} B; loads: "
+              f"{expert_loads} experts, {layer_loads} layers, "
+              f"{st.streamed_bytes} B streamed; counters (hits, misses) "
+              f"{counters}; {len(calls)} router calls", flush=True)
+        if st.peak_bytes > ledger_budget:
+            fail(f"moe ({how}): ledger peak {st.peak_bytes} above the "
+                 f"budget less cuBLAS's workspace ({ledger_budget})")
+        if not st.peak_breakdown.get("expert_cache"):
+            fail(f"moe ({how}): no expert_cache share at the ledger peak: "
+                 f"{st.peak_breakdown}")
+        if not st.expert_evictions:
+            fail(f"moe ({how}): the expert cache never evicted")
+        if st.expert_cache_bytes >= man["expert_total_bytes"]:
+            fail(f"moe ({how}): the cache holds every layer's experts")
+        if layer_loads != st.rounds * cfg.num_layers:
+            fail(f"moe ({how}): {layer_loads} layer loads in {st.rounds} "
+                 f"rounds: layers were not all streamed and destroyed")
+        if expert_loads != st.expert_misses:
+            fail(f"moe ({how}): {expert_loads} expert loads against "
+                 f"{st.expert_misses} misses")
+        if st.streamed_bytes != sum(r["bytes"] for r in loads):
+            fail(f"moe ({how}): streamed_bytes {st.streamed_bytes} is not "
+                 f"the manifest bytes of the loads")
+        if counters != (st.expert_hits, st.expert_misses):
+            fail(f"moe ({how}): counters {counters} against "
+                 f"{st.expert_hits} hits, {st.expert_misses} misses")
+    outs, stats, launches = runs["auto"][:3]
+    if not (launches["flash_decode"] and launches["flash_attention"]):
+        fail(f"moe: a kernel never launched: {launches}")
+    moe_tokens(torch, cfg, outs, runs[None][0], stats.policy,
+               MOE_PATH["prompt_len"], runs["auto"][3], runs[None][3])
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -2068,6 +2402,9 @@ def main() -> int:
     # ---- phase 15: the SLO multi-tenant tier
     slo_launches, slo_stats = timed("15", phase_slo, torch, ops, cfg)
 
+    # ---- phase 16: expert-streaming MoE
+    moe_launches, moe_stats = timed("16", phase_moe, torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel, launch key, the path's launches, stats);
@@ -2129,6 +2466,8 @@ def main() -> int:
             "spec_serve_launches": spec_stats.kernel_launches[key],
             "slo_launches": slo_launches[key],
             "slo_serve_launches": slo_stats.kernel_launches[key],
+            "moe_launches": moe_launches[key],
+            "moe_serve_launches": moe_stats.kernel_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),

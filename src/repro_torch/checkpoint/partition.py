@@ -23,8 +23,17 @@ manifest ``bytes`` figure is the *quantized* size, so the planner, the
 engine's ledger and the KV decode floor shrink without opening a shard.
 ``requantize``/``ensure_quantized`` transcode a full-precision
 checkpoint shard by shard.  ``load_shard`` restores quantized arrays as
-``QuantizedTensor`` leaves.  Expert-split (MoE) manifests raise: that
-slice is not ported.
+``QuantizedTensor`` leaves.
+
+MoE-family checkpoints default to the **expert split**
+(``expert_split=True``): each layer becomes an attention+router shard
+(kind ``"layer"``, the pipeline stage the Loading Agents stream) plus one
+shard per expert (kind ``"expert"``, named ``layer_<i>_expert_<e>``, with
+its layer's ``index`` and its ``expert`` id); the router stays fp32.  The
+manifest adds ``expert_split``, ``experts_per_layer`` and
+``expert_total_bytes``.  ``expert_split=False`` keeps whole-layer shards.
+A quantized expert-split checkpoint is not yet ported: ``load_manifest``
+raises for one.
 """
 from __future__ import annotations
 
@@ -36,10 +45,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import quant as qz
-from repro_torch.models.config import DENSE, ModelConfig
+from repro_torch.models.config import DENSE, MOE, ModelConfig
 
 # Families this partitioner (and the port's engine) understand.
-PARTITION_FAMILIES = (DENSE,)
+PARTITION_FAMILIES = (DENSE, MOE)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -82,7 +91,7 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
                 kind: str, index: int, quant: Optional[str],
-                base_dtype: str) -> dict:
+                base_dtype: str, extra: Optional[dict] = None) -> dict:
     """Write one (possibly quantized) shard and return its manifest row;
     ``bytes`` counts every stored array, ``__meta__``/``__dtype__``
     entries included, as the reference does."""
@@ -92,6 +101,8 @@ def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
     nbytes = int(sum(np.asarray(a).nbytes for a in stored.values()))
     row = {"name": name, "kind": kind, "index": index, "bytes": nbytes,
            "dtype": quant or base_dtype}
+    if extra:
+        row.update(extra)
     if quant:
         row["fp_bytes"] = fp_bytes
         row["scale_bytes"] = int(sum(
@@ -102,41 +113,62 @@ def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
 
 
 def partition_and_save(params: dict, cfg: ModelConfig, path, *,
-                       quant: Optional[str] = None) -> dict:
-    """Split a dense param tree (stacked ``layers``, leading dim L) into
-    shards.  Leaves may be numpy arrays or torch tensors.  ``quant`` in
-    {None, "int8", "int4"} selects the shard precision."""
+                       quant: Optional[str] = None,
+                       expert_split: Optional[bool] = None) -> dict:
+    """Split a dense or MoE param tree (stacked ``layers``, leading dim L)
+    into shards.  Leaves may be numpy arrays or torch tensors.  ``quant``
+    in {None, "int8", "int4"} selects the shard precision;
+    ``expert_split`` (MoE only, the default there) writes one shard per
+    expert beside each layer's attention+router shard."""
     if quant is not None and quant not in qz.QUANT_SCHEMES:
         raise ValueError(f"unknown quant {quant!r}; choose from "
                          f"{sorted(qz.QUANT_SCHEMES)}")
     if cfg.family not in PARTITION_FAMILIES:
         raise _not_ported(f"partitioning model family '{cfg.family}' "
                           f"({cfg.name})")
+    if expert_split is None:
+        expert_split = cfg.family == MOE
+    if expert_split and cfg.family != MOE:
+        raise ValueError(
+            f"expert_split needs an MoE-family config; '{cfg.name}' is "
+            f"family '{cfg.family}'")
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     shards: List[dict] = []
 
-    def save(name: str, tree: dict, kind: str, index: int = -1):
+    def save(name: str, tree: dict, kind: str, index: int = -1,
+             extra: Optional[dict] = None):
         shards.append(_save_shard(path, name, _flatten(tree), kind, index,
-                                  quant, cfg.dtype))
+                                  quant, cfg.dtype, extra))
 
     save("embed", {"embed": params["embed"]}, "embed")
     stacked = params["layers"]
     for i in range(cfg.num_layers):
-        save(f"layer_{i:03d}", tree_map(lambda a: a[i], stacked), "layer", i)
+        layer = tree_map(lambda a: a[i], stacked)
+        if expert_split:
+            moe_p = layer.pop("moe")
+            layer["moe"] = {"router": moe_p["router"]}
+            save(f"layer_{i:03d}", layer, "layer", i)
+            for e in range(cfg.n_experts):
+                save(f"layer_{i:03d}_expert_{e:03d}",
+                     {k: moe_p[k][e] for k in ("w_gate", "w_up", "w_down")},
+                     "expert", i, extra={"expert": e})
+        else:
+            save(f"layer_{i:03d}", layer, "layer", i)
     head_tree = {"final_norm": params["final_norm"]}
     if "lm_head" in params:
         head_tree["lm_head"] = params["lm_head"]
     save("head", head_tree, "head")
 
     manifest = _build_manifest(cfg.name, cfg.num_layers, cfg.dtype, shards,
-                               quant)
+                               quant, expert_split=expert_split)
     (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
     return manifest
 
 
 def _build_manifest(model: str, num_layers: int, dtype: str,
-                    shards: List[dict], quant: Optional[str]) -> dict:
+                    shards: List[dict], quant: Optional[str], *,
+                    expert_split: bool = False) -> dict:
     manifest = {
         "model": model,
         "num_layers": num_layers,
@@ -147,6 +179,13 @@ def _build_manifest(model: str, num_layers: int, dtype: str,
         "layer_bytes": int(sum(s["bytes"] for s in shards
                                if s["kind"] == "layer")),
     }
+    if expert_split:
+        expert_rows = [s for s in shards if s["kind"] == "expert"]
+        manifest["expert_split"] = True
+        manifest["expert_total_bytes"] = int(sum(s["bytes"]
+                                                 for s in expert_rows))
+        manifest["experts_per_layer"] = (len(expert_rows) // num_layers
+                                         if num_layers else 0)
     if quant:
         manifest["quant_scheme"] = qz.SCHEME
         manifest["quant_bits"] = qz.QUANT_SCHEMES[quant][0]
@@ -172,10 +211,14 @@ def requantize(src, dst, quant: str) -> dict:
     for s in src_man["shards"]:
         with np.load(src / f"{s['name']}.npz") as z:
             flat = {k: z[k] for k in z.files}
+        extra = {"expert": s["expert"]} if "expert" in s else None
         shards.append(_save_shard(dst, s["name"], flat, s["kind"],
-                                  s["index"], quant, src_man["dtype"]))
+                                  s["index"], quant, src_man["dtype"],
+                                  extra))
     manifest = _build_manifest(src_man["model"], src_man["num_layers"],
-                               src_man["dtype"], shards, quant)
+                               src_man["dtype"], shards, quant,
+                               expert_split=bool(
+                                   src_man.get("expert_split")))
     manifest["source_total_bytes"] = src_man["total_bytes"]
     (dst / "manifest.json").write_text(json.dumps(manifest, indent=1))
     return manifest
@@ -200,8 +243,9 @@ def ensure_quantized(src, dst, quant: str) -> Path:
 
 def load_manifest(path) -> dict:
     manifest = json.loads((Path(path) / "manifest.json").read_text())
-    if manifest.get("expert_split"):
-        raise _not_ported("expert-split MoE checkpoints")
+    if manifest.get("expert_split") and manifest.get("quant"):
+        raise _not_ported(f"a {manifest['quant']} expert-split MoE "
+                          f"checkpoint")
     return manifest
 
 

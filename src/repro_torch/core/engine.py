@@ -40,16 +40,25 @@ Speculative decoding (``run_generate(speculative=SpecConfig(...))``): a
 ONE pipelined round scores the window through the paged verify kernel;
 the longest agreeing prefix plus the target's own next token commit.
 
-Not yet ported (it raises): expert streaming.
+Expert-split MoE checkpoints (manifest ``expert_split``,
+``core/expert_stream.py``) change what a pipeline stage is, not how it
+flows: the Loading Agents stream the per-layer attention+router shards as
+above, and the Inference Agent's per-layer step runs the attention+router
+module, reads back the batch's top-k expert ids, fetches that union (LRU
+``ExpertCache`` hits skip the disk; misses load on the runtime's demand
+pool through ``_load``) and runs the combine module over the streamed
+experts.  A budgeted run reserves the cache's capacity on the ledger up
+front (``_bind_expert``); the scheduler shrinks it under admission
+pressure.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import sys
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -59,6 +68,7 @@ from repro_torch.checkpoint.partition import (load_manifest, load_shard,
                                               tree_map)
 from repro_torch.checkpoint.quant import as_tensor
 from repro_torch.core import telemetry as _tele
+from repro_torch.core.expert_stream import ExpertStreamEngine
 from repro_torch.core.kv_pages import BlockTable, PagePool, pages_for
 from repro_torch.core.modules import build_module_fns
 from repro_torch.core.prefetch import PrefetchRuntime
@@ -136,6 +146,12 @@ class RunStats:
     spec_rounds: int = 0           # draft-propose / verify rounds run
     draft_tokens: int = 0          # tokens the draft proposed
     accepted_tokens: int = 0       # proposals the target confirmed
+    # expert-streaming extras (0 for dense / whole-layer MoE runs)
+    expert_hits: int = 0
+    expert_misses: int = 0
+    expert_evictions: int = 0
+    expert_cache_bytes: int = 0
+    unique_experts_per_round: float = 0.0
     # prefetch fault-injection outcomes (REPRO_PREFETCH_FAULT_RATE)
     retries: int = 0
     faults_absorbed: int = 0
@@ -144,6 +160,12 @@ class RunStats:
 
     def event_log(self, kinds=None):
         return [e for e in self.events if kinds is None or e[1] in kinds]
+
+    @property
+    def expert_hit_rate(self) -> float:
+        """Fraction of expert activations served from the ExpertCache."""
+        total = self.expert_hits + self.expert_misses
+        return self.expert_hits / total if total else 0.0
 
     @property
     def per_token_s(self) -> float:
@@ -384,9 +406,7 @@ class DraftModel:
         self.dir = Path(ckpt_dir)
         self.cfg = cfg
         self.device = resolve_device(device)
-        # read raw: load_manifest rejects expert-split manifests as not
-        # yet ported, and a draft rejects them for a reason of its own
-        self.manifest = json.loads((self.dir / "manifest.json").read_text())
+        self.manifest = load_manifest(self.dir)
         if self.manifest.get("expert_split"):
             raise ValueError("expert-split checkpoints cannot be draft "
                              "models (the draft must pin whole)")
@@ -479,6 +499,7 @@ class PipeloadEngine:
                  mode: str = "pipeload", num_agents: int = 4,
                  budget_bytes: Optional[int] = None, pin_window: int = 0,
                  attn_impl: Optional[str] = "auto",
+                 expert_cache_bytes: Optional[int] = None,
                  page_size: Optional[int] = None, device="cuda"):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
@@ -507,6 +528,19 @@ class PipeloadEngine:
         self._compute_stream = (torch.cuda.current_stream(self.device)
                                 if self.device.type == "cuda" else None)
         self._tls = threading.local()
+        # expert-split MoE checkpoints demand-load experts after the router,
+        # on this runtime's demand pool and through this engine's loader
+        self.expert: Optional[ExpertStreamEngine] = None
+        self.expert_cache_bytes = expert_cache_bytes
+        if self.manifest.get("expert_split"):
+            # the loader by weak reference: a cycle engine -> expert engine
+            # -> bound method -> engine would keep both, and every weight
+            # they hold on the device, alive until the garbage collector
+            # ran, past the engine's last use
+            load = weakref.WeakMethod(self._load)
+            self.expert = ExpertStreamEngine(
+                self.manifest, cfg, self.fns, lambda name: load()(name),
+                self.runtime)
 
     def close(self):
         """Tear down the prefetch runtime (joins worker + drainer
@@ -537,7 +571,7 @@ class PipeloadEngine:
         emb = self._resident.get("embed") or self._load("embed")
         head = self._resident.get("head") or self._load("head")
         w0 = self._load(self.layer_names[0])
-        x = self._apply_layer(w0, self.fns["embed"](emb, tokens))
+        x = self._apply_layer(w0, self.fns["embed"](emb, tokens), k=0)
         self.fns["head"](head, x)
         self._sync()
         del w0, emb, head
@@ -570,10 +604,28 @@ class PipeloadEngine:
         tree_map(lambda t: t.record_stream(self._compute_stream), dev)
         return dev
 
-    def _apply_layer(self, weights, x):
-        y = self.fns["layer"](weights, x)
+    # Per-layer steps.  Expert-split MoE layers go through the
+    # ExpertStreamEngine (router -> demand-load the union -> combine);
+    # everything else runs the whole-layer module fns.
+    def _apply_layer(self, weights, x, k: int = 0):
+        if self.expert is not None:
+            y = self.expert.layer(self.layer_names[k], weights, x)
+        else:
+            y = self.fns["layer"](weights, x)
         self._sync()
         return y
+
+    def _layer_cache(self, k: int, weights, x, total_len: int):
+        if self.expert is not None:
+            return self.expert.layer_cache(self.layer_names[k], weights, x,
+                                           total_len)
+        return self.fns["layer_cache"](weights, x, total_len)
+
+    def _layer_decode(self, k: int, weights, x, cache, pos):
+        if self.expert is not None:
+            return self.expert.layer_decode(self.layer_names[k], weights, x,
+                                            cache, pos)
+        return self.fns["layer_decode"](weights, x, cache, pos)
 
     def _streamed(self, events) -> int:
         """Total shard bytes read from disk this run (manifest sizes)."""
@@ -589,8 +641,10 @@ class PipeloadEngine:
         the full-sequence forward."""
         names = self.layer_names
         n = len(names)
+        if self.expert is not None:
+            self.expert.begin_round()
         if apply_fn is None:
-            apply_fn = lambda k, w, h: self._apply_layer(w, h)  # noqa: E731
+            apply_fn = lambda k, w, h: self._apply_layer(w, h, k=k)  # noqa: E731,E501
         preloaded = {k: self._resident[names[k]] for k in range(n)
                      if names[k] in self._resident}
         stream = self.runtime.stream(
@@ -638,42 +692,98 @@ class PipeloadEngine:
                 self._resident[aux] = self._load(aux)
                 events.append((time.perf_counter() - t0, "load_end", aux))
 
+    def _bind_expert(self, ledger: _Ledger, events, t0, *,
+                     round_tokens: int = 1):
+        """Reserve the ExpertCache's capacity on this run's ledger (a no-op
+        once bound to it).  Called after the run's fixed reservations (aux
+        shards, KV), so the automatic capacity is the headroom the pinned
+        window and one streaming layer leave.  ``round_tokens`` is the
+        widest batch a round of this run feeds the router: the cache must
+        hold that round's working set, or the run would wedge with every
+        fetched expert locked."""
+        if self.expert is None or self.expert.bound_to(ledger):
+            return
+        cap = self.expert_cache_bytes
+        need = self.expert.working_set_bytes(round_tokens)
+        if self.budget is not None:
+            sizes = [self.shards[nm]["bytes"] for nm in self.layer_names]
+            pinned = sum(sizes[:self.pin])
+            streaming = max(sizes[self.pin:], default=0)
+            head = self.budget - ledger.resident - pinned - streaming
+            if cap is None:
+                cap = head
+            elif min(cap, self.expert.total_bytes) > head:
+                # reserving past the headroom would park the Inference
+                # Agent on S_stop for good
+                raise ValueError(
+                    f"expert_cache_bytes={cap} does not fit budget "
+                    f"{self.budget}: only {head} bytes of headroom remain "
+                    f"after other shards, KV pages, the pinned window and "
+                    f"one streaming layer")
+        elif cap is None:
+            cap = self.expert.total_bytes
+        if min(cap, self.expert.total_bytes) < need:
+            raise ValueError(
+                f"expert cache too small for this workload: "
+                f"{min(cap, self.expert.total_bytes)} bytes available but "
+                f"a {round_tokens}-token round can lock {need} bytes of "
+                f"experts (min(n_experts, tokens*top_k) co-resident); "
+                f"raise the budget / expert_cache_bytes, or let the "
+                f"generation-aware planner size the schedule")
+        self.expert.reserve(ledger, cap, events, t0)
+
     def _forward_once(self, tokens, ledger, events, t0) -> torch.Tensor:
         """embed -> pipelined layers -> head."""
         self._ensure_aux(ledger, events, t0)
+        self._bind_expert(ledger, events, t0,
+                          round_tokens=tokens.shape[0] * tokens.shape[1])
         x = self.fns["embed"](self._resident["embed"], tokens)
         if self.mode == "baseline":
+            if self.expert is not None:
+                self.expert.begin_round()
             weights = {}
             for name in self.layer_names:
                 ledger.acquire(self.shards[name]["bytes"],
                                owner="pin", detail=name)
                 weights[name] = self._load(name)
                 events.append((time.perf_counter() - t0, "load_end", name))
-            for name in self.layer_names:
-                x = self._apply_layer(weights[name], x)
+            for k, name in enumerate(self.layer_names):
+                x = self._apply_layer(weights[name], x, k=k)
             self._baseline_weights = weights     # resident (no destruction)
         else:
             x = self._run_pipeline(x, ledger, events, t0,
                                    self.mode == "pipeload")
         return self.fns["head"](self._resident["head"], x)
 
-    def _stats(self, ledger, events, lat, fsnap, **kw) -> RunStats:
+    def _expert_snap(self) -> Optional[dict]:
+        return self.expert.snapshot() if self.expert is not None else None
+
+    def _expert_stats(self, snap: Optional[dict]) -> dict:
+        """RunStats expert-streaming fields accumulated since ``snap``."""
+        if self.expert is None:
+            return {}
+        return self.expert.stats_since(snap)
+
+    def _stats(self, ledger, events, lat, fsnap, snap=None,
+               **kw) -> RunStats:
         return RunStats(self.mode, self.m, lat, ledger.peak, events,
                         loads=sum(1 for e in events if e[1] == "load_end"),
                         streamed_bytes=self._streamed(events),
                         peak_breakdown=dict(ledger.peak_breakdown),
-                        **_fault_delta(fsnap), **kw)
+                        **self._expert_stats(snap), **_fault_delta(fsnap),
+                        **kw)
 
     def run_single(self, tokens) -> Tuple[torch.Tensor, RunStats]:
         """Single-pass inference."""
         events: List[Tuple[float, str, str]] = []
         ledger = _Ledger(self.budget)
+        snap = self._expert_snap()
         fsnap = _fault_snap()
         t0 = time.perf_counter()
         logits = self._forward_once(self.tokens(tokens), ledger, events, t0)
         self._sync()
         return logits, self._stats(ledger, events, time.perf_counter() - t0,
-                                   fsnap)
+                                   fsnap, snap)
 
     def run_generate(self, tokens, new_tokens: int, *,
                      kv_cache: bool = False,
@@ -691,16 +801,28 @@ class PipeloadEngine:
             return self._generate_kv(tokens, new_tokens)
         events: List[Tuple[float, str, str]] = []
         ledger = _Ledger(self.budget)
+        snap = self._expert_snap()
         fsnap = _fault_snap()
         toks = self.tokens(tokens)
         t0 = time.perf_counter()
         prefill_s = 0.0
+        if self.expert is not None:
+            # re-prefill rounds GROW with every token: bind the expert cache
+            # against the widest (last) round up front, so an infeasible
+            # budget fails here and not mid-generation
+            b, s0 = toks.shape
+            self._ensure_aux(ledger, events, t0)
+            self._bind_expert(ledger, events, t0,
+                              round_tokens=b * (s0 + new_tokens - 1))
         for step in range(new_tokens):
             if self.mode == "baseline" and step > 0:
                 # baseline keeps the model resident: only re-infer
+                if self.expert is not None:
+                    self.expert.begin_round()
                 x = self.fns["embed"](self._resident["embed"], toks)
-                for name in self.layer_names:
-                    x = self._apply_layer(self._baseline_weights[name], x)
+                for k, name in enumerate(self.layer_names):
+                    x = self._apply_layer(self._baseline_weights[name], x,
+                                          k=k)
                 logits = self.fns["head"](self._resident["head"], x)
             else:
                 logits = self._forward_once(toks, ledger, events, t0)
@@ -711,7 +833,7 @@ class PipeloadEngine:
                 prefill_s = time.perf_counter() - t0
         self._sync()
         lat = time.perf_counter() - t0
-        return toks, self._stats(ledger, events, lat, fsnap,
+        return toks, self._stats(ledger, events, lat, fsnap, snap,
                                  new_tokens=new_tokens, prefill_s=prefill_s,
                                  decode_s=lat - prefill_s)
 
@@ -725,21 +847,27 @@ class PipeloadEngine:
                                                  [], kv_cache=True)
         events: List[Tuple[float, str, str]] = []
         ledger = _Ledger(self.budget)
+        snap = self._expert_snap()
         fsnap = _fault_snap()
         toks = self.tokens(tokens)
         b, s0 = toks.shape
         total = s0 + new_tokens
         names = self.layer_names
         n = len(names)
+        expert_floor = (self.expert.working_set_bytes(b * s0)
+                        if self.expert is not None else None)
         # paged accounting: the feasibility check covers the final page
-        # count (a single request cannot be preempted mid-generation)
-        ps = self.page_size
+        # count (a single request cannot be preempted mid-generation).
+        # Expert-split MoE keeps the dense reservation: _bind_expert sizes
+        # the cache from the headroom at bind time, so pages mapped later
+        # would find their bytes handed to the cache and park on S_stop.
+        ps = self.page_size if self.expert is None else None
         if ps:
             cache_total = pages_for(total, ps) * n * self.cfg.cache_bytes(b,
                                                                            ps)
         else:
             cache_total = n * self.cfg.cache_bytes(b, total)
-        self._check_kv_budget(cache_total)
+        self._check_kv_budget(cache_total, expert_floor=expert_floor)
 
         caches: Dict[str, dict] = {}
         t0 = time.perf_counter()
@@ -760,16 +888,19 @@ class PipeloadEngine:
                 mapped["bytes"] = need
 
         ensure_slots(s0 if ps else total)
+        self._bind_expert(ledger, events, t0, round_tokens=b * s0)
         x = self.fns["embed"](self._resident["embed"], toks)
 
         def prefill_apply(k, w, h):
-            h, caches[names[k]] = self.fns["layer_cache"](w, h, total)
+            h, caches[names[k]] = self._layer_cache(k, w, h, total)
             self._sync()
             events.append((time.perf_counter() - t0, "cache_alloc",
                            names[k]))
             return h
 
         if self.mode == "baseline":
+            if self.expert is not None:
+                self.expert.begin_round()
             weights = getattr(self, "_baseline_weights", None)
             if weights is None:
                 weights = {}
@@ -797,8 +928,8 @@ class PipeloadEngine:
 
         def decode_apply(pos):
             def apply(k, w, h):
-                h, caches[names[k]] = self.fns["layer_decode"](
-                    w, h, caches[names[k]], pos)
+                h, caches[names[k]] = self._layer_decode(
+                    k, w, h, caches[names[k]], pos)
                 self._sync()
                 return h
             return apply
@@ -809,6 +940,8 @@ class PipeloadEngine:
             events.append((time.perf_counter() - t0, "token", str(step)))
             x = self.fns["embed"](self._resident["embed"], toks[:, -1:])
             if self.mode == "baseline":
+                if self.expert is not None:
+                    self.expert.begin_round()
                 for k, name in enumerate(names):
                     x = decode_apply(pos)(k, self._baseline_weights[name], x)
             else:
@@ -824,7 +957,7 @@ class PipeloadEngine:
         caches.clear()
         ledger.release(mapped["bytes"], owner="kv_pages")
         ledger.audit_check_drained("stream", "kv_pages")
-        return toks, self._stats(ledger, events, lat, fsnap,
+        return toks, self._stats(ledger, events, lat, fsnap, snap,
                                  new_tokens=new_tokens, prefill_s=prefill_s,
                                  decode_s=lat - prefill_s,
                                  cache_bytes=mapped["bytes"], kv_cache=True)
@@ -857,6 +990,10 @@ class PipeloadEngine:
         if not self.page_size:
             raise ValueError("speculative decoding needs the paged KV "
                              "cache: construct the engine with page_size")
+        if self.expert is not None:
+            raise ValueError("speculative decoding is not supported with "
+                             "expert-split MoE checkpoints (the verify "
+                             "window runs whole-layer module fns)")
         if "layer_verify_paged" not in self.fns:
             raise ValueError(
                 "speculative decoding needs the stacked GQA verify path; "
@@ -1083,6 +1220,11 @@ class PipeloadEngine:
                 "run_batch_round needs a pipelined mode (pipeload / "
                 "pipeswitch); baseline keeps the model resident and has "
                 "no round to amortise")
+        if paged_pools is not None and self.expert is not None:
+            raise ValueError(
+                "paged KV serving is not supported with expert-split "
+                "MoE checkpoints yet; repartition whole-layer or drop "
+                "page_size")
         if (decode_x is not None and decode_x.shape[1] > 1
                 and paged_pools is None):
             raise ValueError(
@@ -1106,8 +1248,8 @@ class PipeloadEngine:
                 dx, paged_pools[names[k]] = fn(
                     w, dx, paged_pools[names[k]], decode_tables, decode_pos)
             elif dx is not None:
-                dx, decode_caches[names[k]] = self.fns["layer_decode"](
-                    w, dx, decode_caches[names[k]], decode_pos)
+                dx, decode_caches[names[k]] = self._layer_decode(
+                    k, w, dx, decode_caches[names[k]], decode_pos)
             if cx is not None:
                 # chunk windows write their prompt slots into their own
                 # pages (a shared page gets the bytes a sibling wrote)
@@ -1115,7 +1257,7 @@ class PipeloadEngine:
                     w, cx, paged_pools[names[k]], chunk_tables, chunk_pos)
             nxt, captured = [], []
             for px in pxs:
-                px, c = self.fns["layer_cache"](w, px, prefill_total)
+                px, c = self._layer_cache(k, w, px, prefill_total)
                 nxt.append(px)
                 captured.append(c)
             if prefill_sink is not None and captured:
@@ -1127,6 +1269,13 @@ class PipeloadEngine:
             return dx, cx, nxt
 
         self._ensure_aux(ledger, events, t0)
+        widest = [px.shape[0] * px.shape[1] for px in prefill_xs]
+        if decode_x is not None:
+            widest.append(decode_x.shape[0])
+        if chunk_x is not None:
+            widest.append(chunk_x.shape[0] * chunk_x.shape[1])
+        self._bind_expert(ledger, events, t0,
+                          round_tokens=max(widest, default=1))
         dx, cx, pxs = self._run_pipeline((decode_x, chunk_x, list(prefill_xs)),
                                          ledger, events, t0,
                                          destroy=self.mode == "pipeload",
@@ -1135,40 +1284,57 @@ class PipeloadEngine:
         return dx, caches, pxs, prefill_caches, cx
 
     def _kv_floor(self, cache_total: int, *,
+                  expert_floor: Optional[int] = None,
                   extra_resident: int = 0) -> int:
         """Smallest budget that cannot deadlock a KV decode round holding
         ``cache_total`` bytes of cache: other layers + all cache + the
         pinned window + one streaming layer (the whole model for the
-        non-destroying modes).  ``extra_resident`` adds run-scoped
-        residents outside those tiers: the speculative path's pinned
-        draft and its dense cache."""
+        non-destroying modes) + for expert-split MoE the expert cache.
+        ``expert_floor`` sets that term to the workload's shrinkable
+        minimum (the scheduler's checks pass it); otherwise a bound
+        session counts its live reservation and a pre-run check the
+        smallest cache a single-token round runs with.  ``extra_resident``
+        adds run-scoped residents outside those tiers: the speculative
+        path's pinned draft and its dense cache."""
         other = sum(s["bytes"] for s in self.shards.values()
-                    if s["kind"] != "layer")
+                    if s["kind"] not in ("layer", "expert"))
         layer_sizes = [self.shards[nm]["bytes"] for nm in self.layer_names]
         if self.mode == "pipeload":
             pinned = sum(layer_sizes[:self.pin])
             streaming = max(layer_sizes[self.pin:], default=0)
         else:
             pinned, streaming = sum(layer_sizes), 0
-        return other + cache_total + pinned + streaming + extra_resident
+        expert = 0
+        if self.expert is not None:
+            if expert_floor is not None:
+                expert = expert_floor
+            else:
+                expert = (self.expert.reserved if self.expert.bound
+                          else self.expert.min_ws)
+        return (other + cache_total + pinned + streaming + expert
+                + extra_resident)
 
     def _check_kv_budget(self, cache_total: int, *, inflight: int = 1,
+                         expert_floor: Optional[int] = None,
                          extra_resident: int = 0):
         """Raise unless the budget clears the decode floor for the full
         multi-request reservation; below it the pipeline deadlocks with
-        every loader parked on S_stop.  ``extra_resident`` adds the
+        every loader parked on S_stop.  ``expert_floor`` sets the expert
+        cache's term (``_kv_floor``); ``extra_resident`` adds the
         speculative draft's pinned bytes."""
         if self.budget is None:
             return
-        floor = self._kv_floor(cache_total, extra_resident=extra_resident)
+        floor = self._kv_floor(cache_total, expert_floor=expert_floor,
+                               extra_resident=extra_resident)
         if self.budget < floor:
             per_req = cache_total // max(inflight, 1)
             raise ValueError(
                 f"budget {self.budget} below the KV decode floor {floor} "
                 f"for {inflight} in-flight request(s) "
                 f"(cache={cache_total} = {inflight} x {per_req} "
-                f"cache-page bytes, plus other layers, the pinned window "
-                f"and one streaming layer); use the generation-aware "
+                f"cache-page bytes, plus other layers, the pinned window, "
+                f"one streaming layer and, for expert-split MoE, the "
+                f"expert cache); use the generation-aware "
                 f"planner (Hermes.plan_generate) to pick a feasible "
                 f"(num_agents, pin_window, max_inflight), or let the "
                 f"scheduler queue the request until pages free up")

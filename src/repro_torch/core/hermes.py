@@ -15,6 +15,8 @@
                             spec_depth=4)       # speculative serving
     tier = hermes.scheduler(budget_bytes=b1, page_sizes=(16,),
                             slo_ttft_s=2.0)     # SLO in plan rounds
+    stats = hermes.execute(tokens, generate=32, kv_cache=True,
+                           budget_bytes=b1)     # §IV-3, the planned run
 
 The profile is cached in the checkpoint directory as
 ``profile_torch_<device>.json``, so it never collides with the JAX
@@ -32,7 +34,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.checkpoint.partition import ensure_quantized
-from repro_torch.core.engine import (DraftModel, PipeloadEngine,
+from repro_torch.core.engine import (DraftModel, PipeloadEngine, RunStats,
                                      blas_workspace_bytes, resolve_device)
 from repro_torch.core.planner import (GenPlanEntry, PlanEntry, plan,
                                       plan_generate)
@@ -65,6 +67,15 @@ class Hermes:
         self.device = resolve_device(device)
         self._profile: Optional[Dict] = None
         self._variants: Dict[str, "Hermes"] = {}
+
+    # ---- Telemetry (core/telemetry.py) ---------------------------------
+    def telemetry(self):
+        """The process-wide telemetry handle: ``.enable()`` turns on span
+        tracing across every PIPELOAD subsystem, ``.metrics`` is the
+        always-on registry, ``.export_chrome_trace(path)`` writes a
+        Perfetto-loadable timeline of the runs since ``enable()``."""
+        from repro_torch.core.telemetry import telemetry
+        return telemetry()
 
     # ---- Layer Profiler ------------------------------------------------
     def profile_path(self) -> Path:
@@ -191,6 +202,7 @@ class Hermes:
                num_agents: Optional[int] = None,
                pin_window: int = 0,
                attn_impl: Optional[str] = "auto",
+               expert_cache_bytes: Optional[int] = None,
                page_size: Optional[int] = None) -> PipeloadEngine:
         if num_agents is None and mode == "pipeload":
             num_agents = self.best_agents(budget_bytes)
@@ -198,6 +210,7 @@ class Hermes:
                               num_agents=num_agents or 1,
                               budget_bytes=self.ledger_budget(budget_bytes),
                               pin_window=pin_window, attn_impl=attn_impl,
+                              expert_cache_bytes=expert_cache_bytes,
                               page_size=page_size, device=self.device)
 
     def scheduler(self, *, budget_bytes: Optional[int] = None,
@@ -283,6 +296,7 @@ class Hermes:
                           pin_window=(pin_window if pin_window is not None
                                       else g.pin_window),
                           attn_impl=attn_impl,
+                          expert_cache_bytes=g.expert_cache_bytes or None,
                           page_size=g.page_size or None)
         if slo is None and (slo_ttft_s or slo_tpot_s):
             # seconds -> the scheduler's rounds clock, through the winning
@@ -302,3 +316,40 @@ class Hermes:
                               chunk_prefill=(chunk_prefill
                                              if g.page_size else 0),
                               slo=slo)
+
+    def execute(self, tokens, *, generate: int = 0, mode: str = "pipeload",
+                budget_bytes: Optional[int] = None,
+                num_agents: Optional[int] = None,
+                pin_window: Optional[int] = None,
+                kv_cache: bool = False) -> RunStats:
+        """The planned run (paper §IV-3): ``run_single`` on ``tokens``, or
+        ``run_generate`` of ``generate`` tokens.  A pipelined KV-cache
+        generation with the schedule left open takes the generation-aware
+        plan's (num_agents, pin_window) and, for expert-split MoE, its
+        expert cache size.  ``budget_bytes`` is a device budget
+        (``ledger_budget``).  Returns the run's ``RunStats``."""
+        expert_cache = None
+        if (kv_cache and generate and mode == "pipeload"
+                and (num_agents is None or pin_window is None)):
+            b, s0 = tokens.shape
+            g = self.plan_generate([budget_bytes], batch=b, prompt_len=s0,
+                                   new_tokens=generate)[0]
+            if not g.feasible:
+                raise ValueError(
+                    f"no feasible generation schedule for budget "
+                    f"{budget_bytes}: best candidate predicts peak "
+                    f"{g.predicted_peak_bytes} bytes ({g.cache_bytes} of "
+                    f"KV cache); raise the budget or shrink "
+                    f"batch/prompt/new_tokens")
+            num_agents = g.num_agents if num_agents is None else num_agents
+            pin_window = g.pin_window if pin_window is None else pin_window
+            expert_cache = g.expert_cache_bytes or None
+        with self.engine(mode=mode, budget_bytes=budget_bytes,
+                         num_agents=num_agents, pin_window=pin_window or 0,
+                         expert_cache_bytes=expert_cache) as eng:
+            if generate:
+                _, stats = eng.run_generate(tokens, generate,
+                                            kv_cache=kv_cache)
+            else:
+                _, stats = eng.run_single(tokens)
+        return stats

@@ -26,6 +26,26 @@ Quantized checkpoints arrive as weight trees whose 2-D matmul weights are
 trees inside its jit, the port multiplies by the quantized form
 (``common.linear``) and gathers embedding rows from it (``take_rows``), so
 no fp32 copy of a quantized weight is built.
+
+MoE-family configs run ``models/moe.py``'s experts inside the whole-layer
+fns (whole-layer checkpoints) and also get the **expert-streaming split**
+of the layer forward, which ``core/expert_stream.py`` drives for
+expert-split checkpoints:
+
+  * ``moe_router`` / ``moe_router_cache`` / ``moe_router_decode``: the
+    attention block (the same kernels as the dense fns) plus the router.
+    They return the post-attention residual, the normed FFN input and the
+    batch's normalised top-k routing ``(top_w, top_ids)``; the engine
+    reads ``top_ids`` back and demand-loads exactly those experts.
+  * ``moe_combine``: capacity-based dispatch, expert FFN and combine over
+    the round's activated experts only.  Every kept (token, expert) pair
+    lands in the buffer row the in-memory oracle gives it, with the same
+    capacity-drop rule; experts that received no token had all-zero rows
+    in the oracle.  Unlike the reference, the union is not padded to a
+    power-of-two bucket (the bucket exists so XLA compiles once per
+    bucket; eager PyTorch compiles nothing), and the experts run one by
+    one on their weights as streamed, so no stacked copy of the union's
+    weights is built on the device.
 """
 from __future__ import annotations
 
@@ -34,14 +54,16 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.checkpoint.quant import is_quantized
+from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.attention import KERNEL
 from repro_torch.models.common import linear, rms_norm
-from repro_torch.models.config import DENSE, ModelConfig
+from repro_torch.models.config import DENSE, MOE, ModelConfig
 from repro_torch.models.dense_lm import (check_dense, layer_decode,
                                          layer_decode_paged, layer_prefill,
                                          layer_verify_paged)
 
-ENGINE_FAMILIES = (DENSE,)
+ENGINE_FAMILIES = (DENSE, MOE)
 
 
 def check_engine_family(cfg: ModelConfig, where: str = "the PIPELOAD "
@@ -87,7 +109,9 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
                      device="cuda") -> Dict[str, Callable]:
     """{embed, layer, layer_cache, layer_decode, layer_decode_paged,
     [layer_verify_paged,] head, head_all} apply functions (weights are
-    arguments: the engine streams them)."""
+    arguments: the engine streams them), plus the expert-streaming split
+    (moe_router, moe_router_cache, moe_router_decode, moe_combine) for
+    MoE-family configs."""
     check_engine_family(cfg)
     impl = resolve_attn_impl(attn_impl, device)
 
@@ -171,4 +195,86 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
         # the stacked path has no windowed variant; the key's presence is
         # how callers test for it
         fns["layer_verify_paged"] = layer_verify_paged_apply
+    if cfg.family == MOE:
+        fns.update(_build_moe_stream_fns(cfg, impl))
     return fns
+
+
+# ===========================================================================
+# Expert-streaming MoE split (core/expert_stream.py drives these)
+# ===========================================================================
+def _build_moe_stream_fns(cfg: ModelConfig,
+                          impl: Optional[str]) -> Dict[str, Callable]:
+    k, n_e = cfg.top_k, cfg.n_experts
+
+    def route(weights, x):
+        """Post-attention residual -> (flat FFN input, normalised top-k
+        weights, expert ids): ``models/moe._moe_local``'s routing."""
+        hf = rms_norm(x, weights["ffn_norm"], cfg.norm_eps)
+        hf = hf.reshape(-1, hf.shape[-1])
+        logits = moe.router_logits(weights["moe"]["router"], hf)
+        _, top_w, top_ids = moe.top_k_routing(logits, k)
+        return hf, top_w, top_ids
+
+    def attn_prefill(weights, x, make_cache: bool):
+        h = rms_norm(x, weights["attn_norm"], cfg.norm_eps)
+        a, cache = attn.gqa_prefill(weights["attn"], h, cfg, _positions(x),
+                                    causal=cfg.causal,
+                                    make_cache=make_cache, attn_impl=impl)
+        return x + a, cache
+
+    def moe_router_apply(weights, x):
+        """Full-sequence attention + router (no cache)."""
+        xa, _ = attn_prefill(weights, x, False)
+        return (xa,) + route(weights, xa)
+
+    def moe_router_cache_apply(weights, x, total_len: int):
+        """Cache-capturing prefill (padded as ``layer_cache`` pads)."""
+        xa, cache = attn_prefill(weights, x, True)
+        cache = {name: _pad_seq(a, total_len) for name, a in cache.items()}
+        return (xa, cache) + route(weights, xa)
+
+    def moe_router_decode_apply(weights, x, cache, pos):
+        """One token per row against the layer cache, then the router;
+        ``pos`` an int or a ragged (B,) device vector."""
+        h = rms_norm(x, weights["attn_norm"], cfg.norm_eps)
+        a, cache = attn.gqa_decode(weights["attn"], h, cfg, cache, pos,
+                                   attn_impl=impl)
+        xa = x + a
+        return (xa, cache) + route(weights, xa)
+
+    def moe_combine_apply(experts, ids, xa, hf, top_w, top_ids):
+        """Dispatch + expert FFN + combine over the round's streamed
+        experts: ``experts[i]`` holds the weights of global expert
+        ``ids[i]`` (``ids`` ascending).  The dispatch is the oracle's
+        ``_dispatch_indices`` over all experts (same capacity, same drop
+        rule); each kept pair's global row is then moved onto the union's
+        buffer."""
+        u = len(ids)
+        t, d = hf.shape
+        dev = hf.device
+        cap = moe.capacity(cfg, t)
+        slots = moe._dispatch_indices(top_ids, k, n_e, cap, 0, n_e)
+        # global expert id -> union slot (-1: not streamed this round)
+        inv = torch.full((n_e + 1,), -1, dtype=torch.long, device=dev)
+        inv[torch.as_tensor(ids, dtype=torch.long, device=dev)] = \
+            torch.arange(u, device=dev)
+        uslot = inv[torch.clamp(slots // cap, max=n_e)]
+        local = torch.where((slots < n_e * cap) & (uslot >= 0),
+                            uslot * cap + slots % cap,
+                            torch.full_like(slots, u * cap))
+        tok = torch.arange(t, device=dev).repeat_interleave(k)
+        buf = hf.new_zeros((u * cap + 1, d))       # + a sink for drops
+        buf[local.reshape(-1)] = hf[tok]
+        out = hf.new_empty((u * cap, d))
+        for i, w in enumerate(experts):
+            rows = slice(i * cap, (i + 1) * cap)
+            out[rows] = moe._expert_ffn(buf[rows][None], w["w_gate"][None],
+                                        w["w_up"][None],
+                                        w["w_down"][None])[0]
+        return xa + moe.combine(out, local, top_w).reshape(xa.shape)
+
+    return {"moe_router": moe_router_apply,
+            "moe_router_cache": moe_router_cache_apply,
+            "moe_router_decode": moe_router_decode_apply,
+            "moe_combine": moe_combine_apply}

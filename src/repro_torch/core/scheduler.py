@@ -187,6 +187,12 @@ class ServeStats:
     cow_copies: int = 0            # copy-on-write page swaps
     preemptions: int = 0           # requests bounced back to the queue
     pool_pages_peak: int = 0       # high-water MAPPED page count
+    # expert-streaming extras (0 for dense / whole-layer MoE serving)
+    expert_hits: int = 0
+    expert_misses: int = 0
+    expert_evictions: int = 0
+    expert_cache_bytes: int = 0
+    unique_experts_per_round: float = 0.0
     # speculative-decoding extras (0 when spec_depth is unset)
     spec_depth: int = 0            # draft tokens proposed per round
     spec_rounds: int = 0           # verify rounds executed
@@ -234,6 +240,12 @@ class ServeStats:
         """Fraction of draft proposals the target accepted."""
         return (self.accepted_tokens / self.draft_tokens
                 if self.draft_tokens else 0.0)
+
+    @property
+    def expert_hit_rate(self) -> float:
+        """Fraction of expert activations served from the ExpertCache."""
+        total = self.expert_hits + self.expert_misses
+        return self.expert_hits / total if total else 0.0
 
     def event_log(self, kinds=None):
         return [e for e in self.events if kinds is None or e[1] in kinds]
@@ -341,6 +353,11 @@ class BatchScheduler:
         self._pools: Optional[Dict[str, dict]] = None  # layer -> (P, ps, ..)
         self.preemptions = 0
         if self.page_size:
+            if engine.expert is not None:
+                raise ValueError(
+                    "paged KV serving is not supported with expert-split "
+                    "MoE checkpoints yet; repartition whole-layer or drop "
+                    "page_size")
             ps = self.page_size
             # the verify window writes K/V for [pos, pos + depth]; the last
             # round's can run past max_total_len, so tables carry those
@@ -368,6 +385,14 @@ class BatchScheduler:
         else:
             self._req_headroom = 1 if self.page_size else 0
         self._draft_pinned = self.spec_depth > 0
+        self._expert_snap = (engine.expert.snapshot()
+                             if engine.expert is not None else None)
+        # the widest fetch this workload can lock (a max-length prompt's
+        # prefill): admission may shrink the ExpertCache to this, never
+        # below, and submit-time feasibility reasons from it
+        self._expert_floor = (
+            engine.expert.working_set_bytes(max_total_len)
+            if engine.expert is not None else None)
 
     # ------------------------------------------------------------------
     def close(self):
@@ -417,6 +442,7 @@ class BatchScheduler:
         else:
             per_req = self._per_req_cache
         self.engine._check_kv_budget(per_req, inflight=1,
+                                     expert_floor=self._expert_floor,
                                      extra_resident=self._spec_resident(1))
         arrival = max(arrival_round, 0)
         req = Request(self._next_rid, prompt, max_new_tokens,
@@ -441,12 +467,29 @@ class BatchScheduler:
 
     def _fits(self, extra_cache: int) -> bool:
         """Would the decode floor still clear the budget after granting
-        ``extra_cache`` more cache bytes?"""
+        ``extra_cache`` more cache bytes?  When it misses only because the
+        ExpertCache holds the headroom, the cache shrinks first (LRU
+        eviction releasing ledger bytes, the cache's ``S_dest``), so a
+        queued request's cache wins over cold experts."""
         eng = self.engine
         if eng.budget is None:
             return True
-        return eng._kv_floor(self._cache_resident + extra_cache) \
-            <= eng.budget
+        # until the expert engine is bound to THIS session's ledger its
+        # live reservation does not count here: reason from the
+        # workload's expert floor, so early admissions leave room for the
+        # cache's minimum working set
+        pre_bind = (eng.expert is not None
+                    and not eng.expert.bound_to(self.ledger))
+        kw = {"expert_floor": self._expert_floor} if pre_bind else {}
+        floor = eng._kv_floor(self._cache_resident + extra_cache, **kw)
+        if floor <= eng.budget:
+            return True
+        if eng.expert is not None and not pre_bind:
+            if eng.expert.release_headroom(floor - eng.budget,
+                                           floor=self._expert_floor):
+                floor = eng._kv_floor(self._cache_resident + extra_cache)
+                return floor <= eng.budget
+        return False
 
     # ---- paged-mode admission / growth / preemption ------------------
     def _spec_resident(self, inflight: int) -> int:
@@ -1115,6 +1158,10 @@ class BatchScheduler:
         launches = {k: n - launches0[k] for k, n in _ops.LAUNCHES.items()}
         outs = {rid: np.asarray(r.tokens)
                 for rid, r in sorted(self.done.items())}
+        expert_kw = {}
+        if self.engine.expert is not None:
+            expert_kw = self.engine.expert.stats_since(self._expert_snap)
+            self._expert_snap = self.engine.expert.snapshot()
         paged_kw = {}
         if self.page_size:
             paged_kw = dict(
@@ -1139,7 +1186,8 @@ class BatchScheduler:
                                       "prefetch.faults_absorbed")
         # every request retired: the request-scoped tiers must have
         # drained exactly (audit mode raises naming the leaking owner; the
-        # pinned window and draft stay resident for the session)
+        # pinned window, draft and expert reservation stay resident for
+        # the session)
         self.ledger.audit_check_drained("stream", "kv_pages",
                                         "spec_headroom")
         stats = ServeStats(
@@ -1149,7 +1197,8 @@ class BatchScheduler:
             new_tokens=sum(r.generated for r in self.done.values()),
             requests=len(self.done), max_inflight_seen=self._max_seen,
             cache_bytes_peak=cache_peak, events=self.events,
-            seed=self.seed, **paged_kw, **spec_kw, chunk_size=self.chunk,
+            seed=self.seed, **paged_kw, **expert_kw, **spec_kw,
+            chunk_size=self.chunk,
             chunk_jobs=self._chunk_jobs,
             retries=faults[0] - self._fault_base[0],
             faults_absorbed=faults[1] - self._fault_base[1],
@@ -1172,6 +1221,8 @@ class BatchScheduler:
         m.gauge("serve.cache_peak_bytes").set(stats.cache_bytes_peak)
         for owner, nbytes in stats.peak_breakdown.items():
             m.gauge(f"ledger.peak.{owner}_bytes").set(nbytes)
+        if stats.expert_hits or stats.expert_misses:
+            m.gauge("serve.expert_hit_rate").set(stats.expert_hit_rate)
         if stats.draft_tokens:
             m.gauge("serve.acceptance_rate").set(stats.acceptance_rate)
         if stats.page_size:
@@ -1257,8 +1308,11 @@ class BatchScheduler:
              else self.max_total_len)
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.long,  # noqa
                                            device=eng.device)
+        # expert-split MoE: the engine's hooks fetch through the expert
+        # cache (unbound yet, so nothing is charged)
         for s in sorted(set(int(p) for p in prompt_lens)):
-            px, _ = fns["layer_cache"](w0, fns["embed"](emb, zeros(1, s)), T)
+            px, _ = eng._layer_cache(0, w0, fns["embed"](emb, zeros(1, s)),
+                                     T)
             fns["head"](head, px)
         if self.page_size:
             # the warm-up tables point every slot at page 0; speculative
@@ -1300,13 +1354,17 @@ class BatchScheduler:
                     self.draft.decode_batch(zeros(r, 1), dcr, zeros(r))
                 del dcr
         else:
-            _, c1 = fns["layer_cache"](w0, fns["embed"](emb, zeros(1, 1)), T)
+            _, c1 = eng._layer_cache(0, w0, fns["embed"](emb, zeros(1, 1)),
+                                     T)
             for r in range(1, self.max_inflight + 1):
                 cr = {k: torch.cat([a] * r) for k, a in c1.items()}
-                dr, _ = fns["layer_decode"](
-                    w0, fns["embed"](emb, zeros(r, 1)), cr, zeros(r))
+                dr, _ = eng._layer_decode(
+                    0, w0, fns["embed"](emb, zeros(r, 1)), cr, zeros(r))
                 fns["head"](head, dr)
         eng._sync()
         del w0, emb, head
+        if eng.expert is not None:
+            # the warm-up's fetches are not serving traffic
+            self._expert_snap = eng.expert.snapshot()
         self._t0 = time.perf_counter()
         return self

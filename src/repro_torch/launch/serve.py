@@ -53,13 +53,22 @@ through the planned round latency, set the scheduler's rounds-based
 ``SLO``; ``--slo-shed`` rejects requests whose TTFT target is out of
 reach at admission.
 
+MoE architectures (e.g. ``--arch qwen3_moe_30b_a3b``) are partitioned
+expert-split and served through the expert-streaming subsystem
+(``core/expert_stream.py``): attention+router shards stream as layers do,
+the round's activated experts are demand-loaded after the router runs,
+and the planner sizes the expert cache jointly with the schedule.  The
+summary reports the expert hit rate, the unique experts per round and the
+cache's bytes.  Paged KV (``--page-size``) is refused with expert-split
+checkpoints, as the reference's scheduler refuses it, and quantized
+expert shards (``--quant``) are not yet ported.
+
 Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
 ``$TMPDIR/repro_torch_ckpts``, apart from the JAX package's, and the
 profile is cached as ``profile_torch_<device>.json``.  An ``--arch`` of a
-family not yet ported (MoE, MLA, VLM, recurrent, encoder-decoder) exits
-with a "not yet ported in repro_torch" error before any checkpoint is
-written.
+family not yet ported (MLA, VLM, recurrent, encoder-decoder) exits with a
+"not yet ported in repro_torch" error before any checkpoint is written.
 """
 from __future__ import annotations
 
@@ -83,6 +92,7 @@ from repro_torch.core.hermes import spec_plan_kw
 from repro_torch.core.modules import check_engine_family
 from repro_torch.data.traces import (load_trace, make_trace, submit_trace,
                                      trace_max_len)
+from repro_torch.models.config import MOE
 from repro_torch.models.dense_lm import init_params
 
 CKPT_ROOT = Path(tempfile.gettempdir()) / "repro_torch_ckpts"
@@ -154,6 +164,13 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     check_ported(cfg, "--arch", arch if isinstance(arch, str) else cfg.name)
     if draft_arch:
         check_ported(get(draft_arch), "--draft-arch", draft_arch)
+    if cfg.family == MOE and page_size:
+        raise SystemExit("error: paged KV serving is not supported with "
+                         "expert-split MoE checkpoints yet; repartition "
+                         "whole-layer or drop page_size")
+    if cfg.family == MOE and quant != "fp32":
+        raise SystemExit(f"error: --quant {quant} of an expert-split MoE "
+                         f"checkpoint is not yet ported in repro_torch")
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")
@@ -293,7 +310,9 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
           f"(cache {g.cache_bytes/2**20:.1f}MB"
           + (f", page size {g.page_size}" if g.page_size else "")
           + (f", spec depth {depth}" if depth else "")
-          + (f", chunk {chunk_prefill}" if chunk_prefill else "") + ")")
+          + (f", chunk {chunk_prefill}" if chunk_prefill else "")
+          + (f", expert cache {g.expert_cache_bytes/2**20:.1f}MB"
+             if g.expert_cache_bytes else "") + ")")
     if slo_ttft_ms or slo_tpot_ms:
         print(f"planner(slo): predicted ttft {g.predicted_ttft_s*1e3:.0f}ms"
               f" / tpot {g.predicted_tpot_s*1e3:.1f}ms -> "
@@ -313,7 +332,9 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
                       shed=slo_shed)
     eng = hermes.engine(mode="pipeload", budget_bytes=budget,
                         num_agents=agents, pin_window=pin,
-                        attn_impl=attn_impl, page_size=g.page_size or None)
+                        attn_impl=attn_impl,
+                        expert_cache_bytes=g.expert_cache_bytes or None,
+                        page_size=g.page_size or None)
     sched = BatchScheduler(eng, max_inflight=g.inflight,
                            max_total_len=total_len,
                            prefix_cache=prefix_cache, seed=seed,
@@ -379,6 +400,13 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
                                   "tok/s)")
         rows["shed"] = stats.slo_rejections
         rows["tenants"] = stats.tenants
+    if eng.expert is not None:
+        rows["expert_hit_rate"] = (f"{stats.expert_hit_rate:.0%} "
+                                   f"({stats.expert_hits} hits / "
+                                   f"{stats.expert_misses} loads, "
+                                   f"{stats.expert_evictions} evicted)")
+        rows["experts_per_round"] = f"{stats.unique_experts_per_round:.1f}"
+        rows["expert_cache_mb"] = f"{stats.expert_cache_bytes/2**20:.1f}"
     if stats.spec_depth:
         rows["spec_depth"] = stats.spec_depth
         rows["spec_accepted"] = (f"{stats.accepted_tokens}/"

@@ -1,6 +1,7 @@
-"""Dense GQA decoder layers: init, prefill and single-token decode.
+"""GQA decoder layers, dense and MoE: init, prefill and single-token decode.
 
-PyTorch port of the dense-family part of ``repro/models/dense_lm.py``.
+PyTorch port of the dense and MoE families of ``repro/models/dense_lm.py``
+(an MoE layer's FFN is ``models/moe.py``'s capacity-dispatched experts).
 Parameters are nested dicts with the reference's keys and ``(in, out)``
 layout; ``init_params`` stacks the layers on a leading axis, as the
 reference's ``vmap``-ed init does, so ``checkpoint.partition_and_save``
@@ -13,15 +14,15 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.models import attention as attn
-from repro_torch.models import common
-from repro_torch.models.config import DENSE, ModelConfig
+from repro_torch.models import common, moe
+from repro_torch.models.config import DENSE, MOE, ModelConfig
 
 
 def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+    if cfg.family not in (DENSE, MOE):
         raise NotImplementedError(
             f"model family '{cfg.family}' ({cfg.name}) is not yet ported in "
-            f"repro_torch (dense only)")
+            f"repro_torch (dense and MoE only)")
     attn.check_gqa(cfg)
 
 
@@ -29,13 +30,17 @@ def check_dense(cfg: ModelConfig) -> None:
 # Init (numpy, from an explicit generator)
 # ===========================================================================
 def layer_init(rng: np.random.Generator, cfg: ModelConfig) -> dict:
-    return {
+    p = {
         "attn_norm": np.ones((cfg.d_model,), cfg.dtype),
         "attn": attn.gqa_init(rng, cfg),
         "ffn_norm": np.ones((cfg.d_model,), cfg.dtype),
-        "mlp": common.mlp_init(rng, cfg.d_model, cfg.d_ff, cfg.dtype,
-                               gated=cfg.gated_mlp),
     }
+    if cfg.family == MOE:
+        p["moe"] = moe.moe_init(rng, cfg)
+    else:
+        p["mlp"] = common.mlp_init(rng, cfg.d_model, cfg.d_ff, cfg.dtype,
+                                   gated=cfg.gated_mlp)
+    return p
 
 
 def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
@@ -65,6 +70,8 @@ def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
 # ===========================================================================
 def _ffn(p, x, cfg: ModelConfig, impl: Optional[str]):
     h = common.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if cfg.family == MOE:
+        return x + moe.moe_apply(p["moe"], h, cfg)[0]
     return x + common.mlp_apply(p["mlp"], h, impl)
 
 

@@ -110,6 +110,6 @@ def test_resolve_attn_impl():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_fns(torch_get("qwen3_moe_30b_a3b").reduced(), device="cpu")
+        torch_fns(torch_get("seamless_m4t_medium").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         torch_fns(torch_get("minicpm3_4b").reduced(), device="cpu")
