@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero:
    the speculative rounds' shape (B=4, W=5, NB=11, 6 shared pages).
    flash_attention and flash_decode also at phase 16's GQA shapes (32
    query heads on 4 KV heads, G=8, head_dim 128): the prefill B=1 S=32 in
-   fp32, fp16 and bf16, the decode B=2 S=40 in fp32 and fp16.  For
+   fp32, fp16 and bf16, the decode B=2 S=40 in fp32 and fp16.
+   quantized_matmul also at phase 17's streamed-expert shapes, int8 and
+   int4 on fp16 activations: M = 8 (the expert capacity) at K=2048 N=768
+   (w_gate, w_up) and K=768 N=2048 (w_down).  For
    every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
@@ -54,28 +57,31 @@ Phases, in order; any failure exits non-zero:
    decode round and flash_attention once per layer per admitted request's
    prefill.
 4. Phase 3's 4 requests through the plain versions
-   (``attn_impl=None``): the greedy tokens must equal phase 3's, unless
-   the first differing step is a tie (top-2 logit gap below 1e-4).
+   (``attn_impl=None``), their first 8 new tokens (``PLAIN_NEW_TOKENS``):
+   the greedy tokens must equal phase 3's first ones, unless the first
+   differing step is a tie (top-2 logit gap below 1e-4).
 5. The paged path: the same requests with their first 96 prompt tokens
    shared, ``page_size=16``.  The planner must pick page size 16, the
    prefix tree must hit, and the serving loop must launch
    paged_flash_decode exactly once per layer per decode round.
-6. Phase 5's 4 requests through the plain versions; tokens as in
-   phase 4.
+6. Phase 5's 4 requests through the plain versions, 8 new tokens;
+   tokens as in phase 4.
 7. The chunked-prefill path: the first 4 of phase 5's requests, 16 new
    tokens, ``chunk_prefill=64``.  Chunk jobs must run, flash_attention
    must not launch, paged_flash_verify must launch exactly once per layer
    per round with a chunker, and the tokens must equal phase 5's first
    ones (or first differ at a tie).
 8-9. The quant paths, int8 then int4: phase 3's checkpoint transcoded by
-   the port's ``ensure_quantized`` and served as phase 3 is (``--quant
-   int8`` / ``int4``) under a budget below the quantized checkpoint plus
+   the port's ``ensure_quantized`` and served as phase 3 is (its 4
+   requests, ``--quant int8`` / ``int4``) under a budget below the
+   quantized checkpoint plus
    its KV (300 / 250 MiB), so layers still stream and are destroyed.
    quantized_matmul must launch exactly 145 times (24 layers x 6 linears
    + the head) per decode round and per prefill, the attention kernels as
    in phase 3; ``streamed_bytes`` must equal the quantized manifest bytes
-   of the shards loaded; the first 4 requests through the plain versions
-   must give the same tokens (tie rule); and one prompt's last-token
+   of the shards loaded; the same requests through the plain versions,
+   8 new tokens, must give the same first tokens (tie rule); and one
+   prompt's last-token
    logits on int8 shards must be within 5% of the fp32 checkpoint's
    (max |delta| over max |fp32 logit|, docs/quantization.md; the int4
    figure is printed without a limit).
@@ -142,8 +148,8 @@ Phases, in order; any failure exits non-zero:
    the budget less cuBLAS's workspace.
 16. MoE expert streaming: qwen3_moe_30b_a3b at full width (d 2048, 32
    query heads on 4 KV heads x 128, 128 experts top-8 of d_ff 768, vocab
-   151936 -> 153600), depth cut to 2 of 48 layers, stored in fp16 (no
-   bf16 shard is readable), routers x8 after init (``MOE_ROUTER_SCALE``),
+   151936 -> 153600), depth cut to 2 of 48 layers, stored in fp16 (the
+   baseline of phase 17), routers x8 after init (``MOE_ROUTER_SCALE``),
    written expert-split from numpy seed 0: 2 requests of 32 + 8 tokens
    through ``serve.run`` under ``MOE_BUDGET_MB``, kernels then plain
    versions on the same schedule.  The serving loop must launch
@@ -165,6 +171,20 @@ Phases, in order; any failure exits non-zero:
    ``streamed_bytes`` to the manifest bytes of every load, and the
    telemetry counters' hits and misses over the serving loop to the
    stats'.
+17. Quantized expert streaming: phase 16's checkpoint transcoded to int8
+   by the port's ``ensure_quantized`` (while nvcc builds; the routers
+   stay fp32) and served as phase 16 is through ``serve.run(...,
+   quant="int8")`` under ``MOE_QUANT_BUDGET_MB``, kernels then plain
+   versions.  The budget's reckoning from the int8 manifest is printed:
+   its ledger share must hold the embed, head, KV, one layer's experts
+   and one streaming layer but not two.  Every phase 16 check holds, and
+   quantized_matmul must launch exactly once per attention linear per
+   layer per pass, once per pass for the head, and three times per
+   streamed expert (the union of each recorded router call's picks); the
+   kernel run must widen no quantized weight to fp32 and the plain run
+   some; the allocator peak follows the quant paths' rule below.  The
+   per-expert bytes against phase 16's and how many requests' tokens
+   equal phase 16's are printed, not checked.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -199,8 +219,10 @@ autotune shape and the tile the sweep chose).  paged_flash_verify's
 launches add the chunked and the speculative phases'; every attention
 kernel also reports phase 13's launches (``spec_launches``,
 ``spec_serve_launches``), phase 15's (``slo_launches``,
-``slo_serve_launches``) and phase 16's (``moe_launches``,
-``moe_serve_launches``).  Before them, each phase's wall.
+``slo_serve_launches``), phase 16's (``moe_launches``,
+``moe_serve_launches``) and phase 17's (``moe_quant_launches``,
+``moe_quant_serve_launches``; quantized_matmul has these two as well).
+Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
 with its times) and prints no result line.
@@ -304,6 +326,17 @@ MOE_LAYERS = 2
 MOE_PATH = dict(requests=2, prompt_len=32, new_tokens=8, max_inflight=2)
 MOE_BUDGET_MB = 2440
 MOE_ROUTER_SCALE = 8.0
+# phase 17, phase 16's checkpoint transcoded to int8 (the routers kept
+# fp32): embed and head 629,772,392 B together, a layer's attention+router
+# shard 19,960,016 B, 128 experts of 4,733,084 B per layer (605,834,752 B;
+# fp16's 9,437,184 B per expert is 1.994x).  Sized as MOE_BUDGET_MB: the
+# ledger's share (1,266,679,808 B after cuBLAS's 32 MiB) holds the embed,
+# head, KV, one layer's experts and ONE streaming layer (1,255,894,840 B
+# with 2 x 2 x 40 KV rows) but not two (1,275,854,856 B), so every layer
+# streams and the cache evicts; the phase prints the reckoning from the
+# manifest and fails if the budget falls outside it
+MOE_QUANT = "int8"
+MOE_QUANT_BUDGET_MB = 1240
 DRAFT_STEPS = [0]                # DraftModel.decode_batch calls
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
@@ -655,29 +688,44 @@ def paged_cases(torch, ref, gen):
 
 
 def quant_shapes(cfg):
-    """Every (kind, M, K, N) the quant paths give quantized_matmul, with
-    its launches per decode round (kind "decode": M = the 4 in flight) or
-    per prefill (kind "prefill": M = the 128-token prompt, and M = 1 for
-    the head, which reads the last position only)."""
+    """Every (kind, M, K, N, launches) the quant paths give
+    quantized_matmul: kind "decode" at M = the in-flight rows, once per
+    decode round, and kind "prefill" at M = the prompt (M = 1 for the
+    head, which reads the last position only), once per prefill; phases
+    8-9's shapes for a dense config, phase 17's for an MoE one.  An MoE
+    config's FFN is its experts' (``expert_d_ff``): kind "expert" at
+    M = the capacity of a phase 17 prefill (a decode round's is the same
+    8 rows), with its launches per streamed expert (its count per round
+    follows the routing)."""
+    path = MOE_PATH if cfg.family == "moe" else MAIN
     d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
-    layer = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, cfg.d_ff),
-             (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.gated_mlp else [])
+    layer = [(d, hd), (d, kvd), (d, kvd), (hd, d)]
+    f = cfg.expert_d_ff if cfg.family == "moe" else cfg.d_ff
+    ffn = [(d, f), (f, d)] + ([(d, f)] if cfg.gated_mlp else [])
     per_layer = {}
-    for kn in layer:
+    for kn in layer + ([] if cfg.family == "moe" else ffn):
         per_layer[kn] = per_layer.get(kn, 0) + cfg.num_layers
     head = (d, cfg.padded_vocab)
     out = []
-    for kind, m in (("decode", MAIN["max_inflight"]),
-                    ("prefill", MAIN["prompt_len"])):
+    for kind, m in (("decode", path["max_inflight"]),
+                    ("prefill", path["prompt_len"])):
         out += [(kind, m, k, n, c) for (k, n), c in per_layer.items()]
         out.append((kind, m if kind == "decode" else 1) + head + (1,))
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        cap = moe.capacity(cfg, path["prompt_len"])
+        per_expert = {}
+        for kn in ffn:
+            per_expert[kn] = per_expert.get(kn, 0) + 1
+        out += [("expert", cap, k, n, c) for (k, n), c in per_expert.items()]
     return out
 
 
 def linears_per_pass(cfg) -> int:
     """quantized_matmul launches per pass of the model: every linear of
-    every layer, and the head's."""
+    every layer, and the head's (for an MoE config its attention's and the
+    head's: the experts' follow the routing)."""
     return sum(c for kind, *_, c in quant_shapes(cfg) if kind == "decode")
 
 
@@ -888,6 +936,10 @@ def phase_kernels(torch):
               for bits in (8, 4) for shape in quant_shapes(get("gpt2_base"))]
     cases += half_cases(torch, fd, fa, ref, gen)
     cases += moe_cases(torch, fd, fa, ref, gen)
+    # phase 17's streamed experts (fp16 activations on int8 / int4 shards)
+    cases += [quant_case(torch, ref, gen, *shape, bits, torch.float16)
+              for bits in (8, 4) for shape in quant_shapes(moe_config())
+              if shape[0] == "expert"]
     cases += matmul_cases(torch, ref, gen, get("gpt2_base"))
     for c in cases:
         line = (f"  {c['kernel']:<18} {c['case']:<44} max_abs_err "
@@ -924,6 +976,11 @@ def phase_kernels(torch):
 # phases 3-7: the main paths
 # ---------------------------------------------------------------------------
 MAIN = dict(requests=8, prompt_len=128, new_tokens=32, max_inflight=4)
+# the script's 1200 s are shared by every path: each path serves the first
+# wave of 4 requests, and the plain partners of phases 4, 6, 8 and 9 only
+# their first PLAIN_NEW_TOKENS new tokens, held to the kernel run's first
+PLAIN_NEW_TOKENS = 8
+PLAIN = dict(requests=MAIN["max_inflight"], new_tokens=PLAIN_NEW_TOKENS)
 # the paged phases: 96 of the 128 prompt tokens shared (6 pages of 16)
 PAGED = dict(page_size=16, shared_prefix=96)
 CHUNKED = dict(PAGED, requests=4, new_tokens=16, chunk_prefill=64)
@@ -1022,7 +1079,7 @@ def serve_rounds(stats, n_chunks: int = 0):
 
 
 def expected_serve_launches(stats, cfg, n_chunks: int = 0,
-                            quant: str = "fp32") -> dict:
+                            quant: str = "fp32", router_calls=None) -> dict:
     """Launches the serving loop must make: one decode launch
     (flash_decode, or paged_flash_decode in paged mode unless autotune
     chose the "gather" route) per layer per
@@ -1030,7 +1087,10 @@ def expected_serve_launches(stats, cfg, n_chunks: int = 0,
     monolithic prefill; with chunked prefill, one paged_flash_verify per
     layer per round with a chunker; on quantized shards, one
     quantized_matmul per linear per pass (decode round, chunk round or
-    prefill), the head's included."""
+    prefill), the head's included, and for an MoE config three per
+    streamed expert: per router call of the loop (``router_calls``,
+    ``[(round, layer name, logits, top-k ids)]``, one per layer per pass)
+    three times the union of its picks."""
     from repro_torch.kernels import ops
     decode_rounds, chunk_rounds, prefills = serve_rounds(stats, n_chunks)
     n_layers = cfg.num_layers
@@ -1042,8 +1102,16 @@ def expected_serve_launches(stats, cfg, n_chunks: int = 0,
     want["flash_attention"] = n_layers * prefills
     want["paged_flash_verify"] = n_layers * len(chunk_rounds)
     if quant != "fp32":
-        want["quantized_matmul"] = linears_per_pass(cfg) * (
-            len(decode_rounds) + len(chunk_rounds) + prefills)
+        passes = len(decode_rounds) + len(chunk_rounds) + prefills
+        want["quantized_matmul"] = linears_per_pass(cfg) * passes
+        if cfg.family == "moe":
+            if len(router_calls) != n_layers * passes:
+                fail(f"{len(router_calls)} router calls in the serving loop "
+                     f"against {n_layers} layers x {passes} passes")
+            per_expert = sum(c for kind, *_, c in quant_shapes(cfg)
+                             if kind == "expert")
+            want["quantized_matmul"] += per_expert * sum(
+                len(ids.unique()) for *_, ids in router_calls)
     return want
 
 
@@ -1097,10 +1165,13 @@ def largest_weight_fp32_bytes(cfg) -> int:
 
 
 def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
-             quant: str = "fp32", budget_mb: float = BUDGET_MB, **kw):
+             quant: str = "fp32", budget_mb: float = BUDGET_MB,
+             router_calls=None, **kw):
     """Serve one main path with every launch count set to 0 just before
     and read just after; check the serving loop's launches exactly and
-    the outputs' shape.  Returns (outs, stats, serve.run launches)."""
+    the outputs' shape (an MoE path on quantized shards derives its
+    expert launches from ``router_calls()``, the loop's router calls).
+    Returns (outs, stats, serve.run launches)."""
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     widened0 = WIDENED["cuda"]
@@ -1151,7 +1222,9 @@ def run_path(torch, ops, cfg, label: str, attn_impl, n_chunks=0,
               f"{alloc_peak} (limit {limit}), serve.run {wall:.1f}s",
               flush=True)
         return outs, stats, launches
-    want = expected_serve_launches(stats, cfg, n_chunks, quant)
+    want = expected_serve_launches(
+        stats, cfg, n_chunks, quant,
+        router_calls() if router_calls is not None else None)
     print(f"{label}: kernel launches: serve.run {json.dumps(launches)} "
           f"(profiling and warm-up included); serving loop "
           f"{json.dumps(stats.kernel_launches)}, expected "
@@ -1199,6 +1272,11 @@ def checkpoints():
              scale_routers)]
 
 
+def moe_config():
+    """Phases 16-17's model: qwen3_moe_30b_a3b cut to MOE_LAYERS, fp16."""
+    return next(c for name, c, *_ in checkpoints() if name == "qwen3_moe")
+
+
 def checkpoint(label: str):
     """(cfg, path) of the checkpoint ``label``, written from its seed if
     missing (an MoE one expert-split, as ``partition_and_save`` does by
@@ -1217,15 +1295,17 @@ def checkpoint(label: str):
     return cfg, path
 
 
-# the largest checkpoint (3.75 GB), written in a thread of its own beside
-# the rest: numpy releases the GIL in its generators and file writes
+# the largest checkpoint (3.75 GB) and its int8 transcode, written in a
+# thread of their own beside the rest: numpy releases the GIL in its
+# generators, array arithmetic and file writes
 PARALLEL_CHECKPOINT = "qwen3_moe"
 
 
 def write_checkpoints() -> str:
-    """Write every serving checkpoint and the int8 / int4 transcodes of
-    phase 3's, numpy on the host: ``main`` runs this while nvcc builds the
-    kernels.  Returns the seconds each took."""
+    """Write every serving checkpoint, the int8 / int4 transcodes of
+    phase 3's and the int8 transcode of phase 16's, numpy on the host:
+    ``main`` runs this while nvcc builds the kernels.  Returns the seconds
+    each took."""
     from repro_torch.checkpoint.partition import ensure_quantized
     took, errors = [], []
 
@@ -1233,12 +1313,12 @@ def write_checkpoints() -> str:
         t0 = time.perf_counter()
         cfg, path = checkpoint(label)
         took.append(f"{label} {time.perf_counter() - t0:.1f}s")
-        if label == "gpt2_base":
-            for quant in ("int8", "int4"):
-                t0 = time.perf_counter()
-                ensure_quantized(path, ckpt_dir(cfg, quant), quant)
-                took.append(f"{label} {quant} "
-                            f"{time.perf_counter() - t0:.1f}s")
+        quants = {"gpt2_base": ("int8", "int4"),
+                  "qwen3_moe": (MOE_QUANT,)}.get(label, ())
+        for quant in quants:
+            t0 = time.perf_counter()
+            ensure_quantized(path, ckpt_dir(cfg, quant), quant)
+            took.append(f"{label} {quant} {time.perf_counter() - t0:.1f}s")
 
     def write_parallel() -> None:
         try:
@@ -1275,10 +1355,9 @@ def phase_main(torch, ops):
         fail(f"a kernel of the dense path never launched: {launches}")
     if launches["quantized_matmul"]:
         fail(f"fp32 shards launched quantized_matmul: {launches}")
-    outs_plain, _, _ = run_path(torch, ops, cfg, "dense", None,
-                                requests=MAIN["max_inflight"])
+    outs_plain, _, _ = run_path(torch, ops, cfg, "dense", None, **PLAIN)
     same_tokens(torch, cfg, outs, outs_plain, "dense kernel vs plain "
-                "greedy tokens")
+                "greedy tokens", n=MAIN["prompt_len"] + PLAIN_NEW_TOKENS)
     return cfg, launches, stats
 
 
@@ -1303,9 +1382,9 @@ def phase_paged(torch, ops, cfg, dense_stats):
           f"{stats.peak_breakdown.get('kv_pages', 0)} B (dense phase "
           f"{dense_stats.peak_breakdown.get('kv_pages', 0)} B)", flush=True)
     outs_plain, _, _ = run_path(torch, ops, cfg, "paged", None,
-                                **dict(PAGED, requests=MAIN["max_inflight"]))
+                                **dict(PAGED, **PLAIN))
     same_tokens(torch, cfg, outs, outs_plain, "paged kernel vs plain "
-                "greedy tokens")
+                "greedy tokens", n=MAIN["prompt_len"] + PLAIN_NEW_TOKENS)
     return outs, launches, stats
 
 
@@ -1347,7 +1426,8 @@ def phase_quant(torch, ops, cfg, quant: str, fp32_logits, prompt):
     budget_mb = QUANT_BUDGET_MB[quant]
     budget = int(budget_mb * 2**20)
     outs, stats, launches = run_path(torch, ops, cfg, quant, "auto",
-                                     quant=quant, budget_mb=budget_mb)
+                                     quant=quant, budget_mb=budget_mb,
+                                     requests=MAIN["max_inflight"])
     man = load_manifest(ckpt_dir(cfg, quant))
     sizes = {s["name"]: s["bytes"] for s in man["shards"]}
     kv = MAIN["max_inflight"] * cfg.num_layers * cfg.cache_bytes(
@@ -1371,10 +1451,10 @@ def phase_quant(torch, ops, cfg, quant: str, fp32_logits, prompt):
     if not launches["quantized_matmul"]:
         fail(f"{quant}: quantized_matmul never launched: {launches}")
     outs_plain, _, _ = run_path(torch, ops, cfg, quant, None, quant=quant,
-                                budget_mb=budget_mb,
-                                requests=MAIN["max_inflight"])
+                                budget_mb=budget_mb, **PLAIN)
     same_tokens(torch, cfg, outs, outs_plain, f"{quant} kernel vs plain "
-                "greedy tokens", quant=quant)
+                "greedy tokens", n=MAIN["prompt_len"] + PLAIN_NEW_TOKENS,
+                quant=quant)
     logits = last_logits(torch, cfg, quant, prompt)
     rel = ((logits - fp32_logits).abs().max()
            / fp32_logits.abs().max()).item()
@@ -2063,7 +2143,8 @@ def phase_slo(torch, ops, cfg):
 # ---------------------------------------------------------------------------
 # phase 16: MoE expert streaming
 # ---------------------------------------------------------------------------
-def router_picks(torch, cfg, calls, plain_calls, before: float):
+def router_picks(torch, cfg, calls, plain_calls, before: float,
+                 label: str = "moe"):
     """Hold the kernel run's router calls to the plain run's, call for call
     (``[(round, layer name, fp32 logits, top-k ids)]`` each, in order), up
     to the first call whose top-k picks differ, and over rounds before
@@ -2078,7 +2159,8 @@ def router_picks(torch, cfg, calls, plain_calls, before: float):
     k = cfg.top_k
     if ([(r, n, t.shape) for r, n, t, _ in calls]
             != [(r, n, t.shape) for r, n, t, _ in plain_calls]):
-        fail("moe: the kernel and plain runs made different router calls")
+        fail(f"{label}: the kernel and plain runs made different router "
+             f"calls")
     worst, checked, flip = {}, 0, None
     for call, ((rnd, name, got, ids), (_, _, want, plain_ids)) in enumerate(
             zip(calls, plain_calls)):
@@ -2090,7 +2172,7 @@ def router_picks(torch, cfg, calls, plain_calls, before: float):
         limit = (layer + 1) * HALF_RTOL["float16"]
         worst[layer], checked = max(worst.get(layer, 0.0), rel), checked + 1
         if rel > limit:
-            fail(f"moe: router logits of round {rnd} call {call} ({name}) "
+            fail(f"{label}: router logits of round {rnd} call {call} ({name}) "
                  f"differ by {rel:.3e} of the largest |logit| (limit "
                  f"{limit:.1e}) before any pick differed")
         ids, plain_ids = ids.sort(-1).values, plain_ids.sort(-1).values
@@ -2103,21 +2185,21 @@ def router_picks(torch, cfg, calls, plain_calls, before: float):
             # a swap of the k-th and (k+1)-th logits needs their
             # differences between the runs to sum to the margin
             room = 2 * delta[row].max().item()
-            print(f"moe: router picks differ first at round {rnd} call "
+            print(f"{label}: router picks differ first at round {rnd} call "
                   f"{call} ({name}) row {row}: kernels {ids[row].tolist()}, "
                   f"plain {plain_ids[row].tolist()}; plain top-{k} margin "
                   f"{margin:.3e}, twice the row's largest logit difference "
                   f"{room:.3e}", flush=True)
             if margin >= room:
-                fail(f"moe: round {rnd} call {call} row {row} picked other "
-                     f"experts than the plain run at a margin the logit "
-                     f"difference cannot close")
+                fail(f"{label}: round {rnd} call {call} row {row} picked "
+                     f"other experts than the plain run at a margin the "
+                     f"logit difference cannot close")
         flip = {"round": rnd, "call": call, "rows": rows}
         break
     picks = (f"differ first at round {flip['round']}" if flip
              else "identical")
     per_layer = ", ".join(f"layer {l} {w:.3e}" for l, w in worst.items())
-    print(f"moe: router logits held to the plain run's at {checked} of "
+    print(f"{label}: router logits held to the plain run's at {checked} of "
           f"{len(calls)} calls: largest difference of the call's largest "
           f"|logit| {per_layer} (limit (layer + 1) x "
           f"{HALF_RTOL['float16']}); top-{k} picks {picks}", flush=True)
@@ -2125,7 +2207,7 @@ def router_picks(torch, cfg, calls, plain_calls, before: float):
 
 
 def moe_tokens(torch, cfg, outs, other, policy, prompt_len: int, calls,
-               plain_calls) -> str:
+               plain_calls, quant: str = "fp32", label: str = "moe") -> str:
     """Fail unless each request's tokens equal ``other``'s, or first differ
     at a tie: of the head's top-2 logits (``tie_gap``), or of the router,
     where ``router_picks`` finds the two runs' expert picks first differ in
@@ -2140,53 +2222,46 @@ def moe_tokens(torch, cfg, outs, other, policy, prompt_len: int, calls,
             first[rid] = (diff[0], admitted[rid] + diff[0] - prompt_len)
     flip = router_picks(torch, cfg, calls, plain_calls,
                         min((rnd for _, rnd in first.values()),
-                            default=float("inf")) + 1)
+                            default=float("inf")) + 1, label)
     for rid, (i, rnd) in first.items():
-        gap, limit = tie_gap(torch, cfg, outs[rid][:i])
+        gap, limit = tie_gap(torch, cfg, outs[rid][:i], quant)
         picked = flip is not None and flip["round"] <= rnd
         where = (f"from round {flip['round']}" if picked
                  else "in no round up to it")
-        print(f"moe: req{rid} tokens differ first at {i} (round {rnd}); "
+        print(f"{label}: req{rid} tokens differ first at {i} (round {rnd}); "
               f"plain top-2 logit gap there {gap:.3e} (tie below "
               f"{limit:.3e}); router picks differ {where}", flush=True)
         if gap >= limit and not picked:
-            fail(f"moe: req{rid} greedy tokens differ at step {i}")
+            fail(f"{label}: req{rid} greedy tokens differ at step {i}")
     verdict = "differ only at ties" if first else "identical"
-    print(f"moe kernel vs plain greedy tokens: {verdict}", flush=True)
+    print(f"{label} kernel vs plain greedy tokens: {verdict}", flush=True)
     return verdict
 
 
-def phase_moe(torch, ops):
-    """Phase 16: expert-streaming MoE, qwen3_moe_30b_a3b at full width cut
-    to MOE_LAYERS layers, through ``serve.run`` under MOE_BUDGET_MB,
-    kernels then plain versions on the same plan.  Checks: launches exact,
+def moe_runs(torch, ops, cfg, label: str, quant: str, budget_mb: float):
+    """Serve MOE_PATH on ``cfg``'s ``quant`` checkpoint through
+    ``serve.run`` under ``budget_mb``, kernels then plain versions on the
+    same plan, recording every router call of each serving loop; check
+    what phases 16 and 17 share (run_path's launches and allocator peak,
     every layer streamed and destroyed each round, the expert cache below
-    both layers' experts and evicting, router logits and picks held to the
-    plain run's (``router_picks``), tokens equal (a head tie, or a
-    differing pick in that round or before, excused and printed), the
-    ledger peak within the budget less cuBLAS's workspace with an
-    ``expert_cache`` share, the allocator peak within the budget
-    (run_path), expert loads equal to the misses, streamed bytes equal to
-    the manifest bytes of every load, and the telemetry counters over the
-    serving loop equal to the stats' hits and misses."""
+    both layers' experts and evicting, the ledger peak within the budget
+    less cuBLAS's workspace with an ``expert_cache`` share, expert loads
+    equal to the misses, streamed bytes equal to the manifest bytes of
+    every load, the telemetry counters over the serving loop equal to the
+    stats' hits and misses) and hold the kernel run's router picks and
+    tokens to the plain run's (``moe_tokens``).  Returns {impl: (outs,
+    stats, serve.run launches, router calls, counters)}."""
     from repro_torch.checkpoint import load_manifest
     from repro_torch.core import telemetry as tele
     from repro_torch.core.engine import blas_workspace_bytes
     from repro_torch.core.expert_stream import ExpertStreamEngine
     from repro_torch.core.scheduler import BatchScheduler
     from repro_torch.models import moe
-    cfg, path = checkpoint("qwen3_moe")
+    path = ckpt_dir(cfg, quant)
     man = load_manifest(path)
     rows = {s["name"]: s for s in man["shards"]}
-    budget = int(MOE_BUDGET_MB * 2**20)
-    ledger_budget = budget - blas_workspace_bytes(torch.device("cuda"))
-    print(f"moe: {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_heads}x{cfg.head_dim} heads on {cfg.n_kv_heads} KV, "
-          f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.expert_d_ff}, "
-          f"{cfg.dtype}; {man['total_bytes']} B of shards (attention+router "
-          f"layers {man['layer_bytes']}, experts "
-          f"{man['expert_total_bytes']}); budget {MOE_BUDGET_MB} MiB "
-          f"(ledger {ledger_budget})", flush=True)
+    ledger_budget = (int(budget_mb * 2**20)
+                     - blas_workspace_bytes(torch.device("cuda")))
     (path / "profile_torch_cuda.json").unlink(missing_ok=True)
     # the round a router call serves (None outside the serving loop), the
     # serving loop's router calls [[round, layer name, fp32 logits, top-k
@@ -2231,8 +2306,9 @@ def phase_moe(torch, ops):
         for impl in ("auto", None):
             seen["calls"] = []
             outs, stats, launches = run_path(
-                torch, ops, cfg, "moe", impl, arch=cfg,
-                budget_mb=MOE_BUDGET_MB, **MOE_PATH)
+                torch, ops, cfg, label, impl, quant=quant, arch=cfg,
+                budget_mb=budget_mb, router_calls=lambda: seen["calls"],
+                **MOE_PATH)
             runs[impl] = (outs, stats, launches, seen["calls"],
                           seen["counters"])
     finally:
@@ -2244,7 +2320,7 @@ def phase_moe(torch, ops):
                  if kind == "load_end"]
         expert_loads = sum(1 for r in loads if r["kind"] == "expert")
         layer_loads = sum(1 for r in loads if r["kind"] == "layer")
-        print(f"moe ({how}): rounds {st.rounds}, serving loop "
+        print(f"{label} ({how}): rounds {st.rounds}, serving loop "
               f"{st.latency_s:.3f}s, {st.tokens_per_s:.3f} tok/s; expert "
               f"hit rate {st.expert_hit_rate:.4f} ({st.expert_hits} hits, "
               f"{st.expert_misses} misses, {st.expert_evictions} evicted), "
@@ -2254,32 +2330,112 @@ def phase_moe(torch, ops):
               f"{st.streamed_bytes} B streamed; counters (hits, misses) "
               f"{counters}; {len(calls)} router calls", flush=True)
         if st.peak_bytes > ledger_budget:
-            fail(f"moe ({how}): ledger peak {st.peak_bytes} above the "
+            fail(f"{label} ({how}): ledger peak {st.peak_bytes} above the "
                  f"budget less cuBLAS's workspace ({ledger_budget})")
         if not st.peak_breakdown.get("expert_cache"):
-            fail(f"moe ({how}): no expert_cache share at the ledger peak: "
-                 f"{st.peak_breakdown}")
+            fail(f"{label} ({how}): no expert_cache share at the ledger "
+                 f"peak: {st.peak_breakdown}")
         if not st.expert_evictions:
-            fail(f"moe ({how}): the expert cache never evicted")
+            fail(f"{label} ({how}): the expert cache never evicted")
         if st.expert_cache_bytes >= man["expert_total_bytes"]:
-            fail(f"moe ({how}): the cache holds every layer's experts")
+            fail(f"{label} ({how}): the cache holds every layer's experts")
         if layer_loads != st.rounds * cfg.num_layers:
-            fail(f"moe ({how}): {layer_loads} layer loads in {st.rounds} "
-                 f"rounds: layers were not all streamed and destroyed")
+            fail(f"{label} ({how}): {layer_loads} layer loads in "
+                 f"{st.rounds} rounds: layers were not all streamed and "
+                 f"destroyed")
         if expert_loads != st.expert_misses:
-            fail(f"moe ({how}): {expert_loads} expert loads against "
+            fail(f"{label} ({how}): {expert_loads} expert loads against "
                  f"{st.expert_misses} misses")
         if st.streamed_bytes != sum(r["bytes"] for r in loads):
-            fail(f"moe ({how}): streamed_bytes {st.streamed_bytes} is not "
-                 f"the manifest bytes of the loads")
+            fail(f"{label} ({how}): streamed_bytes {st.streamed_bytes} is "
+                 f"not the {man['quant'] or man['dtype']} manifest bytes of "
+                 f"the loads")
         if counters != (st.expert_hits, st.expert_misses):
-            fail(f"moe ({how}): counters {counters} against "
+            fail(f"{label} ({how}): counters {counters} against "
                  f"{st.expert_hits} hits, {st.expert_misses} misses")
     outs, stats, launches = runs["auto"][:3]
     if not (launches["flash_decode"] and launches["flash_attention"]):
-        fail(f"moe: a kernel never launched: {launches}")
+        fail(f"{label}: a kernel never launched: {launches}")
     moe_tokens(torch, cfg, outs, runs[None][0], stats.policy,
-               MOE_PATH["prompt_len"], runs["auto"][3], runs[None][3])
+               MOE_PATH["prompt_len"], runs["auto"][3], runs[None][3],
+               quant, label)
+    return runs
+
+
+def phase_moe(torch, ops):
+    """Phase 16: expert-streaming MoE, qwen3_moe_30b_a3b at full width cut
+    to MOE_LAYERS layers, fp16, through ``serve.run`` under MOE_BUDGET_MB,
+    kernels then plain versions on the same plan (``moe_runs``).  Returns
+    the kernel run's (outs, serve.run launches, stats)."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core.engine import blas_workspace_bytes
+    cfg = moe_config()
+    man = load_manifest(checkpoint("qwen3_moe")[1])
+    ledger_budget = (int(MOE_BUDGET_MB * 2**20)
+                     - blas_workspace_bytes(torch.device("cuda")))
+    print(f"moe: {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.head_dim} heads on {cfg.n_kv_heads} KV, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.expert_d_ff}, "
+          f"{cfg.dtype}; {man['total_bytes']} B of shards (attention+router "
+          f"layers {man['layer_bytes']}, experts "
+          f"{man['expert_total_bytes']}); budget {MOE_BUDGET_MB} MiB "
+          f"(ledger {ledger_budget})", flush=True)
+    outs, stats, launches = moe_runs(torch, ops, cfg, "moe", "fp32",
+                                     MOE_BUDGET_MB)["auto"][:3]
+    return outs, launches, stats
+
+
+def phase_moe_quant(torch, ops, fp16_outs):
+    """Phase 17: phase 16's model on its int8 expert-split transcode
+    (``ensure_quantized``, written while nvcc built), through ``serve.run(
+    quant="int8")`` under MOE_QUANT_BUDGET_MB, kernels then plain versions
+    (``moe_runs``).  Beyond phase 16's checks: the budget's reckoning from
+    the int8 manifest (its ledger share holds one streaming layer but not
+    two), quantized_matmul's serving-loop launches derived from the
+    recorded unions (run_path), no fp32 widening in the kernel run and
+    some in the plain run (run_path).  Printed, not checked: the
+    per-expert bytes against phase 16's and the requests' tokens that
+    equal phase 16's fp16 run's."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core.engine import blas_workspace_bytes
+    cfg = moe_config()
+    man = load_manifest(ckpt_dir(cfg, MOE_QUANT))
+    fp16 = load_manifest(ckpt_dir(cfg))
+    if not (man["quant"] == MOE_QUANT and man["expert_split"]):
+        fail(f"moe {MOE_QUANT}: the transcode is not an {MOE_QUANT} "
+             f"expert-split checkpoint")
+    kinds = {}
+    for row in man["shards"]:
+        kinds.setdefault(row["kind"], []).append(row["bytes"])
+    outer = sum(kinds["embed"]) + sum(kinds["head"])
+    layer = max(kinds["layer"])
+    experts = man["expert_total_bytes"] // cfg.num_layers
+    kv = (MOE_PATH["max_inflight"] * cfg.num_layers
+          * cfg.cache_bytes(1, MOE_PATH["prompt_len"]
+                            + MOE_PATH["new_tokens"]))
+    one = outer + kv + experts + layer
+    ledger_budget = (int(MOE_QUANT_BUDGET_MB * 2**20)
+                     - blas_workspace_bytes(torch.device("cuda")))
+    print(f"moe {MOE_QUANT}: {man['total_bytes']} B of shards; budget "
+          f"{MOE_QUANT_BUDGET_MB} MiB, ledger {ledger_budget} B against "
+          f"embed + head {outer} + KV {kv} + one layer's experts {experts} "
+          f"+ one streaming layer {layer} = {one} B (two streaming layers "
+          f"{one + layer} B)", flush=True)
+    if not one < ledger_budget < one + layer:
+        fail(f"moe {MOE_QUANT}: the ledger budget must hold one streaming "
+             f"layer but not two")
+    eb = {m["quant"] or m["dtype"]: max(r["bytes"] for r in m["shards"]
+                                        if r["kind"] == "expert")
+          for m in (fp16, man)}
+    print(f"moe {MOE_QUANT}: per-expert bytes {eb}, fp16 / "
+          f"{MOE_QUANT} {eb['float16'] / eb[MOE_QUANT]:.4f}", flush=True)
+    runs = moe_runs(torch, ops, cfg, f"moe {MOE_QUANT}", MOE_QUANT,
+                    MOE_QUANT_BUDGET_MB)
+    outs, stats, launches = runs["auto"][:3]
+    same = [rid for rid in sorted(outs)
+            if list(outs[rid]) == list(fp16_outs[rid])]
+    print(f"moe {MOE_QUANT}: {len(same)} of {len(outs)} requests' tokens "
+          f"equal phase 16's fp16 run's (not checked)", flush=True)
     return launches, stats
 
 
@@ -2402,8 +2558,10 @@ def main() -> int:
     # ---- phase 15: the SLO multi-tenant tier
     slo_launches, slo_stats = timed("15", phase_slo, torch, ops, cfg)
 
-    # ---- phase 16: expert-streaming MoE
-    moe_launches, moe_stats = timed("16", phase_moe, torch, ops)
+    # ---- phases 16-17: expert-streaming MoE, fp16 then int8 shards
+    moe_outs, moe_launches, moe_stats = timed("16", phase_moe, torch, ops)
+    moe_q_launches, moe_q_stats = timed("17", phase_moe_quant, torch, ops,
+                                        moe_outs)
 
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2468,6 +2626,8 @@ def main() -> int:
             "slo_serve_launches": slo_stats.kernel_launches[key],
             "moe_launches": moe_launches[key],
             "moe_serve_launches": moe_stats.kernel_launches[key],
+            "moe_quant_launches": moe_q_launches[key],
+            "moe_quant_serve_launches": moe_q_stats.kernel_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -2484,6 +2644,9 @@ def main() -> int:
                      for ln in quant_launches.values()),
         serve_launches=sum(st.kernel_launches["quantized_matmul"]
                            for st in quant_stats.values()),
+        moe_quant_launches=moe_q_launches["quantized_matmul"],
+        moe_quant_serve_launches=moe_q_stats.kernel_launches[
+            "quantized_matmul"],
         **quant_row(cases, quant_stats)))
     # streamed_matmul: the autotune sweep's launches; its time at the tile
     # the sweep chose, at the shape it tuned

@@ -32,12 +32,17 @@ shard per expert (kind ``"expert"``, named ``layer_<i>_expert_<e>``, with
 its layer's ``index`` and its ``expert`` id); the router stays fp32.  The
 manifest adds ``expert_split``, ``experts_per_layer`` and
 ``expert_total_bytes``.  ``expert_split=False`` keeps whole-layer shards.
-A quantized expert-split checkpoint is not yet ported: ``load_manifest``
-raises for one.
+``requantize`` transcodes expert shards like any other (the ``expert``
+rows kept), so int8 / int4 expert streaming reads the same layout.
+
+bfloat16 leaves are stored as the JAX package stores them (a 2-byte void
+array, ``checkpoint/quant.py``), header and bytes alike, and
+``load_shard`` returns them as ``torch.bfloat16`` tensors.
 """
 from __future__ import annotations
 
 import json
+import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -56,9 +61,35 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _to_numpy(a) -> np.ndarray:
+    """A leaf as numpy; bfloat16 (torch or ``ml_dtypes``) becomes the
+    2-byte void view of the same bytes."""
     if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return qz.bf16_to_numpy(a)
         return a.detach().cpu().numpy()
-    return np.asarray(a)
+    a = np.asarray(a)
+    return a.view(qz.BF16) if qz.is_bf16(a) else a
+
+
+def _savez(path: Path, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez``, except that a bfloat16 leaf's header says ``'<V2'``,
+    as ``ml_dtypes.bfloat16`` writes it, so the port's shards are the JAX
+    package's member for member (numpy's own void header says
+    ``'|V2'``)."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            val = np.asanyarray(val)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if qz.is_bf16(val):
+                    val = np.ascontiguousarray(val)
+                    header = fmt.header_data_from_array_1_0(val)
+                    header["descr"] = "<V2"
+                    fmt.write_array_header_1_0(fid, header)
+                    fid.write(val.tobytes())
+                else:
+                    fmt.write_array(fid, val)
 
 
 def tree_map(fn, tree):
@@ -97,7 +128,7 @@ def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
     entries included, as the reference does."""
     fp_bytes = int(sum(a.nbytes for a in flat.values()))
     stored = qz.quantize_flat(flat, quant)
-    np.savez(path / f"{name}.npz", **stored)
+    _savez(path / f"{name}.npz", stored)
     nbytes = int(sum(np.asarray(a).nbytes for a in stored.values()))
     row = {"name": name, "kind": kind, "index": index, "bytes": nbytes,
            "dtype": quant or base_dtype}
@@ -211,6 +242,8 @@ def requantize(src, dst, quant: str) -> dict:
     for s in src_man["shards"]:
         with np.load(src / f"{s['name']}.npz") as z:
             flat = {k: z[k] for k in z.files}
+        # a bfloat16 leaf comes back as 2-byte void and is quantized
+        # from its values widened to fp32
         extra = {"expert": s["expert"]} if "expert" in s else None
         shards.append(_save_shard(dst, s["name"], flat, s["kind"],
                                   s["index"], quant, src_man["dtype"],
@@ -242,11 +275,7 @@ def ensure_quantized(src, dst, quant: str) -> Path:
 
 
 def load_manifest(path) -> dict:
-    manifest = json.loads((Path(path) / "manifest.json").read_text())
-    if manifest.get("expert_split") and manifest.get("quant"):
-        raise _not_ported(f"a {manifest['quant']} expert-split MoE "
-                          f"checkpoint")
-    return manifest
+    return json.loads((Path(path) / "manifest.json").read_text())
 
 
 def shard_names(manifest: dict) -> List[str]:
@@ -255,9 +284,12 @@ def shard_names(manifest: dict) -> List[str]:
 
 def load_shard(path, name: str) -> dict:
     """Real disk read -> nested dict of numpy arrays (quantized entries
-    come back as QuantizedTensor leaves on the CPU)."""
+    come back as QuantizedTensor leaves on the CPU, bfloat16 ones as
+    ``torch.bfloat16`` tensors over the bytes read)."""
     with np.load(Path(path) / f"{name}.npz") as z:
         flat = {k: z[k] for k in z.files}   # forces the read
+    flat = {k: qz.bf16_to_torch(a) if qz.is_bf16(a) else a
+            for k, a in flat.items()}
     return qz.restore_tree(_unflatten(flat))
 
 
@@ -268,8 +300,12 @@ def from_jax_params(tree, device="cuda") -> dict:
     unless the caller asks for the CPU; CUDA without a card raises)."""
     from repro_torch.core.engine import resolve_device
     dev = resolve_device(device)
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+
+    def leaf(a):
+        a = _to_numpy(np.array(a, copy=True))
+        t = qz.bf16_to_torch(a) if qz.is_bf16(a) else torch.from_numpy(a)
+        return t.to(dev)
+    return tree_map(leaf, tree)
 
 
 def to_numpy(tree) -> dict:

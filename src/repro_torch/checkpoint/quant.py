@@ -21,6 +21,14 @@ every linear layer multiplies by it through the quantized matmul kernel
 (``models/common.linear``) and the embedding gathers rows of it
 (``take_rows``), so no fp32 copy of a quantized weight is built on the
 card.
+
+bfloat16 leaves: numpy has no bfloat16.  The JAX package's bf16 leaves are
+``ml_dtypes.bfloat16`` arrays, which ``np.savez`` writes as a 2-byte void
+(header ``'<V2'``) and ``np.load`` reads back as ``'|V2'``.  The port keeps
+such a leaf as that void view on the numpy side (``BF16``) and as
+``torch.bfloat16`` on the tensor side, the same bytes either way; it
+quantizes one from its values widened to fp32, as the reference's
+quantizer does with any float.
 """
 from __future__ import annotations
 
@@ -34,6 +42,34 @@ QUANT_SCHEMES: Dict[str, Tuple[int, int]] = {"int8": (8, 127), "int4": (4, 7)}
 SCHEME = "symmetric-per-channel"
 
 _Q, _SCALE, _META, _DTYPE = "__q__", "__scale__", "__meta__", "__dtype__"
+
+
+# the numpy form of a bfloat16 leaf (2-byte void, bytes as bfloat16)
+BF16 = np.dtype("V2")
+
+
+def is_bf16(a) -> bool:
+    """A numpy bfloat16 leaf: the 2-byte void of a loaded shard, or an
+    ``ml_dtypes.bfloat16`` array (kind ``'V'``, 2 bytes, as well)."""
+    dt = getattr(a, "dtype", None)
+    return isinstance(dt, np.dtype) and dt.kind == "V" and dt.itemsize == 2
+
+
+def widen_bf16(a: np.ndarray) -> np.ndarray:
+    """bfloat16 bytes -> the exact float32 values."""
+    u = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+    return (u << 16).view(np.float32)
+
+
+def bf16_to_torch(a: np.ndarray) -> torch.Tensor:
+    """A numpy bfloat16 leaf -> ``torch.bfloat16`` over the same bytes."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+
+
+def bf16_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``torch.bfloat16`` -> the 2-byte void array over the same bytes."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(BF16)
 
 
 def qmax_for(bits: int) -> int:
@@ -114,8 +150,11 @@ def is_quantized(leaf) -> bool:
 
 def as_tensor(leaf):
     """A shard leaf as the engine holds it: numpy arrays become torch
-    tensors (sharing memory); QuantizedTensors pass through."""
-    return leaf if is_quantized(leaf) else torch.from_numpy(leaf)
+    tensors (sharing memory); QuantizedTensors and tensors (bfloat16
+    leaves) pass through."""
+    if is_quantized(leaf) or isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +192,8 @@ def quantizable(a: np.ndarray, key: Optional[str] = None) -> bool:
     if key is not None and key.split(".")[-1] == "router":
         return False
     a = np.asarray(a)
-    return a.ndim == 2 and np.issubdtype(a.dtype, np.floating)
+    return a.ndim == 2 and (np.issubdtype(a.dtype, np.floating)
+                            or is_bf16(a))
 
 
 def quantize_array(a, quant: str) -> QuantizedTensor:
@@ -161,8 +201,10 @@ def quantize_array(a, quant: str) -> QuantizedTensor:
     payload and scales are bit-equal to the reference's."""
     bits, qmax = QUANT_SCHEMES[quant]
     a = np.asarray(a)
-    dtype = str(a.dtype)
-    a32 = a.astype(np.float32)
+    if is_bf16(a):
+        dtype, a32 = "bfloat16", widen_bf16(a)
+    else:
+        dtype, a32 = str(a.dtype), a.astype(np.float32)
     amax = np.abs(a32).max(axis=0)
     scale = np.where(amax > 0, amax / qmax, 1.0).astype(np.float32)
     q = np.clip(np.rint(a32 / scale), -qmax, qmax).astype(np.int8)

@@ -45,7 +45,9 @@ expert-split checkpoints:
     power-of-two bucket (the bucket exists so XLA compiles once per
     bucket; eager PyTorch compiles nothing), and the experts run one by
     one on their weights as streamed, so no stacked copy of the union's
-    weights is built on the device.
+    weights is built on the device.  An int8 / int4 expert runs its SwiGLU
+    as three quantized matmuls (``common.mlp_apply``), where the reference
+    dequantizes the union's weights inside its jit.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ from repro_torch.checkpoint.quant import is_quantized
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.attention import KERNEL
-from repro_torch.models.common import linear, rms_norm
+from repro_torch.models.common import linear, mlp_apply, rms_norm
 from repro_torch.models.config import DENSE, MOE, ModelConfig
 from repro_torch.models.dense_lm import (check_dense, layer_decode,
                                          layer_decode_paged, layer_prefill,
@@ -269,9 +271,15 @@ def _build_moe_stream_fns(cfg: ModelConfig,
         out = hf.new_empty((u * cap, d))
         for i, w in enumerate(experts):
             rows = slice(i * cap, (i + 1) * cap)
-            out[rows] = moe._expert_ffn(buf[rows][None], w["w_gate"][None],
-                                        w["w_up"][None],
-                                        w["w_down"][None])[0]
+            if is_quantized(w["w_gate"]):
+                # int8 / int4 shards: three quantized matmuls on the
+                # weights as streamed, never widened
+                out[rows] = mlp_apply(w, buf[rows], impl)
+            else:
+                out[rows] = moe._expert_ffn(buf[rows][None],
+                                            w["w_gate"][None],
+                                            w["w_up"][None],
+                                            w["w_down"][None])[0]
         return xa + moe.combine(out, local, top_w).reshape(xa.shape)
 
     return {"moe_router": moe_router_apply,

@@ -59,9 +59,12 @@ expert-split and served through the expert-streaming subsystem
 the round's activated experts are demand-loaded after the router runs,
 and the planner sizes the expert cache jointly with the schedule.  The
 summary reports the expert hit rate, the unique experts per round and the
-cache's bytes.  Paged KV (``--page-size``) is refused with expert-split
-checkpoints, as the reference's scheduler refuses it, and quantized
-expert shards (``--quant``) are not yet ported.
+cache's bytes.  ``--quant int8|int4|auto`` transcodes the expert-split
+checkpoint into a sibling ``<ckpt>-<quant>`` directory once, as for a
+dense model: the expert rows keep their layout at the quantized bytes, and
+each streamed expert's SwiGLU runs on the quantized matmul.  Paged KV
+(``--page-size``) is refused with expert-split checkpoints, as the
+reference's scheduler refuses it.
 
 Flags follow ``repro.launch.serve``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; asking for CUDA without a card raises).  Checkpoints live under
@@ -168,9 +171,6 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
         raise SystemExit("error: paged KV serving is not supported with "
                          "expert-split MoE checkpoints yet; repartition "
                          "whole-layer or drop page_size")
-    if cfg.family == MOE and quant != "fp32":
-        raise SystemExit(f"error: --quant {quant} of an expert-split MoE "
-                         f"checkpoint is not yet ported in repro_torch")
     if chunk_prefill and not page_size:
         raise SystemExit("error: --chunk-prefill needs --page-size (chunk "
                          "rounds write through the paged KV kernel)")

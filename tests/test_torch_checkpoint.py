@@ -10,6 +10,7 @@ from repro.checkpoint import partition as jax_partition
 from repro.configs import get_config
 from repro.models.dense_lm import init_params as jax_init
 from repro_torch.checkpoint import partition as tp
+from repro_torch.checkpoint import quant as tq
 from repro_torch.configs import get as torch_get
 from repro_torch.models.dense_lm import init_params as torch_init
 
@@ -82,11 +83,26 @@ def test_numpy_init_is_seeded_and_has_reference_shapes():
 
 
 def test_quantized_manifest_not_ported(tmp_path):
-    """Quantized dense checkpoints are ported (tests/test_torch_quant.py);
-    a quantized EXPERT-SPLIT (MoE) manifest is not, and still raises."""
-    (tmp_path / "manifest.json").write_text(json.dumps(
-        {"model": "qwen3_moe_30b_a3b", "num_layers": 1, "dtype": "float32",
-         "quant": "int8", "expert_split": True, "shards": [],
-         "total_bytes": 0, "layer_bytes": 0}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tp.load_manifest(tmp_path)
+    """A quantized EXPERT-SPLIT (MoE) manifest, as the JAX package writes
+    it, loads in the port and keeps its expert rows, and its expert
+    shards read back as quantized leaves.  (The name is kept from when
+    such a manifest raised, so the test keeps its id.)"""
+    from repro.models.api import build_model
+    cfg = get_config("qwen3_moe_30b_a3b").reduced()
+    params = jax.tree.map(np.asarray,
+                          build_model(cfg).init(jax.random.PRNGKey(0)))
+    want = jax_partition.partition_and_save(params, cfg, tmp_path,
+                                            quant="int8")
+    got = tp.load_manifest(tmp_path)
+    assert got == want
+    assert got["quant"] == "int8" and got["expert_split"] is True
+    experts = [s for s in got["shards"] if s["kind"] == "expert"]
+    assert len(experts) == cfg.num_layers * cfg.n_experts
+    assert got["experts_per_layer"] == cfg.n_experts
+    assert got["expert_total_bytes"] == sum(s["bytes"] for s in experts)
+    assert all(s["dtype"] == "int8" and s["fp_bytes"] > s["bytes"]
+               for s in experts)
+    shard = tp.load_shard(tmp_path, experts[0]["name"])
+    assert sorted(shard) == ["w_down", "w_gate", "w_up"]
+    assert all(isinstance(w, tq.QuantizedTensor) and w.bits == 8
+               for w in shard.values())

@@ -163,3 +163,31 @@ def test_facade_plans_within_the_ledger_budget(ckpt, monkeypatch):
     assert hermes.plan_generate([budget])[0].budget_bytes == budget - 2**20
     with hermes.engine(budget_bytes=budget, num_agents=1) as eng:
         assert eng.budget == budget - 2**20
+
+
+def test_packed_shard_is_one_buffer_of_aligned_views():
+    """The device loader's packing (``engine._packed``), run to the CPU:
+    every leaf of a shard (fp32, bf16, int8, and an int4 QuantizedTensor's
+    payload and scales) comes back equal, each a view of one buffer at a
+    256-byte aligned offset."""
+    from repro_torch.checkpoint.quant import quantize_array
+    rng = np.random.default_rng(0)
+    qt = quantize_array(rng.normal(size=(7, 5)).astype(np.float32), "int4")
+    host = {"attn": {"w_q": torch.from_numpy(rng.normal(size=(3, 5))
+                                             .astype(np.float32)),
+                     "w_o": qt},
+            "norm": torch.arange(5, dtype=torch.float32).bfloat16(),
+            "ids": torch.arange(3, dtype=torch.int8)}
+    dev, buf = torch_engine._packed(host, torch.device("cpu"))
+    pairs = [(dev["attn"]["w_q"], host["attn"]["w_q"]),
+             (dev["attn"]["w_o"].q, qt.q), (dev["attn"]["w_o"].scale,
+                                            qt.scale),
+             (dev["norm"], host["norm"]), (dev["ids"], host["ids"])]
+    base = buf.untyped_storage().data_ptr()
+    for got, want in pairs:
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert got.untyped_storage().data_ptr() == base
+        assert (got.data_ptr() - base) % torch_engine._LEAF_ALIGN == 0
+    w_o = dev["attn"]["w_o"]
+    assert (w_o.bits, w_o.shape, w_o.dtype) == (4, (7, 5), "float32")
+    assert buf.numel() == 5 * torch_engine._LEAF_ALIGN
