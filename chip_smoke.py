@@ -37,7 +37,12 @@ Phases, in order; any failure exits non-zero:
    fp32, fp16 and bf16, the decode B=2 S=40 in fp32 and fp16.
    quantized_matmul also at phase 17's streamed-expert shapes, int8 and
    int4 on fp16 activations: M = 8 (the expert capacity) at K=2048 N=768
-   (w_gate, w_up) and K=768 N=2048 (w_down).  For
+   (w_gate, w_up) and K=768 N=2048 (w_down).  Phases 18-19's shapes:
+   flash_attention at MLA's q / k 96, v 64 (B=1 S=32 H=40) and the
+   latent flash_decode (q 288 against c 256 + kr 32, B=2 S=40 G=40), in
+   fp32 and fp16 (SDPA on ``concat(c, kr)`` built beforehand, not timed);
+   flash_attention, flash_decode and paged_flash_decode at the VLM's
+   G = 6, head_dim 128, in fp16.  For
    every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
@@ -185,6 +190,29 @@ Phases, in order; any failure exits non-zero:
    some; the allocator peak follows the quant paths' rule below.  The
    per-expert bytes against phase 16's and how many requests' tokens
    equal phase 16's are printed, not checked.
+18. MLA: minicpm3_4b at full width (d 2560, 40 heads, q_lora 768,
+   kv_lora 256, rope 32, v / nope 64, d_ff 6400, vocab 73,448 -> 73,728),
+   depth cut to 4 of 62 layers, fp16, numpy seed 0: 2 requests of 32 + 8
+   tokens through ``serve.run`` under ``MLA_BUDGET_MB`` (the reckoning
+   from the manifest is printed: its ledger share holds two streaming
+   layers but not three), kernels then plain versions on the same plan,
+   then paged at 16 with the kernels on that plan, fixed (``Hermes.engine``
+   and ``BatchScheduler``).  Every run's serving loop must launch
+   flash_attention (q / k 96, v 64) once per layer per prefill and the
+   latent flash_decode once per layer per decode round, and no paged
+   kernel (MLA pages take the gather path, as in the reference); layers
+   must stream (more loads than layers); the plain run's and the paged
+   run's tokens must equal the dense kernel run's (tie rule).
+19. VLM: qwen2_vl_2b's backbone at full width (d 1536, 12 heads on 2 KV
+   heads of 128, G = 6, d_ff 8960, vocab 151,936 -> 153,600), depth cut
+   to 4 of 28 layers, fp16, numpy seed 0 (the embed shard carries
+   ``patch_proj``): 4 requests of 64 + 8 tokens, the first 48 shared, at
+   most 4 in flight, under ``VLM_BUDGET_MB`` (reckoned as phase 18's),
+   paged at 16 on the planner's agents, pin and in-flight count (the page
+   size fixed), kernels then plain versions: flash_attention once per
+   layer per prefill and paged_flash_decode (G = 6) once per layer per
+   decode round, as derived from the policy log; the prefix tree must
+   hit, layers stream, and the tokens equal the plain run's (tie rule).
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -220,8 +248,11 @@ launches add the chunked and the speculative phases'; every attention
 kernel also reports phase 13's launches (``spec_launches``,
 ``spec_serve_launches``), phase 15's (``slo_launches``,
 ``slo_serve_launches``), phase 16's (``moe_launches``,
-``moe_serve_launches``) and phase 17's (``moe_quant_launches``,
-``moe_quant_serve_launches``; quantized_matmul has these two as well).
+``moe_serve_launches``), phase 17's (``moe_quant_launches``,
+``moe_quant_serve_launches``; quantized_matmul has these two as well),
+phase 18's (``mla_launches``, ``mla_serve_launches``: the dense and the
+paged kernel runs together) and phase 19's (``vlm_launches``,
+``vlm_serve_launches``).
 Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
@@ -337,6 +368,33 @@ MOE_ROUTER_SCALE = 8.0
 # manifest and fails if the budget falls outside it
 MOE_QUANT = "int8"
 MOE_QUANT_BUDGET_MB = 1240
+# phase 18, minicpm3_4b (MLA) at full width (d 2560, 40 heads, q_lora 768,
+# kv_lora 256, rope 32, v / nope 64, d_ff 6400, vocab 73,448 -> 73,728),
+# depth cut to 4 of 62 layers, fp16: layers 125,349,888 B each, embed and
+# head 377,487,360 B each.  The ledger's share of the budget
+# (1,119,879,168 B after cuBLAS's 32 MiB) holds the embed, head, the KV of
+# 2 x 40 tokens (576 B per token per layer) and two streaming layers
+# (1,005,858,816 B) but not three (1,131,208,704 B), so layers stream and
+# are destroyed.  The paged run (page 16) serves the dense run's schedule
+# fixed: the planner's page search ties with dense at this KV size, and a
+# tie keeps dense
+MLA_LAYERS = 4
+MLA = dict(requests=2, prompt_len=32, new_tokens=8, max_inflight=2)
+MLA_BUDGET_MB = 1100
+MLA_PAGE = 16
+# phase 19, qwen2_vl_2b's backbone (VLM) at full width (d 1536, 12 heads on
+# 2 KV heads of 128, so G = 6; d_ff 8960, vocab 151,936 -> 153,600), depth
+# cut to 4 of 28 layers, fp16: layers 93,591,552 B, embed 471,859,200 B
+# plus patch_proj 4,718,592 B, head 471,859,200 B.  The ledger's share
+# (1,203,765,248 B) holds the embed, head, KV and two streaming layers but
+# not three.  4 requests of 64 + 8 tokens, the first 48 shared, paged at
+# 16 on the planner's schedule with the page size fixed (as phase 18's
+# paged run)
+VLM_LAYERS = 4
+VLM = dict(requests=4, prompt_len=64, new_tokens=8, max_inflight=4,
+           shared_prefix=48)
+VLM_BUDGET_MB = 1180
+VLM_PAGE = 16
 DRAFT_STEPS = [0]                # DraftModel.decode_batch calls
 OVER_BUDGET = []                 # runs whose device allocator passed it
 WIDENED = {"cuda": 0}            # fp32 copies of quantized weights built
@@ -521,13 +579,17 @@ def partial_case(torch, fd, ref, gen):
 
 
 def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
-                   sk=None, dtype=None, causal=True):
+                   sk=None, dtype=None, causal=True, dv=None):
+    """Prefill attention at q / k width ``dh`` and v width ``dv`` (default
+    ``dh``) against its plain version; library: SDPA on the same heads
+    (broadcast to the q heads, not timed)."""
     dev = "cuda"
     sk = sk or s
+    dv = dv or dh
     dtype = dtype or torch.float32
     q = torch.randn((b, s, kv, g, dh), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, sk, kv, dh), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, sk, kv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=dev).to(dtype)
     run = lambda: fa.flash_attention_gqa(q, k, v, causal=causal,  # noqa: E731
                                          window=window)
     got = run()
@@ -552,10 +614,48 @@ def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
     times = timings(torch, run, lambda: ref.attention_gqa_ref(
         q, k, v, causal=causal, window=window), lib)
     pairs = int(ok.sum().item())
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * pairs * b * kv * g * dh
+    nbytes = q.element_size() * (q.numel() + got.numel() + k.numel()
+                                 + v.numel())
+    flops = 2 * pairs * b * kv * g * (dh + dv)
     b_ms, b_by = bound(nbytes, flops, dtype_name(q))
     return dict(kernel="flash_attention", case=name, max_abs_err=err,
+                limit=limit, dtype=dtype_name(q), **times, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def latent_case(torch, fd, ref, gen, name, b, s, g, lengths, dtype=None):
+    """MLA's latent decode: q (B, 1, G, 288) against c (B, S, 256) and kr
+    (B, S, 32), ragged valid lengths.  Library: SDPA over ``concat(c,
+    kr)`` and ``c`` broadcast to the G heads, built beforehand (not timed).
+    Bound: bytes of q, out, the valid slots' c and kr rows and the mask, or
+    the operations of the valid (head, slot) pairs (288 for the score, 256
+    for the value, 2 per multiply-add)."""
+    dev = "cuda"
+    dtype = dtype or torch.float32
+    dc, dr = fd.LATENT_DIMS
+    q = torch.randn((b, 1, g, dc + dr), generator=gen, device=dev).to(dtype)
+    c = torch.randn((b, s, dc), generator=gen, device=dev).to(dtype)
+    kr = torch.randn((b, s, dr), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, device=dev)
+    valid = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    run = lambda: fd.flash_decode_latent(q, c, kr, valid)  # noqa: E731
+    plain = lambda: ref.decode_latent_ref(q, c, kr, valid)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err, limit = error(got, want)
+    qs = q.transpose(1, 2)                                    # (B, G, 1, 288)
+    ks = torch.cat([c, kr], -1)[:, None].expand(b, g, s, dc + dr).contiguous()
+    vs = c[:, None].expand(b, g, s, dc).contiguous()
+    mask = valid[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = timings(torch, run, plain,
+                    lambda: sdpa(qs, ks, vs, attn_mask=mask))
+    n_valid = int(sum(lengths))
+    nbytes = (q.element_size() * (q.numel() + got.numel()
+                                  + n_valid * (dc + dr)) + b * s)
+    b_ms, b_by = bound(nbytes, 2 * n_valid * g * (2 * dc + dr),
+                       dtype_name(q))
+    return dict(kernel="flash_decode", case=name, max_abs_err=err,
                 limit=limit, dtype=dtype_name(q), **times, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -824,6 +924,37 @@ def moe_cases(torch, fd, fa, ref, gen):
     return cases
 
 
+def mla_vlm_cases(torch, fd, fa, ref, gen):
+    """Phases 18-19's attention shapes.  MLA (minicpm3_4b): the per-request
+    prefill of 32 tokens at 40 heads, q / k 96 and v 64, and the latent
+    decode of the 2-row batch against 40-slot caches, in fp32 and fp16.
+    VLM (qwen2_vl_2b, G = 6 query heads on 2 KV heads of 128, fp16): the
+    per-request prefill of 64 tokens, the decode of 4 rows of up to 72
+    slots, and the paged decode through tables of 5 pages of 16 with the
+    48-token shared prompt's 3 pages mapped by every row."""
+    cases = []
+    for name in ("float32", "float16"):
+        dt = getattr(torch, name)
+        cases += [
+            attention_case(torch, fa, ref, gen, f"minicpm3 prefill B=1 S=32 "
+                           f"H=40 qk=96 v=64 causal {name}", 1, 32, 40, 1,
+                           96, dv=64, dtype=dt),
+            latent_case(torch, fd, ref, gen, f"minicpm3 latent decode B=2 "
+                        f"S=40 G=40 qk=288 v=256 {name}", 2, 40, 40,
+                        [40, 36], dtype=dt)]
+    f16 = torch.float16
+    return cases + [
+        attention_case(torch, fa, ref, gen, "qwen2_vl prefill B=1 S=64 KV=2 "
+                       "G=6 dh=128 causal float16", 1, 64, 2, 6, 128,
+                       dtype=f16),
+        decode_case(torch, fd, ref, gen, "qwen2_vl decode B=4 S=72 KV=2 G=6 "
+                    "dh=128 float16", 4, 72, 2, 6, 128,
+                    lengths=[72, 70, 68, 65], dtype=f16),
+        paged_case(torch, ref, gen, "qwen2_vl paged B=4 KV=2 G=6 dh=128 "
+                   "page=16 NB=5, 3 shared pages float16", 4, None, 2, 6, 128,
+                   16, 5, [65, 68, 70, 72], shared=3, dtype=f16)]
+
+
 def autotune_shape(cfg):
     """The shape ``tune_for_model`` times the streamed matmul at: 256
     tokens x d_model @ d_model x d_ff."""
@@ -936,6 +1067,7 @@ def phase_kernels(torch):
               for bits in (8, 4) for shape in quant_shapes(get("gpt2_base"))]
     cases += half_cases(torch, fd, fa, ref, gen)
     cases += moe_cases(torch, fd, fa, ref, gen)
+    cases += mla_vlm_cases(torch, fd, fa, ref, gen)
     # phase 17's streamed experts (fp16 activations on int8 / int4 shards)
     cases += [quant_case(torch, ref, gen, *shape, bits, torch.float16)
               for bits in (8, 4) for shape in quant_shapes(moe_config())
@@ -1095,8 +1227,10 @@ def expected_serve_launches(stats, cfg, n_chunks: int = 0,
     decode_rounds, chunk_rounds, prefills = serve_rounds(stats, n_chunks)
     n_layers = cfg.num_layers
     want = dict.fromkeys(stats.kernel_launches, 0)
-    # autotune's "gather" route decodes paged KV through flash_decode
-    paged = stats.page_size and ops.tuned_paged_impl() != "gather"
+    # autotune's "gather" route decodes paged KV through flash_decode, as
+    # MLA's latent pages always do
+    paged = (stats.page_size and cfg.attention != "mla"
+             and ops.tuned_paged_impl() != "gather")
     want["paged_flash_decode" if paged else "flash_decode"] = (
         n_layers * len(decode_rounds))
     want["flash_attention"] = n_layers * prefills
@@ -1269,7 +1403,13 @@ def checkpoints():
             ("qwen3_moe", get("qwen3_moe_30b_a3b").with_(
                 num_layers=MOE_LAYERS, dtype="float16",
                 name=f"qwen3-moe-30b-a3b-{MOE_LAYERS}layers-fp16"), 0,
-             scale_routers)]
+             scale_routers),
+            ("minicpm3", get("minicpm3_4b").with_(
+                num_layers=MLA_LAYERS, dtype="float16",
+                name=f"minicpm3-4b-{MLA_LAYERS}layers-fp16"), 0, None),
+            ("qwen2_vl", get("qwen2_vl_2b").with_(
+                num_layers=VLM_LAYERS, dtype="float16",
+                name=f"qwen2-vl-2b-{VLM_LAYERS}layers-fp16"), 0, None)]
 
 
 def moe_config():
@@ -1295,10 +1435,11 @@ def checkpoint(label: str):
     return cfg, path
 
 
-# the largest checkpoint (3.75 GB) and its int8 transcode, written in a
-# thread of their own beside the rest: numpy releases the GIL in its
-# generators, array arithmetic and file writes
-PARALLEL_CHECKPOINT = "qwen3_moe"
+# the largest checkpoint (3.75 GB) and its int8 transcode, and phases
+# 18-19's (2.6 GB), each group written in a thread of its own beside the
+# rest: numpy releases the GIL in its generators, array arithmetic and
+# file writes
+PARALLEL_CHECKPOINTS = (("qwen3_moe",), ("minicpm3", "qwen2_vl"))
 
 
 def write_checkpoints() -> str:
@@ -1320,20 +1461,25 @@ def write_checkpoints() -> str:
             ensure_quantized(path, ckpt_dir(cfg, quant), quant)
             took.append(f"{label} {quant} {time.perf_counter() - t0:.1f}s")
 
-    def write_parallel() -> None:
+    def write_parallel(labels) -> None:
         try:
-            write(PARALLEL_CHECKPOINT)
+            for label in labels:
+                write(label)
         except BaseException as exc:      # noqa: BLE001 (re-raised below)
             errors.append(exc)
 
-    writer = threading.Thread(target=write_parallel)
-    writer.start()
+    writers = [threading.Thread(target=write_parallel, args=(group,))
+               for group in PARALLEL_CHECKPOINTS]
+    for w in writers:
+        w.start()
+    apart = {label for group in PARALLEL_CHECKPOINTS for label in group}
     try:
         for label, *_ in checkpoints():
-            if label != PARALLEL_CHECKPOINT:
+            if label not in apart:
                 write(label)
     finally:
-        writer.join()
+        for w in writers:
+            w.join()
     if errors:
         raise errors[0]
     return ", ".join(took)
@@ -2440,6 +2586,211 @@ def phase_moe_quant(torch, ops, fp16_outs):
 
 
 # ---------------------------------------------------------------------------
+# phases 18-19: the MLA and VLM engine families
+# ---------------------------------------------------------------------------
+def stream_reckoning(torch, label: str, cfg, budget_mb: float, path_kw):
+    """Print the budget's reckoning from ``cfg``'s manifest and fail unless
+    its ledger share holds the embed, head, the path's KV and two
+    streaming layers but not three."""
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core.engine import blas_workspace_bytes
+    man = load_manifest(ckpt_dir(cfg))
+    kinds = {}
+    for row in man["shards"]:
+        kinds.setdefault(row["kind"], []).append(row["bytes"])
+    outer = sum(kinds["embed"]) + sum(kinds["head"])
+    layer = max(kinds["layer"])
+    kv = (path_kw["max_inflight"] * cfg.num_layers
+          * cfg.cache_bytes(1, path_kw["prompt_len"]
+                            + path_kw["new_tokens"]))
+    ledger_budget = (int(budget_mb * 2**20)
+                     - blas_workspace_bytes(torch.device("cuda")))
+    two = outer + kv + 2 * layer
+    print(f"{label}: {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.attention}, {cfg.dtype}; "
+          f"{man['total_bytes']} B of shards (layers {layer} B each, embed "
+          f"{sum(kinds['embed'])}, head {sum(kinds['head'])}); KV "
+          f"{cfg.cache_bytes(1, 1)} B per token per layer; budget "
+          f"{budget_mb} MiB, ledger {ledger_budget} B against embed + head "
+          f"+ KV {kv} + two streaming layers = {two} B (three {two + layer}"
+          f" B)", flush=True)
+    if not two <= ledger_budget < two + layer:
+        fail(f"{label}: the ledger budget must hold two streaming layers "
+             f"but not three")
+    return man
+
+
+def serve_prompts(cfg, path_kw):
+    """The prompts ``serve.run`` makes for ``path_kw`` at seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (path_kw["requests"],
+                                               path_kw["prompt_len"]))
+    shared = path_kw.get("shared_prefix", 0)
+    if shared:
+        prompts[:, :shared] = prompts[0, :shared]
+    return prompts
+
+
+def plan_for(cfg, budget_mb: float, path_kw, page_size: int = 0):
+    """The plan ``serve.run`` makes for ``path_kw`` (from the checkpoint's
+    cached profile): agents, pin and in-flight count."""
+    from repro_torch.core import Hermes
+    return Hermes(ckpt_dir(cfg), cfg, device="cuda").plan_generate(
+        [int(budget_mb * 2**20)], prompt_len=path_kw["prompt_len"],
+        new_tokens=path_kw["new_tokens"],
+        max_inflight=path_kw["max_inflight"],
+        page_sizes=(page_size,) if page_size else (),
+        shared_prefix_len=path_kw.get("shared_prefix", 0))[0]
+
+
+def fixed_run(torch, ops, cfg, label: str, attn_impl, budget_mb: float,
+              plan, path_kw, page_size: int):
+    """Serve ``path_kw``'s prompts on ``plan``'s agents, pin and in-flight
+    count with the page size fixed, through ``Hermes.engine`` and
+    ``BatchScheduler`` (as ``serve.run`` builds them), the launch counts
+    set to 0 just before and read just after.  Checks the outputs' shape,
+    the ledger peak against the budget, the allocator peak against the
+    budget plus the pool's bytes (checked at the end), the drained pool,
+    and the serving loop's launches against the policy log's (none for
+    the plain versions).  Returns (outs, stats, launches)."""
+    from repro_torch.core import BatchScheduler, Hermes
+    budget = int(budget_mb * 2**20)
+    prompts = serve_prompts(cfg, path_kw)
+    total = path_kw["prompt_len"] + path_kw["new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng = Hermes(ckpt_dir(cfg), cfg, device="cuda").engine(
+        budget_bytes=budget, num_agents=plan.num_agents,
+        pin_window=plan.pin_window, attn_impl=attn_impl,
+        page_size=page_size)
+    sched = BatchScheduler(eng, max_inflight=plan.inflight,
+                           max_total_len=total)
+    try:
+        sched.warmup(prompt_lens=[path_kw["prompt_len"]])
+        for p in prompts:
+            sched.submit(p, path_kw["new_tokens"])
+        outs, stats = sched.run()
+        mapped = sched.pool.mapped_pages
+    finally:
+        sched.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    alloc_peak = torch.cuda.max_memory_allocated()
+    how = "kernels" if attn_impl else "plain"
+    check_outputs(outs, cfg.padded_vocab, len(prompts), total)
+    if stats.page_size != page_size:
+        fail(f"{label} ({how}): served page size {stats.page_size}")
+    if stats.peak_bytes > budget:
+        fail(f"{label} ({how}): ledger peak {stats.peak_bytes} above the "
+             f"budget")
+    if mapped:
+        fail(f"{label} ({how}): {mapped} pages still mapped after the run")
+    limit = budget + stats.cache_bytes_peak
+    if alloc_peak > limit:
+        OVER_BUDGET.append(f"{label} ({how}): torch.cuda.max_memory_"
+                           f"allocated {alloc_peak} above {limit} (the "
+                           f"budget plus the paged pool's bytes)")
+    want = (expected_serve_launches(stats, cfg) if attn_impl
+            else dict.fromkeys(stats.kernel_launches, 0))
+    print(f"{label} ({how}): {plan.num_agents} agents, pin "
+          f"{plan.pin_window}, inflight {plan.inflight}, page size "
+          f"{stats.page_size} (fixed); kernel launches: whole run "
+          f"{json.dumps(launches)}; serving loop "
+          f"{json.dumps(stats.kernel_launches)}, expected "
+          f"{json.dumps(want)}", flush=True)
+    if stats.kernel_launches != want or (attn_impl is None
+                                         and any(launches.values())):
+        fail(f"{label} ({how}): launches {stats.kernel_launches} != {want}")
+    print(f"{label} ({how}): rounds {stats.rounds}, {stats.tokens_per_s:.3f}"
+          f" tok/s aggregate, serving loop {stats.latency_s:.3f}s, run "
+          f"{wall:.1f}s; ledger peak {stats.peak_bytes} B (budget {budget}),"
+          f" breakdown {json.dumps(stats.peak_breakdown)}, "
+          f"torch.cuda.max_memory_allocated {alloc_peak} (limit {limit}), "
+          f"shard loads {stats.loads}, pages allocated "
+          f"{stats.pages_allocated}, prefix hit pages "
+          f"{stats.prefix_hit_pages}, pool peak {stats.pool_pages_peak} "
+          f"pages", flush=True)
+    print(f"{label} ({how}): {time_split(stats, cfg)}", flush=True)
+    return outs, stats, launches
+
+
+def phase_mla(torch, ops):
+    """Phase 18: minicpm3_4b (MLA) at full width, MLA_LAYERS deep, fp16,
+    through ``serve.run`` under MLA_BUDGET_MB with the kernels, then the
+    plain versions on the same plan, then paged at MLA_PAGE with the
+    kernels on that plan (``fixed_run``): every run's serving loop
+    launches flash_attention once per layer per prefill and flash_decode
+    (the latent layout) once per layer per decode round, never a paged
+    kernel; layers stream (more loads than layers); the tokens equal the
+    dense kernel run's (tie rule).  Returns the kernel runs' summed
+    (serve.run launches, serving-loop launches)."""
+    cfg, path = checkpoint("minicpm3")
+    man = stream_reckoning(torch, "mla", cfg, MLA_BUDGET_MB, MLA)
+    (path / "profile_torch_cuda.json").unlink(missing_ok=True)
+    kw = dict(MLA, arch=cfg, budget_mb=MLA_BUDGET_MB)
+    outs, stats, launches = run_path(torch, ops, cfg, "mla", "auto", **kw)
+    if stats.loads <= cfg.num_layers:
+        fail(f"mla: {stats.loads} shard loads for {cfg.num_layers} layers: "
+             f"layers did not stream")
+    if launches["paged_flash_decode"] or launches["paged_flash_verify"]:
+        fail(f"mla: a paged kernel launched: {launches}")
+    outs_plain, _, _ = run_path(torch, ops, cfg, "mla", None, **kw)
+    same_tokens(torch, cfg, outs, outs_plain, "mla kernel vs plain greedy "
+                "tokens")
+    plan = plan_for(cfg, MLA_BUDGET_MB, MLA)
+    p_outs, p_stats, p_launches = fixed_run(
+        torch, ops, cfg, "mla paged", "auto", MLA_BUDGET_MB, plan, MLA,
+        MLA_PAGE)
+    if p_launches["paged_flash_decode"] or p_launches["paged_flash_verify"]:
+        fail(f"mla paged: a paged kernel launched: {p_launches}")
+    print(f"mla paged: pages allocated {p_stats.pages_allocated}, kv_pages "
+          f"at the ledger peak {p_stats.peak_breakdown.get('kv_pages', 0)}"
+          f" B (dense {stats.peak_breakdown.get('kv_pages', 0)} B); "
+          f"{len(man['shards'])} shards", flush=True)
+    same_tokens(torch, cfg, p_outs, outs, "mla paged vs dense greedy "
+                "tokens")
+    total = {k: launches[k] + p_launches[k] for k in launches}
+    serve_total = {k: stats.kernel_launches[k] + p_stats.kernel_launches[k]
+                   for k in stats.kernel_launches}
+    return total, serve_total
+
+
+def phase_vlm(torch, ops):
+    """Phase 19: qwen2_vl_2b's backbone (VLM) at full width, VLM_LAYERS
+    deep, fp16: 4 requests of 64 + 8 tokens with 48 shared prompt tokens,
+    paged at VLM_PAGE on the planner's agents, pin and in-flight count
+    under VLM_BUDGET_MB (``fixed_run``), kernels then plain versions: the
+    serving loop launches flash_attention once per layer per prefill and
+    paged_flash_decode (G = 6) once per layer per decode round; the
+    prefix tree hits; layers stream; the tokens equal the plain run's (tie
+    rule).  Returns the kernel run's (launches, serving-loop launches)."""
+    cfg, path = checkpoint("qwen2_vl")
+    stream_reckoning(torch, "vlm", cfg, VLM_BUDGET_MB, VLM)
+    (path / "profile_torch_cuda.json").unlink(missing_ok=True)
+    plan = plan_for(cfg, VLM_BUDGET_MB, VLM, VLM_PAGE)
+    print(f"vlm: planned {plan.num_agents} agents, pin {plan.pin_window}, "
+          f"inflight {plan.inflight}, page size {plan.page_size} "
+          f"(served at {VLM_PAGE})", flush=True)
+    runs = {impl: fixed_run(torch, ops, cfg, "vlm", impl, VLM_BUDGET_MB,
+                            plan, VLM, VLM_PAGE) for impl in ("auto", None)}
+    outs, stats, launches = runs["auto"]
+    if stats.prefix_hit_pages <= 0:
+        fail("vlm: no prefix hit on the shared prompt")
+    if stats.loads <= cfg.num_layers:
+        fail(f"vlm: {stats.loads} shard loads for {cfg.num_layers} layers: "
+             f"layers did not stream")
+    if not (launches["paged_flash_decode"] and launches["flash_attention"]):
+        fail(f"vlm: a kernel never launched: {launches}")
+    same_tokens(torch, cfg, outs, runs[None][0], "vlm kernel vs plain "
+                "greedy tokens")
+    return launches, stats.kernel_launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -2563,6 +2914,10 @@ def main() -> int:
     moe_q_launches, moe_q_stats = timed("17", phase_moe_quant, torch, ops,
                                         moe_outs)
 
+    # ---- phases 18-19: the MLA and VLM engine families
+    mla_launches, mla_serve = timed("18", phase_mla, torch, ops)
+    vlm_launches, vlm_serve = timed("19", phase_vlm, torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel, launch key, the path's launches, stats);
@@ -2628,6 +2983,10 @@ def main() -> int:
             "moe_serve_launches": moe_stats.kernel_launches[key],
             "moe_quant_launches": moe_q_launches[key],
             "moe_quant_serve_launches": moe_q_stats.kernel_launches[key],
+            "mla_launches": mla_launches[key],
+            "mla_serve_launches": mla_serve[key],
+            "vlm_launches": vlm_launches[key],
+            "vlm_serve_launches": vlm_serve[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),

@@ -50,10 +50,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import quant as qz
-from repro_torch.models.config import DENSE, MOE, ModelConfig
+from repro_torch.models.config import DENSE, MOE, VLM, ModelConfig
 
 # Families this partitioner (and the port's engine) understand.
-PARTITION_FAMILIES = (DENSE, MOE)
+PARTITION_FAMILIES = (DENSE, MOE, VLM)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -146,9 +146,10 @@ def _save_shard(path: Path, name: str, flat: Dict[str, np.ndarray],
 def partition_and_save(params: dict, cfg: ModelConfig, path, *,
                        quant: Optional[str] = None,
                        expert_split: Optional[bool] = None) -> dict:
-    """Split a dense or MoE param tree (stacked ``layers``, leading dim L)
-    into shards.  Leaves may be numpy arrays or torch tensors.  ``quant``
-    in {None, "int8", "int4"} selects the shard precision;
+    """Split a dense, MoE or VLM param tree (stacked ``layers``, leading
+    dim L) into shards (a VLM's ``patch_proj`` rides in the embed shard).
+    Leaves may be numpy arrays or torch tensors.  ``quant`` in {None,
+    "int8", "int4"} selects the shard precision;
     ``expert_split`` (MoE only, the default there) writes one shard per
     expert beside each layer's attention+router shard."""
     if quant is not None and quant not in qz.QUANT_SCHEMES:
@@ -172,7 +173,10 @@ def partition_and_save(params: dict, cfg: ModelConfig, path, *,
         shards.append(_save_shard(path, name, _flatten(tree), kind, index,
                                   quant, cfg.dtype, extra))
 
-    save("embed", {"embed": params["embed"]}, "embed")
+    embed_tree = {"embed": params["embed"]}
+    if "patch_proj" in params:
+        embed_tree["patch_proj"] = params["patch_proj"]
+    save("embed", embed_tree, "embed")
     stacked = params["layers"]
     for i in range(cfg.num_layers):
         layer = tree_map(lambda a: a[i], stacked)

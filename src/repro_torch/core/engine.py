@@ -1097,9 +1097,9 @@ class PipeloadEngine:
             h, cache = self.fns["layer_cache"](w, h, pad_len)
             pools[names[k]] = {}
             for leaf, a in cache.items():
-                p = torch.zeros((pool_rows, ps, cfg.n_kv_heads,
-                                 cfg.head_dim), dtype=cfg.torch_dtype,
-                                device=self.device)
+                # (rows, page, *leaf.shape[2:]): GQA's {k, v}, MLA's {c, kr}
+                p = torch.zeros((pool_rows, ps) + tuple(a.shape[2:]),
+                                dtype=cfg.torch_dtype, device=self.device)
                 p[pids] = a[0].reshape((len(table.pages), ps)
                                        + tuple(a.shape[2:])).to(p.dtype)
                 pools[names[k]][leaf] = p

@@ -1,6 +1,7 @@
 """Per-layer executable modules for the PIPELOAD Execution Engine.
 
-PyTorch port of ``repro/core/modules.py`` (dense family).  The engine
+PyTorch port of ``repro/core/modules.py`` (dense, MoE and VLM families;
+GQA and MLA attention).  The engine
 operates at shard granularity: ``embed`` -> N x ``layer`` -> ``head``,
 in two generation regimes:
 
@@ -56,16 +57,18 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.checkpoint.quant import is_quantized
-from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.attention import KERNEL
 from repro_torch.models.common import linear, mlp_apply, rms_norm
-from repro_torch.models.config import DENSE, MOE, ModelConfig
-from repro_torch.models.dense_lm import (check_dense, layer_decode,
+from repro_torch.models.config import DENSE, MOE, VLM, ModelConfig
+from repro_torch.models.dense_lm import (attn_decode, attn_prefill,
+                                         check_dense, layer_decode,
                                          layer_decode_paged, layer_prefill,
                                          layer_verify_paged)
 
-ENGINE_FAMILIES = (DENSE, MOE)
+# Families the PIPELOAD engine can execute at shard granularity (a VLM
+# backbone serves text, as in the reference's engine).
+ENGINE_FAMILIES = (DENSE, MOE, VLM)
 
 
 def check_engine_family(cfg: ModelConfig, where: str = "the PIPELOAD "
@@ -142,22 +145,24 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
 
     # Paged KV (core/kv_pages.py): cache leaves live in (P, page, ...) page
     # pools and each request's sequence is a block table of page ids.
-    # Full-attention GQA takes the paged kernels; a sliding-window config
-    # gathers the rows' pages into the contiguous cache, runs the ordinary
-    # layer_decode and scatters the one written row back into its page.
-    gqa_paged = cfg.sliding_window is None
+    # Full-attention GQA takes the paged kernels; MLA ({c, kr} latent
+    # leaves) and sliding-window configs gather the rows' pages into the
+    # contiguous cache, run the ordinary layer_decode and scatter the one
+    # written row back into its page.
+    gqa_paged = cfg.attention != "mla" and cfg.sliding_window is None
 
     def layer_decode_paged_apply(weights, x, pools, tables, pos):
         """One token per request against the paged cache: ``pools`` is
-        this layer's {k, v} with (P, page, KV, dh) leaves, written in
-        place; ``tables`` (B, NB) int32 on the device; ``pos`` (B,) ragged
+        this layer's cache dict with (P, page, ...) leaves ({k, v} of
+        (P, page, KV, dh), or MLA's {c, kr}), written in place;
+        ``tables`` (B, NB) int32 on the device; ``pos`` (B,) ragged
         write positions.  The write page must be private."""
         b, nb = tables.shape
         posv = pos.reshape(b)
         if gqa_paged:
             return layer_decode_paged(weights, x, cfg, pools, tables, posv,
                                       attn_impl=impl)
-        ps = pools["k"].shape[1]
+        ps = next(iter(pools.values())).shape[1]
         cache = {k: a[tables].reshape((b, nb * ps) + tuple(a.shape[2:]))
                  for k, a in pools.items()}
         out, cache = layer_decode(weights, x, cfg, cache, posv,
@@ -194,8 +199,8 @@ def build_module_fns(cfg: ModelConfig, attn_impl: Optional[str] = "auto",
            "layer_decode_paged": layer_decode_paged_apply,
            "head": head_apply, "head_all": head_all_apply}
     if gqa_paged:
-        # the stacked path has no windowed variant; the key's presence is
-        # how callers test for it
+        # the stacked path has no windowed or MLA variant; the key's
+        # presence is how callers test for it
         fns["layer_verify_paged"] = layer_verify_paged_apply
     if cfg.family == MOE:
         fns.update(_build_moe_stream_fns(cfg, impl))
@@ -218,21 +223,20 @@ def _build_moe_stream_fns(cfg: ModelConfig,
         _, top_w, top_ids = moe.top_k_routing(logits, k)
         return hf, top_w, top_ids
 
-    def attn_prefill(weights, x, make_cache: bool):
+    def attn_block(weights, x, make_cache: bool):
         h = rms_norm(x, weights["attn_norm"], cfg.norm_eps)
-        a, cache = attn.gqa_prefill(weights["attn"], h, cfg, _positions(x),
-                                    causal=cfg.causal,
-                                    make_cache=make_cache, attn_impl=impl)
+        a, cache = attn_prefill(weights["attn"], h, cfg, _positions(x),
+                                make_cache=make_cache, attn_impl=impl)
         return x + a, cache
 
     def moe_router_apply(weights, x):
         """Full-sequence attention + router (no cache)."""
-        xa, _ = attn_prefill(weights, x, False)
+        xa, _ = attn_block(weights, x, False)
         return (xa,) + route(weights, xa)
 
     def moe_router_cache_apply(weights, x, total_len: int):
         """Cache-capturing prefill (padded as ``layer_cache`` pads)."""
-        xa, cache = attn_prefill(weights, x, True)
+        xa, cache = attn_block(weights, x, True)
         cache = {name: _pad_seq(a, total_len) for name, a in cache.items()}
         return (xa, cache) + route(weights, xa)
 
@@ -240,8 +244,8 @@ def _build_moe_stream_fns(cfg: ModelConfig,
         """One token per row against the layer cache, then the router;
         ``pos`` an int or a ragged (B,) device vector."""
         h = rms_norm(x, weights["attn_norm"], cfg.norm_eps)
-        a, cache = attn.gqa_decode(weights["attn"], h, cfg, cache, pos,
-                                   attn_impl=impl)
+        a, cache = attn_decode(weights["attn"], h, cfg, cache, pos,
+                               attn_impl=impl)
         xa = x + a
         return (xa, cache) + route(weights, xa)
 

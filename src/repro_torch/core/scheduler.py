@@ -109,6 +109,8 @@ from repro_torch.core.engine import DraftModel, PipeloadEngine, _Ledger
 from repro_torch.core.kv_pages import (BlockTable, PagePool,
                                        PrefixNamespaces, pages_for)
 from repro_torch.kernels import ops as _ops
+from repro_torch.models.attention import empty_cache
+
 
 @dataclasses.dataclass(frozen=True)
 class SLO:
@@ -706,14 +708,12 @@ class BatchScheduler:
                     a[new] = a[old]
 
     def _pool_like(self, rows: int) -> Dict[str, torch.Tensor]:
-        """One layer's zeroed physical pages {k, v}: (rows, page_size, KV,
-        dh) in the model dtype on the engine's device.  The ONE place the
-        pool layout is defined."""
-        cfg = self.engine.cfg
-        shape = (rows, self.page_size, cfg.n_kv_heads, cfg.head_dim)
-        return {k: torch.zeros(shape, dtype=cfg.torch_dtype,
-                               device=self.engine.device)
-                for k in ("k", "v")}
+        """One layer's zeroed physical pages, shaped for its cache leaves
+        (B, T, ...) -> (rows, page_size, ...) in the model dtype on the
+        engine's device: GQA's {k, v} (rows, page_size, KV, dh), MLA's
+        {c, kr}.  The ONE place the pool layout is defined."""
+        return empty_cache(self.engine.cfg, rows, self.page_size,
+                           device=self.engine.device)
 
     def _ensure_pool_arrays(self):
         """Give every layer one physical row per page id handed out so

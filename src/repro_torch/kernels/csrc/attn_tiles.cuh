@@ -8,10 +8,12 @@
 // things are the template arguments below (Src, Tile); the loads, the
 // softmax and the products are written once.
 //
-//  * decode_kernel<Src, DH, GT>: one query token per (b, kv head, q head
-//    in the group).  Bound by bytes: each K/V row is used by G query heads
-//    for 2 G dh flops, so the work stays on the CUDA cores and the design
-//    is about keeping loads in flight.  One block of kDecWarps warps per
+//  * decode_kernel<Src, L, GT>: one query token per (b, kv head, q head
+//    in the group), L the lane layout of a K/V row (DecLanes for a dense or
+//    paged cache, LatentLanes for MLA's latent cache).  Bound by bytes:
+//    each K/V row is used by G query heads for 2 G dh flops, so the work
+//    stays on the CUDA cores and the design is about keeping loads in
+//    flight.  One block of kDecWarps warps per
 //    (S-split, kv head, b, group of GT q heads); each warp walks its own
 //    contiguous run of the split's keys.  A key's K and V rows come
 //    straight from device memory into the registers of LPK lanes (16-byte
@@ -25,9 +27,9 @@
 //    atomicAdd on a zeroed int32 counter, which it resets) merges them in
 //    split order (each split's weight computed once per row into shared
 //    memory): one launch per call, and the same bits on every call.
-//    flash_decode.cu (dense cache + valid mask) and paged_decode.cu (block
-//    table) instantiate it.
-//  * attend_tile<DH, NKW, Tile>: FlashAttention-2 on mma.sync.  A block
+//    flash_decode.cu (dense cache + valid mask, and the latent cache) and
+//    paged_decode.cu (block table) instantiate it.
+//  * attend_tile<DQK, DV, NKW, Tile>: FlashAttention-2 on mma.sync.  A block
 //    of four warps owns 64 or 16 query rows (the host's plan, so that
 //    blocks reach the SMs).  In a 64-row block each warp owns 16 rows; a
 //    16-row block's warps take a quarter of each key tile each (NKW = 4)
@@ -42,15 +44,17 @@
 //    Pallas kernel does (p.astype(v.dtype)).  fp32: 3xTF32 (m16n8k8) for
 //    both products, a = ah + al, acc += al bh + ah bl + ah bh, about 2^-19
 //    of sum |a| |b| per dot product, so fp32 inputs keep fp32 accuracy.
-//    flash_attention.cu (causal / windowed prefill) and paged_decode.cu
-//    (paged verify) instantiate it.
+//    q and K rows are DQK wide, V and out rows DV (MLA's prefill: 96 and
+//    64; every other caller DQK = DV).  flash_attention.cu (causal /
+//    windowed prefill) and paged_decode.cu (paged verify) instantiate it.
 //
 // Src (decode) provides:
 //   using T                           storage type of q, k, v and out
-//   const T* k, * v                   pool / cache base pointers
 //   int length(int b)                 slots of row b to walk
-//   size_t row(int b, int s, int kvh) element offset of slot s's K/V row
 //   bool ok(int b, int s)             unmasked?
+// and what its lane layout L reads (DecLanes: const T* k, * v and size_t
+// row(int b, int s, int kvh), the element offset of slot s's K/V row;
+// LatentLanes: const T* c, * kr and int S).
 // Tile (attend_tile) provides:
 //   using T; const T* k, * v
 //   int kt_begin, kt_end              key tiles (of BK keys) to walk
@@ -58,7 +62,8 @@
 //                                     weigh exactly 0
 //   const T* q_row(int r)             block-local query row r (nullptr:
 //   T* out_row(int r)                 past the rows, not written)
-//   size_t key_row(int slot)          element offset of the key's K/V row
+//   size_t key_row(int slot)          index of the key's K/V row: K at
+//                                     key_row * DQK, V at key_row * DV
 //   bool allowed(int r, int slot)     unmasked?
 #pragma once
 
@@ -95,6 +100,13 @@ static_assert(kDecMaxSplits % 32 == 0, "a warp holds the splits' m, l");
 // A warp reads KPL keys per load and keeps U loads in flight, so KPL * U
 // keys per step, within about 64 registers of K and V per lane (32 when
 // the lane also holds GT > 1 heads' q and accumulators).
+//
+// A lane layout L gives decode_kernel: NK key (and q) and NE value (and
+// accumulator) elements per lane, LPK lanes per key, KPL keys per load, U
+// loads in flight (KS = KPL * U keys per warp step), RW the output row
+// elements the lanes of one key cover, dq(dh) / dv(dh) the q and output
+// row widths, load_q, load_kv, and elem(li, e), the output element of lane
+// li's value e.
 template <class T, int DH, int GT>
 struct DecLanes {
   static constexpr bool kVec = DH > 0;
@@ -103,6 +115,8 @@ struct DecLanes {
   static constexpr int LPK = R < 32 ? R : 32;
   static constexpr int CPL = R / LPK;
   static constexpr int NE = CPL * E;                  // elements per lane
+  static constexpr int NK = NE;
+  static constexpr int RW = NE * LPK;
   static constexpr int KPL = 32 / LPK;
   static constexpr int KV_REGS = GT == 1 ? 64 : 32;   // K and V floats
   static constexpr int U0 = KV_REGS / (2 * NE) < 1 ? 1 : KV_REGS / (2 * NE);
@@ -111,33 +125,101 @@ struct DecLanes {
   static_assert(!kVec || (DH % E == 0 && (R & (R - 1)) == 0),
                 "vector rows are a power of two of 16-byte chunks");
   static_assert(KS <= 8, "a warp step is at most one warp tile");
-};
 
-// NE fp32 values of a row held by lane li (vector layout: chunks li,
-// li + LPK, ...; scalar layout: elements li, li + 32, ... below dh).
-template <class L, class T>
-__device__ __forceinline__ void load_lane(const T* row, int li, int dh,
-                                          float (&out)[L::NE]) {
-  if constexpr (L::kVec) {
+  static __device__ __forceinline__ int dq(int dh) {
+    return kVec ? DH : dh;
+  }
+  static __device__ __forceinline__ int dv(int dh) {
+    return kVec ? DH : dh;
+  }
+
+  // NE fp32 values of a row held by lane li (vector layout: chunks li,
+  // li + LPK, ...; scalar layout: elements li, li + 32, ... below dh).
+  static __device__ __forceinline__ void load_row(const T* row, int li,
+                                                  int dh, float (&out)[NE]) {
+    if constexpr (kVec) {
 #pragma unroll
-    for (int c = 0; c < L::CPL; ++c)
-      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(row) + li + c * L::LPK),
-                  out + c * L::E);
-  } else {
+      for (int c = 0; c < CPL; ++c)
+        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(row) + li + c * LPK),
+                    out + c * E);
+    } else {
 #pragma unroll
-    for (int c = 0; c < L::NE; ++c) {
-      const int d = li + 32 * c;
-      out[c] = d < dh ? ld(row + d) : 0.f;
+      for (int c = 0; c < NE; ++c) {
+        const int d = li + 32 * c;
+        out[c] = d < dh ? ld(row + d) : 0.f;
+      }
     }
   }
-}
+  static __device__ __forceinline__ void load_q(const T* row, int li, int dh,
+                                                float (&out)[NK]) {
+    load_row(row, li, dh, out);
+  }
+  template <class Src>
+  static __device__ __forceinline__ void load_kv(const Src& src, int b,
+                                                 int key, int kvh, int li,
+                                                 int dh, float (&kf)[NK],
+                                                 float (&vf)[NE]) {
+    const size_t off = src.row(b, key, kvh);
+    load_row(src.k + off, li, dh, kf);
+    load_row(src.v + off, li, dh, vf);
+  }
+  static __device__ __forceinline__ int elem(int li, int e) {
+    if constexpr (kVec) return (li + (e / E) * LPK) * E + e % E;
+    else return li + 32 * e;
+  }
+};
 
-// Element index of lane li's value e (see load_lane).
-template <class L>
-__device__ __forceinline__ int lane_elem(int li, int e) {
-  if constexpr (L::kVec) return (li + (e / L::E) * L::LPK) * L::E + e % L::E;
-  else return li + 32 * e;
-}
+// MLA's latent cache (flash_decode.cu's LatentKV: c (B, S, DC), kr (B, S,
+// DR)): slot s's key row is [c_s, kr_s] (DC + DR = 288 wide) and its value
+// row c_s (DC = 256), so one read of c serves both products.  A warp reads
+// one key at a time, its 32 lanes holding 16-byte chunks of c (NE
+// elements) and one element of kr each: NK = NE + 1 key elements, of which
+// the first NE are the lane's values.  A K row wider than kDecMaxDH, and
+// wider than its V row, so the dense layout's one row width does not
+// apply.  The q row is [q_c, q_r] of 288.
+template <class T, int GT>
+struct LatentLanes {
+  static constexpr int DC = 256, DR = 32;
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int LPK = 32;
+  static constexpr int CPL = DC / E / LPK;
+  static constexpr int NE = CPL * E;                  // c elements per lane
+  static constexpr int NK = NE + 1;                   // and one of kr
+  static constexpr int RW = NE * LPK;
+  static constexpr int KPL = 1;
+  static constexpr int U = GT == 1 ? 4 : 2;           // ~NK * U registers
+  static constexpr int KS = KPL * U;
+  static_assert(DC % (E * LPK) == 0 && DR == LPK, "latent lane layout");
+
+  static __device__ __forceinline__ int dq(int) { return DC + DR; }
+  static __device__ __forceinline__ int dv(int) { return DC; }
+  static __device__ __forceinline__ void load_c(const T* row, int li,
+                                                float* out) {
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(row) + li + c * LPK),
+                  out + c * E);
+  }
+  static __device__ __forceinline__ void load_q(const T* row, int li, int,
+                                                float (&out)[NK]) {
+    load_c(row, li, out);
+    out[NE] = ld(row + DC + li);
+  }
+  template <class Src>
+  static __device__ __forceinline__ void load_kv(const Src& src, int b,
+                                                 int key, int, int li, int,
+                                                 float (&kf)[NK],
+                                                 float (&vf)[NE]) {
+    const size_t slot = (size_t)b * src.S + key;
+    load_c(src.c + slot * DC, li, kf);
+    kf[NE] = ld(src.kr + slot * DR + li);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) vf[e] = kf[e];
+  }
+  static __device__ __forceinline__ int elem(int li, int e) {
+    return (li + (e / E) * LPK) * E + e % E;
+  }
+};
 
 // (m, l, acc) <- the merge with another partial (m2, l2, acc2).
 template <int N>
@@ -175,7 +257,7 @@ __device__ __forceinline__ void decode_store(void* out, float* out_m,
 // (n_split, B, KV, G, dh), then m and l (n_split, B, KV, G); counters: one
 // zeroed int32 per (b, kv, group) block column.  chunk: keys per split, a
 // multiple of kDecWarps (each warp walks chunk / kDecWarps of them).
-template <class Src, int DH, int GT>
+template <class Src, class L, int GT>
 __global__ void __launch_bounds__(kDecThreads)
 decode_kernel(Src src, const typename Src::T* __restrict__ q,
               void* __restrict__ out, float* __restrict__ out_m,
@@ -183,14 +265,13 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
               int* __restrict__ counters, int B, int KV, int G, int dh,
               int chunk, float scale) {
   using T = typename Src::T;
-  using L = DecLanes<T, DH, GT>;
-  constexpr int NE = L::NE, U = L::U, RW = L::NE * L::LPK;
+  constexpr int NE = L::NE, NK = L::NK, U = L::U, RW = L::RW;
   __shared__ float s_o[kDecWarps][GT][RW];
   __shared__ float s_m[kDecWarps][GT], s_l[kDecWarps][GT];
   __shared__ float s_w[GT][kDecMaxSplits], s_lw[GT][kDecMaxSplits];
   __shared__ int is_last;
 
-  const int D = DH > 0 ? DH : dh;
+  const int D = L::dv(dh), DQ = L::dq(dh);   // output and q row widths
   const int n_split = gridDim.x, split = blockIdx.x, b = blockIdx.z;
   const int n_gt = (G + GT - 1) / GT;
   const int kvh = blockIdx.y / n_gt, g0 = (blockIdx.y - kvh * n_gt) * GT;
@@ -199,7 +280,7 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
   const size_t rows = (size_t)B * KV * G;
   const size_t row0 = ((size_t)b * KV + kvh) * G;   // (b, kvh, g = 0)
 
-  float qr[GT][NE], acc[GT][NE], m[GT], l[GT];
+  float qr[GT][NK], acc[GT][NE], m[GT], l[GT];
 #pragma unroll
   for (int gi = 0; gi < GT; ++gi) {
     m[gi] = kNegInf;
@@ -207,12 +288,12 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < NE; ++e) acc[gi][e] = 0.f;
     if (g0 + gi < G) {
-      load_lane<L>(q + (row0 + g0 + gi) * D, li, D, qr[gi]);
+      L::load_q(q + (row0 + g0 + gi) * DQ, li, dh, qr[gi]);
 #pragma unroll
-      for (int e = 0; e < NE; ++e) qr[gi][e] *= scale;
+      for (int e = 0; e < NK; ++e) qr[gi][e] *= scale;
     } else {
 #pragma unroll
-      for (int e = 0; e < NE; ++e) qr[gi][e] = 0.f;
+      for (int e = 0; e < NK; ++e) qr[gi][e] = 0.f;
     }
   }
 
@@ -221,7 +302,7 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
   const int w0 = split * chunk + warp * kpw;
   const int w1 = min(src.length(b), w0 + kpw);
   for (int base = w0; base < w1; base += L::KS) {
-    float kf[U][NE], vf[U][NE];
+    float kf[U][NK], vf[U][NE];
     bool rd[U], ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -229,13 +310,13 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
       rd[u] = key < w1;
       ok[u] = false;
       if (rd[u]) {
-        const size_t off = src.row(b, key, kvh);
-        load_lane<L>(src.k + off, li, D, kf[u]);
-        load_lane<L>(src.v + off, li, D, vf[u]);
+        L::load_kv(src, b, key, kvh, li, dh, kf[u], vf[u]);
         ok[u] = src.ok(b, key);
       } else {
 #pragma unroll
-        for (int e = 0; e < NE; ++e) kf[u][e] = vf[u][e] = 0.f;
+        for (int e = 0; e < NK; ++e) kf[u][e] = 0.f;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) vf[u][e] = 0.f;
       }
     }
 #pragma unroll
@@ -245,7 +326,7 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
       for (int u = 0; u < U; ++u) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < NE; ++e) s = fmaf(qr[gi][e], kf[u][e], s);
+        for (int e = 0; e < NK; ++e) s = fmaf(qr[gi][e], kf[u][e], s);
 #pragma unroll
         for (int o = L::LPK / 2; o > 0; o >>= 1)
           s += __shfl_xor_sync(kFull, s, o);
@@ -290,7 +371,7 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
     for (int gi = 0; gi < GT; ++gi) {
 #pragma unroll
       for (int e = 0; e < NE; ++e) {
-        const int d = lane_elem<L>(li, e);
+        const int d = L::elem(li, e);
         if (d < D) s_o[warp][gi][d] = acc[gi][e];
       }
       if (lane == 0) {
@@ -387,29 +468,47 @@ decode_kernel(Src src, const typename Src::T* __restrict__ q,
   if (tid == 0) counters[column] = 0;
 }
 
-template <class Src, int DH, int GT>
+template <class Src, class L, int GT>
 int launch_decode_gt(const Src& src, const typename Src::T* q, void* out,
                      float* out_m, float* out_l, float* work, int* counters,
                      int B, int KV, int G, int dh, int n_split, int chunk,
                      float scale, cudaStream_t st) {
   const dim3 grid(n_split, KV * ((G + GT - 1) / GT), B);
-  decode_kernel<Src, DH, GT><<<grid, kDecThreads, 0, st>>>(
+  decode_kernel<Src, L, GT><<<grid, kDecThreads, 0, st>>>(
       src, q, out, out_m, out_l, work, counters, B, KV, G, dh, chunk, scale);
   return (int)cudaGetLastError();
 }
 
-template <class Src, int DH>
-int launch_decode_dh(const Src& src, const typename Src::T* q, void* out,
-                     float* out_m, float* out_l, float* work, int* counters,
-                     int B, int KV, int G, int dh, int n_split, int chunk,
-                     float scale, cudaStream_t st) {
+// One layout family, GT = 1 for G == 1 and kDecGroup heads per block else.
+template <class Src, template <class, int> class Lanes>
+int launch_decode_lanes(const Src& src, const typename Src::T* q, void* out,
+                        float* out_m, float* out_l, float* work,
+                        int* counters, int B, int KV, int G, int dh,
+                        int n_split, int chunk, float scale,
+                        cudaStream_t st) {
+  using T = typename Src::T;
   if (G == 1)
-    return launch_decode_gt<Src, DH, 1>(src, q, out, out_m, out_l, work,
-                                        counters, B, KV, G, dh, n_split,
-                                        chunk, scale, st);
-  return launch_decode_gt<Src, DH, kDecGroup>(src, q, out, out_m, out_l,
-                                              work, counters, B, KV, G, dh,
-                                              n_split, chunk, scale, st);
+    return launch_decode_gt<Src, Lanes<T, 1>, 1>(
+        src, q, out, out_m, out_l, work, counters, B, KV, G, dh, n_split,
+        chunk, scale, st);
+  return launch_decode_gt<Src, Lanes<T, kDecGroup>, kDecGroup>(
+      src, q, out, out_m, out_l, work, counters, B, KV, G, dh, n_split, chunk,
+      scale, st);
+}
+
+template <int DH>
+struct DenseLanes {
+  template <class T, int GT>
+  using type = DecLanes<T, DH, GT>;
+};
+
+// The launch arguments every decode layout needs.
+inline bool decode_args_ok(int G, int n_split, int chunk, const float* work,
+                           const int* counters, const float* out_m,
+                           const float* out_l) {
+  return G > 0 && n_split >= 1 && n_split <= kDecMaxSplits && chunk > 0 &&
+         chunk % kDecWarps == 0 && (n_split == 1 || (work && counters)) &&
+         ((out_m == nullptr) == (out_l == nullptr));
 }
 
 // Launches decode_kernel (see above).  vec: dh * sizeof(T) is a multiple
@@ -421,14 +520,13 @@ int launch_decode(const Src& src, const typename Src::T* q, void* out,
                   float* out_m, float* out_l, float* work, int* counters,
                   int B, int KV, int G, int dh, int n_split, int chunk,
                   int vec, float scale, cudaStream_t st) {
-  if (dh <= 0 || dh > kDecMaxDH || G <= 0 || n_split < 1 ||
-      n_split > kDecMaxSplits || chunk <= 0 ||
-      chunk % kDecWarps || (n_split > 1 && (!work || !counters)) ||
-      ((out_m == nullptr) != (out_l == nullptr)))
+  if (dh <= 0 || dh > kDecMaxDH ||
+      !decode_args_ok(G, n_split, chunk, work, counters, out_m, out_l))
     return (int)cudaErrorInvalidValue;
 #define REPRO_DECODE_DH(N)                                                  \
-  launch_decode_dh<Src, N>(src, q, out, out_m, out_l, work, counters, B, KV, \
-                           G, dh, n_split, chunk, scale, st)
+  launch_decode_lanes<Src, DenseLanes<N>::template type>(                   \
+      src, q, out, out_m, out_l, work, counters, B, KV, G, dh, n_split,     \
+      chunk, scale, st)
   if (vec) {
     switch (dh) {
       case 32: return REPRO_DECODE_DH(32);
@@ -442,6 +540,21 @@ int launch_decode(const Src& src, const typename Src::T* q, void* out,
 #undef REPRO_DECODE_DH
 }
 
+// Launches decode_kernel on MLA's latent cache (LatentLanes): one virtual
+// KV head, G query heads, normalised output (B, 1, G, DC).  q, c and kr
+// must be 16-byte aligned (the wrapper checks).
+template <class Src>
+int launch_latent_decode(const Src& src, const typename Src::T* q, void* out,
+                         float* work, int* counters, int B, int G,
+                         int n_split, int chunk, float scale,
+                         cudaStream_t st) {
+  if (!decode_args_ok(G, n_split, chunk, work, counters, nullptr, nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_decode_lanes<Src, LatentLanes>(
+      src, q, out, nullptr, nullptr, work, counters, B, 1, G,
+      LatentLanes<typename Src::T, 1>::DC, n_split, chunk, scale, st);
+}
+
 // ---------------------------------------------------------------------------
 // Attention tiles: grid (ceil(rows / bq), ..., ...), block (2 bq, NKW).
 // ---------------------------------------------------------------------------
@@ -453,31 +566,37 @@ constexpr int kMaxBQ = 16 * kTileWarps;       // query rows per block, at most
 // a 64-row block is four row warps (NKW = 1), a 16-row block four key
 // warps (NKW = kTileWarps) that take a quarter of each key tile each, keep
 // their own online softmax and merge once at the end.
-template <int DH, class T, int NKW>
+template <int DQK, int DV, class T, int NKW>
 struct AttnShape {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr bool kWide = kF32 && DH == 256;  // stages at 32 keys
+  static constexpr bool kWide = kF32 && (DQK == 256 || DV == 256);  // 32 keys
   static constexpr int BK = kWide ? 32 : 64;        // keys per tile
   static constexpr int KW = BK / NKW;               // keys per warp per tile
   static constexpr int CH = 16 / (int)sizeof(T);    // elements per cp.async
+  static constexpr int RQ = DQK / CH, RV = DV / CH; // 16-byte chunks per row
   // padded rows (elements): fp32 Q / K fragments are float2 reads (row
   // stride = 8 mod 32 words), fp32 V reads take rows 2t, 2t + 1 (4 mod 16);
-  // 16-bit rows are 4 mod 32 words
-  static constexpr int QLD = DH + 8, KLD = DH + 8;
-  static constexpr int VLD = kF32 ? DH + 4 : DH + 8;
+  // 16-bit rows are 4 or 20 mod 32 words (DQK 96: 52 words), either of
+  // which spreads a fragment read's 8 rows x 4 words over the 32 banks
+  static constexpr int QLD = DQK + 8, KLD = DQK + 8;
+  static constexpr int VLD = kF32 ? DV + 4 : DV + 8;
   static constexpr int NS = KW / 8;                 // n8 tiles of a warp's keys
-  static constexpr int NO = DH / 8;                 // n8 tiles of an out row
+  static constexpr int NO = DV / 8;                 // n8 tiles of an out row
   // fp32 scores: the three products in three accumulators (more MMAs in
   // flight) when the warp's keys are few, else in one
   static constexpr int NACC = kF32 && NS <= 2 ? 3 : 1;
   static constexpr int STAGE = BK * (KLD + VLD);    // elements per stage
-  // the key warps' merge: fp32 O (16 x DH) and m, l (16 each) per warp,
+  // the key warps' merge: fp32 O (16 x DV) and m, l (16 each) per warp,
   // in the stages once they are drained
-  static constexpr size_t MERGE = 4 * kTileWarps * 16 * (DH + 2);
+  static constexpr size_t MERGE = 4 * kTileWarps * 16 * (DV + 2);
   static constexpr size_t smem(int bq) {
     return sizeof(T) * ((size_t)bq * QLD + 2 * (size_t)STAGE);
   }
-  static_assert(DH % 16 == 0 && DH % CH == 0, "head_dim");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && DQK % CH == 0 &&
+                    DV % CH == 0, "head_dim");
+  // every lane runs every iteration of load_kv's copy loops (shuffles)
+  static_assert((BK * RQ) % kMaxTileThreads == 0 &&
+                    (BK * RV) % kMaxTileThreads == 0, "tile copy loops");
   static_assert(KW % (kF32 ? 8 : 16) == 0, "whole MMA steps of keys");
   static_assert(MERGE <= sizeof(T) * 2 * (size_t)STAGE, "merge buffer");
   static_assert(smem(kMaxBQ) <= 232448, "tiles over the smem limit");
@@ -503,14 +622,14 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
     *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
 }
 
-template <int DH, int NKW, class Tile>
+template <int DQK, int DV, int NKW, class Tile>
 __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   using T = typename Tile::T;
-  using A = AttnShape<DH, T, NKW>;
+  using A = AttnShape<DQK, DV, T, NKW>;
   using Op = std::conditional_t<std::is_same<T, __half>::value, F16, Bf16>;
   constexpr int BK = A::BK, KW = A::KW, QLD = A::QLD, KLD = A::KLD;
   constexpr int VLD = A::VLD, NS = A::NS, NO = A::NO;
-  constexpr int RC = DH / A::CH;                   // 16-byte chunks per row
+  constexpr int RQ = A::RQ, RV = A::RV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   // blockDim (2 bq, NKW): warp (wq, wk) = (threadIdx.x / 32, y)
@@ -523,33 +642,40 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   const int g = lane >> 2, tq = lane & 3;
 
   // K/V rows of tile kt into stage `slot`; each warp first resolves the
-  // tile's row offsets (lane l: rows l and l + 32), then hands them out by
-  // shuffles (BK * RC is a multiple of the block's threads, so every lane
-  // runs every iteration)
+  // tile's row indices (lane l: rows l and l + 32), then hands them out by
+  // shuffles (BK * RQ and BK * RV are multiples of the block's threads, so
+  // every lane runs every iteration); K rows are DQK wide, V rows DV
   auto load_kv = [&](int kt, int slot) {
     T* k_s = stage0 + slot * A::STAGE;
     T* v_s = k_s + BK * KLD;
     const int k0 = kt * BK;
-    unsigned long long off[BK / 32];
+    unsigned long long idx[BK / 32];
 #pragma unroll
     for (int h = 0; h < BK / 32; ++h) {
       const int key = k0 + 32 * h + lane;
-      off[h] = key < t.n_keys ? t.key_row(key) : 0;
+      idx[h] = key < t.n_keys ? t.key_row(key) : 0;
     }
-    for (int i = tid; i < BK * RC; i += nthreads) {
-      const int j = i / RC, c = (i - j * RC) * A::CH;
-      unsigned long long o = __shfl_sync(kFull, off[0], j & 31);
+    auto row_of = [&](int j) {
+      unsigned long long o = __shfl_sync(kFull, idx[0], j & 31);
       if constexpr (BK == 64) {
-        const unsigned long long o1 = __shfl_sync(kFull, off[1], j & 31);
+        const unsigned long long o1 = __shfl_sync(kFull, idx[1], j & 31);
         if (j & 32) o = o1;
       }
-      const bool in = k0 + j < t.n_keys;
-      cp_async16(k_s + j * KLD + c, t.k + o + c, in);
-      cp_async16(v_s + j * VLD + c, t.v + o + c, in);
+      return o;
+    };
+    for (int i = tid; i < BK * RQ; i += nthreads) {
+      const int j = i / RQ, c = (i - j * RQ) * A::CH;
+      const unsigned long long o = row_of(j);
+      cp_async16(k_s + j * KLD + c, t.k + o * DQK + c, k0 + j < t.n_keys);
+    }
+    for (int i = tid; i < BK * RV; i += nthreads) {
+      const int j = i / RV, c = (i - j * RV) * A::CH;
+      const unsigned long long o = row_of(j);
+      cp_async16(v_s + j * VLD + c, t.v + o * DV + c, k0 + j < t.n_keys);
     }
   };
-  for (int i = tid; i < bq * RC; i += nthreads) {
-    const int r = i / RC, c = (i - r * RC) * A::CH;
+  for (int i = tid; i < bq * RQ; i += nthreads) {
+    const int r = i / RQ, c = (i - r * RQ) * A::CH;
     const T* qr = t.q_row(r);
     cp_async16(q_s + r * QLD + c, qr ? qr + c : t.k, qr != nullptr);
   }
@@ -595,7 +721,7 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
         const float* kf = reinterpret_cast<const float*>(k_s) +
                           (kb + g) * KLD + 2 * tq;
 #pragma unroll 8
-        for (int kk = 0; kk < DH; kk += 8) {
+        for (int kk = 0; kk < DQK; kk += 8) {
           const float2 v0 =
               *reinterpret_cast<const float2*>(qf + kk + 2 * tq);
           const float2 v1 =
@@ -634,7 +760,7 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
         const uint16_t* kh = reinterpret_cast<const uint16_t*>(k_s) +
                              (kb + g) * KLD + 2 * tq;
 #pragma unroll
-        for (int kk = 0; kk < DH; kk += 16) {
+        for (int kk = 0; kk < DQK; kk += 16) {
           uint32_t a[4];
           a[0] = *reinterpret_cast<const uint32_t*>(qh + kk);
           a[1] = *reinterpret_cast<const uint32_t*>(qh + 8 * QLD + kk);
@@ -760,15 +886,15 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   }
   // merge the key warps of each row warp, through the drained stages
   __syncthreads();
-  float* red_o = reinterpret_cast<float*>(stage0);   // [warp][16][DH]
-  float* red_m = red_o + kTileWarps * 16 * DH;       // [warp][16]
+  float* red_o = reinterpret_cast<float*>(stage0);   // [warp][16][DV]
+  float* red_m = red_o + kTileWarps * 16 * DV;       // [warp][16]
   float* red_l = red_m + kTileWarps * 16;
-  float* mine = red_o + warp * 16 * DH;
+  float* mine = red_o + warp * 16 * DV;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = 8 * n + 2 * tq;
-    *reinterpret_cast<float2*>(mine + g * DH + c) = make_float2(o[n][0], o[n][1]);
-    *reinterpret_cast<float2*>(mine + (g + 8) * DH + c) =
+    *reinterpret_cast<float2*>(mine + g * DV + c) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(mine + (g + 8) * DV + c) =
         make_float2(o[n][2], o[n][3]);
   }
   if (tq == 0) {
@@ -779,8 +905,8 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
   }
   __syncthreads();
   const int n_wq = bq / 16;
-  for (int i = tid; i < bq * DH; i += nthreads) {
-    const int r = i / DH, d = i - r * DH;
+  for (int i = tid; i < bq * DV; i += nthreads) {
+    const int r = i / DV, d = i - r * DV;
     T* out = t.out_row(r);
     if (!out) continue;
     const int q16 = r / 16, rr = r - q16 * 16;
@@ -794,7 +920,7 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
       const int w = q16 + n_wq * k;
       const float c = exp2f(red_m[w * 16 + rr] - mm);
       ll = fmaf(red_l[w * 16 + rr], c, ll);
-      oo = fmaf(red_o[(w * 16 + rr) * DH + d], c, oo);
+      oo = fmaf(red_o[(w * 16 + rr) * DV + d], c, oo);
     }
     out[d] = from_f32<T>(oo / fmaxf(ll, 1e-30f));
   }
@@ -803,10 +929,10 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
 // Launches a tile kernel with NKW key warps on `grid`, blocks of rows
 // query rows, opting into its shared memory on the first call (`opted`:
 // one flag per kernel and per library).
-template <int DH, class T, int NKW, class... Params, class... Args>
+template <int DQK, int DV, class T, int NKW, class... Params, class... Args>
 int launch_tile(void (*kernel)(Params...), bool& opted, dim3 grid, int rows,
                 cudaStream_t st, Args... args) {
-  using A = AttnShape<DH, T, NKW>;
+  using A = AttnShape<DQK, DV, T, NKW>;
   if (!opted) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -820,14 +946,15 @@ int launch_tile(void (*kernel)(Params...), bool& opted, dim3 grid, int rows,
 
 // Launches the tile kernel for rows query rows per block: `split`
 // (kTileWarps key warps) for 16 rows, `whole` (one) for 64.
-template <int DH, class T, class K1, class K4, class... Args>
+template <int DQK, int DV, class T, class K1, class K4, class... Args>
 int launch_tiles(K1 whole, K4 split, bool (&opted)[2], dim3 grid, int rows,
                  cudaStream_t st, Args... args) {
   if (rows == 16)
-    return launch_tile<DH, T, kTileWarps>(split, opted[1], grid, rows, st,
-                                          args...);
+    return launch_tile<DQK, DV, T, kTileWarps>(split, opted[1], grid, rows,
+                                               st, args...);
   if (rows == kMaxBQ)
-    return launch_tile<DH, T, 1>(whole, opted[0], grid, rows, st, args...);
+    return launch_tile<DQK, DV, T, 1>(whole, opted[0], grid, rows, st,
+                                      args...);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Causal (optionally sliding-window) or non-causal flash attention for
 // prefill, in the grouped-query layout, for fp32, fp16 and bf16 inputs
-// (output in the inputs' type), head_dim 32, 64, 128 or 256.
+// (output in the inputs' type), head_dim 32, 64, 128 or 256, and MLA's
+// prefill heads: q / k rows of 96 (64 nope + 32 rope) and v rows of 64.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py ::
 // flash_attention (kernel body _flash_kernel).  It computes the same
@@ -33,8 +34,12 @@
 //    a block loops only over the key tiles that hold an unmasked key: tiles
 //    wholly above the causal diagonal or wholly outside the window are
 //    skipped, which halves the causal work.
-//  * q is (B, Sq, KV, G, dh) and k/v (B, Sk, KV, dh), the layout gqa_prefill
-//    has, so K/V are never broadcast to the G query heads.
+//  * q is (B, Sq, KV, G, dqk), k (B, Sk, KV, dqk) and v (B, Sk, KV, dv), the
+//    layout gqa_prefill and mla_prefill have, so K/V are never broadcast to
+//    the G query heads.  The tile body takes the q / k width and the v width
+//    as two template parameters: at MLA's (96, 64) the score MMA runs 6
+//    k-steps of 16 (12 of 8 in fp32) and P V is 64 wide, reading the 96-
+//    and 64-wide rows as they are, with no padded copy.
 //  * Any Sq / Sk is allowed: rows past Sq are not written and keys past Sk
 //    contribute exactly zero.  A row that no key may attend (with a window,
 //    once q_offset + row - window + 1 >= Sk) gets what the reference gives
@@ -56,8 +61,10 @@ struct CausalTile {
   const T* k;
   const T* v;
   T* out;
-  size_t q_base, kv_base;   // offsets of (b, row 0, this head)
-  size_t q_stride, k_stride;
+  size_t q_base, o_base;    // offsets of (b, row 0, this head) in q, out
+  size_t q_stride, o_stride;
+  size_t kv_row0;           // row index of (b, slot 0, this kv head)
+  int KV;
   int Sq, q0, qa0;          // qa0: absolute position of row q0
   int causal, window;
   int kt_begin, kt_end, n_keys;
@@ -65,10 +72,10 @@ struct CausalTile {
     return q0 + r < Sq ? q + q_base + (size_t)(q0 + r) * q_stride : nullptr;
   }
   __device__ T* out_row(int r) const {
-    return q0 + r < Sq ? out + q_base + (size_t)(q0 + r) * q_stride : nullptr;
+    return q0 + r < Sq ? out + o_base + (size_t)(q0 + r) * o_stride : nullptr;
   }
   __device__ size_t key_row(int slot) const {
-    return kv_base + (size_t)slot * k_stride;
+    return kv_row0 + (size_t)slot * KV;
   }
   __device__ bool allowed(int r, int slot) const {
     const int qa = qa0 + r;
@@ -80,23 +87,25 @@ struct CausalTile {
 };
 
 // grid (ceil(Sq / bq), KV * G, B), block (2 bq, NKW)
-template <int DH, class T, int NKW>
+template <int DQK, int DV, class T, int NKW>
 __global__ void __launch_bounds__(attn::kMaxTileThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
             int KV, int G, int causal, int window, int q_offset,
             float scale) {
-  constexpr int BK = attn::AttnShape<DH, T, NKW>::BK;
+  constexpr int BK = attn::AttnShape<DQK, DV, T, NKW>::BK;
   const int bq = blockDim.x / 2;
   CausalTile<T> t;
   const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y / G, g = blockIdx.y - (blockIdx.y / G) * G;
   const int b = blockIdx.z;
   t.q = q; t.k = k; t.v = v; t.out = out;
-  t.q_stride = (size_t)KV * G * DH;  // between query rows
-  t.k_stride = (size_t)KV * DH;      // between key rows
-  t.q_base = (size_t)b * Sq * t.q_stride + ((size_t)kvh * G + g) * DH;
-  t.kv_base = (size_t)b * Sk * t.k_stride + (size_t)kvh * DH;
+  t.q_stride = (size_t)KV * G * DQK;  // between query rows
+  t.o_stride = (size_t)KV * G * DV;   // between output rows
+  t.q_base = (size_t)b * Sq * t.q_stride + ((size_t)kvh * G + g) * DQK;
+  t.o_base = (size_t)b * Sq * t.o_stride + ((size_t)kvh * G + g) * DV;
+  t.kv_row0 = (size_t)b * Sk * KV + kvh;
+  t.KV = KV;
   t.Sq = Sq; t.q0 = q0; t.qa0 = q_offset + q0;
   t.causal = causal; t.window = window; t.n_keys = Sk;
 
@@ -109,47 +118,52 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_unseen = window > 0 && q_last - window + 1 >= Sk;
   t.kt_begin = row_unseen ? 0 : k_lo / BK;
   t.kt_end = row_unseen ? (Sk + BK - 1) / BK : (k_hi + BK - 1) / BK;
-  attn::attend_tile<DH, NKW>(t, scale);
+  attn::attend_tile<DQK, DV, NKW>(t, scale);
 }
 
-template <int DH, class T>
+template <int DQK, int DV, class T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int KV, int G, int causal, int window, int q_offset,
            int rows, float scale, cudaStream_t st) {
   static bool opted[2] = {false, false};   // this library's smem opt-ins
   const dim3 grid((Sq + rows - 1) / rows, KV * G, B);
-  return attn::launch_tiles<DH, T>(
-      attn_kernel<DH, T, 1>, attn_kernel<DH, T, attn::kTileWarps>, opted, grid,
-      rows, st, static_cast<const T*>(q), static_cast<const T*>(k),
+  return attn::launch_tiles<DQK, DV, T>(
+      attn_kernel<DQK, DV, T, 1>, attn_kernel<DQK, DV, T, attn::kTileWarps>,
+      opted, grid, rows, st, static_cast<const T*>(q),
+      static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, KV, G, causal,
       window, q_offset, scale);
 }
 
 }  // namespace
 
-// q (B, Sq, KV, G, dh); k, v (B, Sk, KV, dh); out like q; all contiguous,
-// 16-byte aligned and of the storage type `dtype` (attn::DType).  window
-// <= 0 means no window.  dh must be 32, 64, 128 or 256; rows (query rows
-// per block) 16 or 64.
+// q (B, Sq, KV, G, dqk); k (B, Sk, KV, dqk); v (B, Sk, KV, dv); out (B, Sq,
+// KV, G, dv); all contiguous, 16-byte aligned and of the storage type
+// `dtype` (attn::DType).  window <= 0 means no window.  (dqk, dv) must be
+// (32, 32), (64, 64), (128, 128), (256, 256) or (96, 64)
+// (kernels/flash_attention.py::HEAD_DIMS); rows (query rows per block) 16
+// or 64.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
-                                     int Sk, int KV, int G, int dh, int causal,
-                                     int window, int q_offset, int rows,
-                                     float scale, int dtype, void* stream) {
+                                     int Sk, int KV, int G, int dqk, int dv,
+                                     int causal, int window, int q_offset,
+                                     int rows, float scale, int dtype,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return elem::with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    switch (dh) {
-      case 32:
-        return launch<32, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
-      case 64:
-        return launch<64, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
-      case 128:
-        return launch<128, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
-      case 256:
-        return launch<256, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window, q_offset, rows, scale, st);
-      default:
-        return (int)cudaErrorInvalidValue;
+#define REPRO_ATTN(DQK, DV)                                                  \
+  launch<DQK, DV, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window,         \
+                     q_offset, rows, scale, st)
+    if (dqk == 96 && dv == 64) return REPRO_ATTN(96, 64);
+    if (dqk != dv) return (int)cudaErrorInvalidValue;
+    switch (dqk) {
+      case 32: return REPRO_ATTN(32, 32);
+      case 64: return REPRO_ATTN(64, 64);
+      case 128: return REPRO_ATTN(128, 128);
+      case 256: return REPRO_ATTN(256, 256);
+      default: return (int)cudaErrorInvalidValue;
     }
+#undef REPRO_ATTN
   });
 }

@@ -30,7 +30,18 @@
 //    memory and no __syncthreads in the key loop.
 //  * Any S is allowed: keys past S contribute exactly zero (the TPU
 //    kernel's S % block_k assertion does not apply); dh up to 256.
-// This file supplies the dense cache's addressing and valid mask.
+//  * MLA's absorbed decode (repro/models/attention.py::mla_decode) attends
+//    all its query heads to one virtual KV head whose key row is [c_s,
+//    kr_s] (256 + 32) and whose value row is c_s: K wider than V, and wider
+//    than the dense layout's 256.  The reference builds concat(c, kr) and
+//    runs its jnp decode, since the Pallas kernel needs K and V of one
+//    width.  repro_flash_decode_latent reads the latent cache c (B, S, 256)
+//    and the rope cache kr (B, S, 32) where they are, through its own lane
+//    layout (attn_tiles.cuh's LatentLanes: one read of c serves the score
+//    and the value), with no concatenated copy; its 40 heads run as 5
+//    blocks of 8 per (b, split), each reading the rows once.
+// This file supplies the dense and the latent caches' addressing and valid
+// mask.
 #include "attn_tiles.cuh"
 
 namespace {
@@ -47,6 +58,18 @@ struct DenseKV {
   __device__ size_t row(int b, int s, int kvh) const {
     return ((size_t)b * S + s) * KV * dh + (size_t)kvh * dh;
   }
+  __device__ bool ok(int b, int s) const { return valid[(size_t)b * S + s]; }
+};
+
+// Slot s of row b in MLA's latent cache: c (B, S, 256), kr (B, S, 32).
+template <class Elem>
+struct LatentKV {
+  using T = Elem;
+  const T* c;
+  const T* kr;
+  const uint8_t* valid;   // (B, S)
+  int S;
+  __device__ int length(int) const { return S; }
   __device__ bool ok(int b, int s) const { return valid[(size_t)b * S + s]; }
 };
 
@@ -73,5 +96,23 @@ extern "C" int repro_flash_decode(
                                out_l, work, counters, B, KV, G, dh, n_split,
                                chunk, vec, scale,
                                static_cast<cudaStream_t>(stream));
+  });
+}
+
+// q (B, 1, G, 288); c (B, S, 256); kr (B, S, 32); valid (B, S) bytes; out
+// (B, 1, G, 256), normalised; all contiguous; q, c, kr and out of the
+// storage type `dtype`, q, c and kr 16-byte aligned.  n_split, chunk, work
+// and counters as for repro_flash_decode at KV = 1, dh = 256.
+extern "C" int repro_flash_decode_latent(
+    const void* q, const void* c, const void* kr, const uint8_t* valid,
+    void* out, float* work, int* counters, int B, int S, int G, int n_split,
+    int chunk, float scale, int dtype, void* stream) {
+  return elem::with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    const LatentKV<T> src{static_cast<const T*>(c), static_cast<const T*>(kr),
+                          valid, S};
+    return attn::launch_latent_decode(src, static_cast<const T*>(q), out, work,
+                                      counters, B, G, n_split, chunk, scale,
+                                      static_cast<cudaStream_t>(stream));
   });
 }

@@ -56,14 +56,12 @@
 
 namespace {
 
-// Offset (in elements) of slot `slot`'s K/V row for kv head `kvh`, through
-// row b's block table `tab`.
-__device__ __forceinline__ size_t paged_row(const int* tab, int slot,
-                                           int page, int KV, int dh,
-                                           int kvh) {
+// Index of slot `slot`'s K/V row for kv head `kvh` in the (P * page * KV,
+// dh) pool, through row b's block table `tab`.
+__device__ __forceinline__ size_t paged_index(const int* tab, int slot,
+                                             int page, int KV, int kvh) {
   const int pid = tab[slot / page];
-  return ((size_t)pid * page + (slot % page)) * (size_t)KV * dh +
-         (size_t)kvh * dh;
+  return ((size_t)pid * page + (slot % page)) * (size_t)KV + kvh;
 }
 
 // Decode: row b walks slots [0, min(lengths[b], NB * page)), all unmasked.
@@ -77,7 +75,7 @@ struct PagedKV {
   int page, NB, KV, dh;
   __device__ int length(int b) const { return min(lengths[b], NB * page); }
   __device__ size_t row(int b, int s, int kvh) const {
-    return paged_row(tables + (size_t)b * NB, s, page, KV, dh, kvh);
+    return paged_index(tables + (size_t)b * NB, s, page, KV, kvh) * dh;
   }
   __device__ bool ok(int, int) const { return true; }
 };
@@ -106,7 +104,7 @@ struct PagedVerifyTile {
     return r0 + r < rows ? out + index(r0 + r) : nullptr;
   }
   __device__ size_t key_row(int slot) const {
-    return paged_row(tab, slot, page, KV, DH, kvh);
+    return paged_index(tab, slot, page, KV, kvh);
   }
   __device__ bool allowed(int r, int slot) const {
     return slot <= len - W + (r0 + r) / G;
@@ -120,7 +118,7 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ tables,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int W, int KV, int G, int page, int NB, float scale) {
-  constexpr int BK = attn::AttnShape<DH, T, NKW>::BK;
+  constexpr int BK = attn::AttnShape<DH, DH, T, NKW>::BK;
   const int bq = blockDim.x / 2;
   PagedVerifyTile<DH, T> t;
   const int b = blockIdx.z;
@@ -133,7 +131,7 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   t.n_keys = min(t.len - W + w_last + 1, NB * page);   // exclusive
   t.kt_begin = 0;
   t.kt_end = t.n_keys > 0 ? (t.n_keys + BK - 1) / BK : 0;
-  attn::attend_tile<DH, NKW>(t, scale);
+  attn::attend_tile<DH, DH, NKW>(t, scale);
 }
 
 template <int DH, class T>
@@ -143,7 +141,7 @@ int launch_verify(const void* q, const void* kp, const void* vp,
                   float scale, cudaStream_t st) {
   static bool opted[2] = {false, false};   // this library's smem opt-ins
   const dim3 grid((W * G + rows - 1) / rows, KV, B);
-  return attn::launch_tiles<DH, T>(
+  return attn::launch_tiles<DH, DH, T>(
       paged_verify_kernel<DH, T, 1>,
       paged_verify_kernel<DH, T, attn::kTileWarps>, opted, grid, rows, st,
       static_cast<const T*>(q), static_cast<const T*>(kp),

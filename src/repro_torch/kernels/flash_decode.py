@@ -13,6 +13,11 @@ Every call is one launch: the sequence is split across blocks
 fp32 partials, kept in a workspace cached per (device, stream)
 (``workspace``), in split order.
 
+``flash_decode_latent`` is the same kernel body on MLA's latent cache:
+q (B, 1, G, 288) against the latent rows c (B, S, 256) and the rope rows kr
+(B, S, 32), key row ``[c, kr]`` and value row ``c``, read in place (no
+concatenated copy), one launch per call, normalised (B, 1, G, 256).
+
 Inputs are fp32, fp16 or bf16 (one type for q, k and v), head_dim up to
 256; the kernel computes in fp32 and returns the normalised output in the
 cache's type and the partials in fp32, as the reference does.  These
@@ -36,6 +41,9 @@ MAX_DH = 256              # head_dim the kernel takes (attn::kDecMaxDH)
 MAX_SPLITS = 64           # splits of one call (attn::kDecMaxSplits)
 TARGET_BLOCKS = 2 * 132   # enough blocks to fill the H100's SMs twice
 MAX_WORK_BYTES = 16 * 2**20   # fp32 split partials of one call, at most
+# MLA's latent cache widths the latent layout is built for (c, kr)
+# (attn::LatentLanes::DC, DR)
+LATENT_DIMS = (256, 32)
 
 # storage types the kernels take, and their tags (csrc elem::DType)
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -49,6 +57,14 @@ def _lib():
     fn = build.library("flash_decode").repro_flash_decode
     if fn.argtypes is None:
         fn.argtypes = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _lib_latent():
+    fn = build.library("flash_decode").repro_flash_decode_latent
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
@@ -140,6 +156,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_valid(valid, q, b: int, s: int) -> None:
+    if valid.dtype != torch.bool or valid.shape != (b, s):
+        raise ValueError(f"flash_decode: valid must be bool ({b}, {s}), got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    if valid.device != q.device or not valid.is_contiguous():
+        raise ValueError("flash_decode: valid must be contiguous on q's "
+                         "device")
+
+
 def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     """q (B, KV, G, dh); k, v (B, S, KV, dh); valid (B, S) bool.
     ``normalize`` -> (B, KV, G, dh) in the cache's dtype; else fp32
@@ -150,12 +175,7 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     if k.shape != (b, s, kv, dh) or v.shape != k.shape:
         raise ValueError(f"flash_decode: cache shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if valid.dtype != torch.bool or valid.shape != (b, s):
-        raise ValueError(f"flash_decode: valid must be bool ({b}, {s}), got "
-                         f"{valid.dtype} {tuple(valid.shape)}")
-    if valid.device != q.device or not valid.is_contiguous():
-        raise ValueError("flash_decode: valid must be contiguous on q's "
-                         "device")
+    _check_valid(valid, q, b, s)
     if s == 0:
         raise ValueError("flash_decode: empty cache")
     if dh > MAX_DH:
@@ -182,6 +202,39 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     return o if normalize else (o, m, l)
+
+
+def flash_decode_latent(q, c, kr, valid):
+    """MLA's absorbed decode over the latent cache: q (B, 1, G, dc + dr);
+    c (B, S, dc); kr (B, S, dr); valid (B, S) bool, (dc, dr) =
+    ``LATENT_DIMS`` -> (B, 1, G, dc) in the cache's dtype, the scores
+    scaled by 1 / sqrt(dc + dr)."""
+    tag = check_cuda("flash_decode", q, c, kr)
+    b, one, g, dq = q.shape
+    s = c.shape[1]
+    dc, dr = LATENT_DIMS
+    if (one != 1 or dq != dc + dr or c.shape != (b, s, dc)
+            or kr.shape != (b, s, dr)):
+        raise ValueError(f"flash_decode: latent shapes q {tuple(q.shape)}, "
+                         f"c {tuple(c.shape)}, kr {tuple(kr.shape)} are not "
+                         f"(B, 1, G, {dc + dr}), (B, S, {dc}), (B, S, {dr})")
+    _check_valid(valid, q, b, s)
+    if s == 0:
+        raise ValueError("flash_decode: empty cache")
+    if not aligned16(q, c, kr):
+        raise ValueError("flash_decode: q, c and kr must be 16-byte aligned")
+    n_split, chunk = splits(b, 1, g, s, dc)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    work, cnt = workspace(q.device, stream, b, 1, g, dc, n_split)
+    out = torch.empty((b, 1, g, dc), device=q.device, dtype=c.dtype)
+    err = _lib_latent()(q.data_ptr(), c.data_ptr(), kr.data_ptr(),
+                        valid.data_ptr(), out.data_ptr(), _ptr(work),
+                        _ptr(cnt), b, s, g, n_split, chunk,
+                        1.0 / (dq ** 0.5), tag, stream)
+    if err:
+        raise RuntimeError(f"flash_decode latent kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
 
 
 def flash_decode_partial(q, k, v, valid):

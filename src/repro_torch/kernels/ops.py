@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_gqa)
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_gqa,
+                                              flash_decode_latent,
                                               flash_decode_partial)
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_verify)
@@ -126,6 +127,18 @@ def decode_gqa(q, k, v, valid):
     return out
 
 
+def decode_latent(q, c, kr, valid):
+    """MLA's absorbed decode over the latent cache: q (B, 1, G, dc + dr),
+    c (B, S, dc), kr (B, S, dr), valid (B, S) -> (B, 1, G, dc); key rows
+    ``[c, kr]``, value rows ``c``.  Counted under ``flash_decode``, the
+    TPU function it stands in for."""
+    if not _on_cuda(q, c, kr, valid):
+        return ref.decode_latent_ref(q, c, kr, valid)
+    out = flash_decode_latent(q, c, kr, valid)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
 def attention(q, k, v, *, causal: bool = True,
               window: Optional[int] = None):
     """BH-flat causal attention (``ops.attention``)."""
@@ -138,8 +151,8 @@ def attention(q, k, v, *, causal: bool = True,
 
 def attention_gqa(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None, q_offset: int = 0):
-    """Grouped prefill attention: q (B, Sq, KV, G, dh), k/v (B, Sk, KV,
-    dh) -> (B, Sq, KV, G, dh)."""
+    """Grouped prefill attention: q (B, Sq, KV, G, dqk), k (B, Sk, KV,
+    dqk), v (B, Sk, KV, dv) -> (B, Sq, KV, G, dv)."""
     if not _on_cuda(q, k, v):
         return ref.attention_gqa_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

@@ -104,9 +104,9 @@ def paged_flash_verify(q, k_pages, v_pages, tables, lengths):
     b, w, kv, g, dh = q.shape
     page, nb, tag = _check("paged_flash_verify", q, k_pages, v_pages,
                            tables, lengths, kv, dh)
-    if dh not in HEAD_DIMS:
+    if (dh, dh) not in HEAD_DIMS:
         raise ValueError(f"paged_flash_verify: head_dim {dh} not in "
-                         f"{HEAD_DIMS}")
+                         f"{tuple(d for d, v in HEAD_DIMS if d == v)}")
     if not aligned16(q, k_pages, v_pages):
         raise ValueError("paged_flash_verify: q and the pools must be "
                          "16-byte aligned")

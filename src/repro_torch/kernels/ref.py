@@ -74,9 +74,20 @@ def combine_partials(o, m, l):
 
 
 def decode_gqa_ref(q, k, v, valid):
-    """Grouped normalised decode: (B, KV, G, dh) in v's dtype."""
+    """Grouped normalised decode: (B, KV, G, dv) in v's dtype (k and q may
+    be wider than v)."""
     o, m, l = decode_gqa_partial_ref(q, k, v, valid)
     return combine_partials(o[None], m[None], l[None]).to(v.dtype)
+
+
+def decode_latent_ref(q, c, kr, valid):
+    """MLA's absorbed decode as the reference's ``mla_decode`` computes it:
+    one virtual KV head with key rows ``concat(c, kr)`` and value rows
+    ``c``, through ``_decode_partial`` / ``_combine_partials``.  q (B, 1,
+    G, dc + dr); c (B, S, dc); kr (B, S, dr); valid (B, S) -> (B, 1, G, dc)
+    in c's dtype."""
+    k = torch.cat([c, kr], -1)[:, :, None]
+    return decode_gqa_ref(q, k, c[:, :, None], valid)
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +118,9 @@ def attention_ref(q, k, v, *, causal: bool = True,
 
 def attention_gqa_ref(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, q_offset: int = 0):
-    """Grouped layout of ``gqa_prefill``.  q: (B, Sq, KV, G, dh); k, v:
-    (B, Sk, KV, dh) -> (B, Sq, KV, G, dh) in v's dtype."""
+    """Grouped layout of ``gqa_prefill`` / ``mla_prefill``.  q: (B, Sq, KV,
+    G, dqk); k: (B, Sk, KV, dqk); v: (B, Sk, KV, dv) -> (B, Sq, KV, G, dv)
+    in v's dtype (``chunked_attention``'s dhq / dhv)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("bqkgd,bpkd->bkgqp", q.float() * scale, k.float())
     ok = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)

@@ -1,14 +1,18 @@
 """GQA attention (full / sliding-window): prefill, single-token decode,
-and paged decode / stacked verify against page pools.
+and paged decode / stacked verify against page pools; and MLA
+(multi-head latent attention, MiniCPM3 / DeepSeek style): prefill and
+the absorbed-matrix decode over the latent cache.
 
-PyTorch port of the GQA part of ``repro/models/attention.py``.  Prefill
-attention runs the hand-written flash-attention kernel, decode the
-flash-decoding kernel and paged attention the paged decode / verify
-kernels, all through ``kernels.ops`` (which takes their plain PyTorch
+PyTorch port of the GQA and MLA parts of ``repro/models/attention.py``.
+Prefill attention runs the hand-written flash-attention kernel (MLA's at
+q / k 96 and v 64), decode the flash-decoding kernel (MLA's on its
+latent cache) and paged attention the paged decode / verify kernels, all
+through ``kernels.ops`` (which takes their plain PyTorch
 versions for CPU tensors); ``attn_impl=None`` asks for the plain versions
 explicitly on any device.  The projections go through ``common.linear``
 with the same ``attn_impl``, which runs the quantized matmul kernel for an
-int8/int4 weight.
+int8/int4 weight; MLA's ``W_uk`` absorption and ``W_uv`` un-absorption
+are ``torch.einsum``, as the reference computes them outside Pallas.
 
 Decode keeps the ragged ``(B,)`` position vector on the device through
 the cache write and the valid mask: the only host round trip in a decode
@@ -46,11 +50,50 @@ def gqa_init(rng, cfg: ModelConfig) -> dict:
     return p
 
 
-def check_gqa(cfg: ModelConfig) -> None:
-    if cfg.attention != "gqa":
+def mla_init(rng, cfg: ModelConfig) -> dict:
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.dtype
+    dq, dc = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.v_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    return {"w_dq": common.dense_init(rng, d, dq, dt),
+            "q_norm": np.ones((dq,), dt),
+            "w_uq_nope": common.dense_init(rng, dq, h * dn, dt),
+            "w_uq_rope": common.dense_init(rng, dq, h * dr, dt),
+            "w_dkv": common.dense_init(rng, d, dc, dt),
+            "kv_norm": np.ones((dc,), dt),
+            "w_kr": common.dense_init(rng, d, dr, dt),
+            "w_uk": common.dense_init(rng, dc, h * dn, dt),
+            "w_uv": common.dense_init(rng, dc, h * dv, dt),
+            "w_o": common.dense_init(rng, h * dv, d, dt)}
+
+
+def attn_init(rng, cfg: ModelConfig) -> dict:
+    return mla_init(rng, cfg) if cfg.attention == "mla" else gqa_init(rng,
+                                                                      cfg)
+
+
+ATTENTIONS = ("gqa", "mla")
+
+
+def check_attention(cfg: ModelConfig) -> None:
+    if cfg.attention not in ATTENTIONS:
         raise NotImplementedError(
             f"{cfg.attention} attention ({cfg.name}) is not yet ported in "
             f"repro_torch")
+
+
+def empty_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+                device="cpu") -> dict:
+    """One layer's zeroed cache: GQA {k, v} (batch, seq, KV, dh), MLA
+    {c (batch, seq, kv_lora_rank), kr (batch, seq, rope_head_dim)}
+    (``gqa_empty_cache`` / ``mla_empty_cache``).  A page pool is the same
+    layout with (pages, page size) leading."""
+    dt = dtype or cfg.torch_dtype
+    if cfg.attention == "mla":
+        dims = {"c": (cfg.kv_lora_rank,), "kr": (cfg.rope_head_dim,)}
+    else:
+        dims = dict.fromkeys(("k", "v"), (cfg.n_kv_heads, cfg.head_dim))
+    return {k: torch.zeros((batch, seq) + d, dtype=dt, device=device)
+            for k, d in dims.items()}
 
 
 # ===========================================================================
@@ -69,9 +112,10 @@ def flash_decode(q, k_cache, v_cache, valid, impl: Optional[str] = None):
 
 
 def cache_update(cache, new, pos):
-    """Write ``new`` (B, KV, dh) into ``cache`` (B, S, KV, dh) at ``pos``,
-    a scalar (one slot for the whole batch) or a device (B,) vector of
-    RAGGED per-row slots.
+    """Write ``new`` (B, ...) into ``cache`` (B, S, ...) at ``pos``, a
+    scalar (one slot for the whole batch) or a device (B,) vector of
+    RAGGED per-row slots: GQA's (B, KV, dh) rows, or MLA's (B, F) latent
+    and rope rows (the reference's ``_cache_update_2d``).
 
     Unlike the reference, which returns a new array, this writes IN PLACE
     and returns ``cache``: the layer's cache buffer is allocated once at
@@ -125,6 +169,14 @@ def gqa_prefill(params, x, cfg: ModelConfig, positions, *, causal=True,
     return out, cache
 
 
+def _pos_column(pos, b: int, device) -> torch.Tensor:
+    """``pos`` (an int or a ragged (B,) device vector) as a (B, 1) long
+    column."""
+    if torch.is_tensor(pos) and pos.ndim:
+        return pos.reshape(b, 1)
+    return torch.full((b, 1), int(pos), dtype=torch.long, device=device)
+
+
 def decode_valid(cfg: ModelConfig, pos_b: torch.Tensor, s_cache: int):
     """(B, S) bool mask of the cache slots the new token attends."""
     idx = torch.arange(s_cache, device=pos_b.device)[None, :]
@@ -143,11 +195,7 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
     vector of per-row cache positions -> (out, cache)."""
     b = x.shape[0]
     kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
-    if torch.is_tensor(pos) and pos.ndim:
-        pos_b = pos.reshape(b, 1)
-    else:
-        pos_b = torch.full((b, 1), int(pos), dtype=torch.long,
-                           device=x.device)
+    pos_b = _pos_column(pos, b, x.device)
     q, k, v = _project_qkv(params, x, cfg, attn_impl)
     q = common.apply_rope(q, pos_b, cfg.rope_theta)
     k = common.apply_rope(k, pos_b, cfg.rope_theta)
@@ -255,3 +303,91 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
     out = common.linear(out.reshape(b, w, kv * g * dh), params["w_o"],
                         attn_impl)
     return out, pools
+
+
+# ===========================================================================
+# MLA (multi-head latent attention): prefill + absorbed-matrix decode
+# ===========================================================================
+def mla_prefill(params, x, cfg: ModelConfig, positions, *, make_cache=True,
+                attn_impl: Optional[str] = None):
+    """x: (B,S,D) -> (out (B,S,D), cache {c (B,S,dc), kr (B,S,dr)} | None).
+    Per-head q / k of width dn + dr (the rope half shared by every head's
+    key) against v of width dv: one causal ``prefill_attention`` over
+    n_heads KV heads of one query each, scaled by 1/sqrt(dn + dr)."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.v_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    qc = common.rms_norm(common.linear(x, params["w_dq"], attn_impl),
+                         params["q_norm"], cfg.norm_eps)
+    q_nope = common.linear(qc, params["w_uq_nope"], attn_impl).reshape(
+        b, s, h, dn)
+    q_rope = common.apply_rope(common.linear(
+        qc, params["w_uq_rope"], attn_impl).reshape(b, s, h, dr), positions,
+        cfg.rope_theta)
+    c = common.rms_norm(common.linear(x, params["w_dkv"], attn_impl),
+                        params["kv_norm"], cfg.norm_eps)
+    k_rope = common.apply_rope(common.linear(
+        x, params["w_kr"], attn_impl).reshape(b, s, 1, dr), positions,
+        cfg.rope_theta)
+    k_nope = common.linear(c, params["w_uk"], attn_impl).reshape(b, s, h, dn)
+    v = common.linear(c, params["w_uv"], attn_impl).reshape(b, s, h, dv)
+    q_full = torch.cat([q_nope, q_rope], -1)               # (B,S,H,dn+dr)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], -1)
+    out = prefill_attention(q_full.reshape(b, s, h, 1, dn + dr), k_full,
+                            v.contiguous(), causal=True, window=None,
+                            impl=attn_impl)
+    out = common.linear(out.reshape(b, s, h * dv), params["w_o"], attn_impl)
+    cache = {"c": c, "kr": k_rope[:, :, 0]} if make_cache else None
+    return out, cache
+
+
+def latent_decode(q, c_cache, kr_cache, valid, impl: Optional[str] = None):
+    """q (B, 1, G, dc + dr) against the latent cache -> (B, 1, G, dc).
+    ``impl=KERNEL`` runs the flash-decoding kernel's latent layout (its
+    plain version for CPU tensors); ``None`` the plain version, the
+    reference's jnp decode over ``concat(c, kr)``."""
+    if impl == KERNEL:
+        return ops.decode_latent(q, c_cache, kr_cache, valid)
+    return ref.decode_latent_ref(q, c_cache, kr_cache, valid)
+
+
+def mla_decode(params, x, cfg: ModelConfig, cache, pos, *,
+               attn_impl: Optional[str] = None):
+    """Absorbed-matrix MLA decode over the latent cache: x (B,1,D); cache
+    {c (B,S,dc), kr (B,S,dr)}, written IN PLACE at ``pos`` (an int or a
+    RAGGED (B,) device vector) -> (out, cache).  The latent cache is one
+    virtual KV head of width dc + dr attended by all n_heads queries;
+    W_uk is absorbed into the query and W_uv into the output, so decode
+    never expands per-head K/V."""
+    b = x.shape[0]
+    h, dn, dr = cfg.n_heads, cfg.v_head_dim, cfg.rope_head_dim
+    dc, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    pos_b = _pos_column(pos, b, x.device)
+    qc = common.rms_norm(common.linear(x, params["w_dq"], attn_impl),
+                         params["q_norm"], cfg.norm_eps)
+    q_nope = common.linear(qc, params["w_uq_nope"], attn_impl).reshape(
+        b, 1, h, dn)
+    q_rope = common.apply_rope(common.linear(
+        qc, params["w_uq_rope"], attn_impl).reshape(b, 1, h, dr), pos_b,
+        cfg.rope_theta)
+    # absorb W_uk: q_abs[h] = q_nope[h] @ W_uk[h].T, into the latent space
+    w_uk = params["w_uk"].reshape(dc, h, dn)
+    q_abs = torch.einsum("bhn,chn->bhc", q_nope[:, 0], w_uk)   # (B,H,dc)
+    q_eff = torch.cat([q_abs, q_rope[:, 0]], -1)               # (B,H,dc+dr)
+    c_new = common.rms_norm(common.linear(x, params["w_dkv"], attn_impl),
+                            params["kv_norm"], cfg.norm_eps)[:, 0]
+    kr_new = common.apply_rope(common.linear(
+        x, params["w_kr"], attn_impl).reshape(b, 1, 1, dr), pos_b,
+        cfg.rope_theta)[:, 0, 0]
+    c_cache = cache_update(cache["c"], c_new, pos)
+    kr_cache = cache_update(cache["kr"], kr_new, pos)
+    s_cache = c_cache.shape[1]
+    valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache).contiguous()
+    o_lat = latent_decode(q_eff[:, None].contiguous(), c_cache, kr_cache,
+                          valid, impl=attn_impl)               # (B,1,H,dc)
+    # un-absorb W_uv: out[h] = o_lat[h] @ W_uv[h]
+    w_uv = params["w_uv"].reshape(dc, h, dv)
+    out = torch.einsum("bhc,chv->bhv", o_lat[:, 0], w_uv).reshape(
+        b, 1, h * dv)
+    out = common.linear(out, params["w_o"], attn_impl)
+    return out, {"c": c_cache, "kr": kr_cache}

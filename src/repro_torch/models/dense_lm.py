@@ -1,7 +1,12 @@
-"""GQA decoder layers, dense and MoE: init, prefill and single-token decode.
+"""Decoder layers, dense (GQA or MLA attention), MoE and VLM: init,
+prefill and single-token decode.
 
-PyTorch port of the dense and MoE families of ``repro/models/dense_lm.py``
-(an MoE layer's FFN is ``models/moe.py``'s capacity-dispatched experts).
+PyTorch port of the dense, MoE and VLM families of
+``repro/models/dense_lm.py`` (an MoE layer's FFN is ``models/moe.py``'s
+capacity-dispatched experts).  A VLM backbone serves text as a GQA
+decoder, as the reference's engine serves it: with text-only positions
+(t = h = w) M-RoPE is 1-D RoPE, and ``patch_proj`` is carried in the
+embed shard but applied by nothing on the serving path.
 Parameters are nested dicts with the reference's keys and ``(in, out)``
 layout; ``init_params`` stacks the layers on a leading axis, as the
 reference's ``vmap``-ed init does, so ``checkpoint.partition_and_save``
@@ -15,15 +20,17 @@ import numpy as np
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
-from repro_torch.models.config import DENSE, MOE, ModelConfig
+from repro_torch.models.config import DENSE, MOE, VLM, ModelConfig
+
+DECODER_FAMILIES = (DENSE, MOE, VLM)
 
 
 def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE):
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
             f"model family '{cfg.family}' ({cfg.name}) is not yet ported in "
-            f"repro_torch (dense and MoE only)")
-    attn.check_gqa(cfg)
+            f"repro_torch (dense, MoE and VLM only)")
+    attn.check_attention(cfg)
 
 
 # ===========================================================================
@@ -32,7 +39,7 @@ def check_dense(cfg: ModelConfig) -> None:
 def layer_init(rng: np.random.Generator, cfg: ModelConfig) -> dict:
     p = {
         "attn_norm": np.ones((cfg.d_model,), cfg.dtype),
-        "attn": attn.gqa_init(rng, cfg),
+        "attn": attn.attn_init(rng, cfg),
         "ffn_norm": np.ones((cfg.d_model,), cfg.dtype),
     }
     if cfg.family == MOE:
@@ -62,6 +69,10 @@ def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(rng, cfg.d_model,
                                               cfg.padded_vocab, cfg.dtype)
+    if cfg.family == VLM:
+        # drawn after the head, as the reference folds it from the head's key
+        params["patch_proj"] = common.dense_init(rng, cfg.d_model,
+                                                 cfg.d_model, cfg.dtype)
     return params
 
 
@@ -75,20 +86,37 @@ def _ffn(p, x, cfg: ModelConfig, impl: Optional[str]):
     return x + common.mlp_apply(p["mlp"], h, impl)
 
 
+def attn_prefill(p, h, cfg: ModelConfig, positions, *, make_cache,
+                 attn_impl: Optional[str] = None):
+    """The layer's attention block on the normed input: MLA or GQA."""
+    if cfg.attention == "mla":
+        return attn.mla_prefill(p, h, cfg, positions, make_cache=make_cache,
+                                attn_impl=attn_impl)
+    return attn.gqa_prefill(p, h, cfg, positions, causal=cfg.causal,
+                            make_cache=make_cache, attn_impl=attn_impl)
+
+
+def attn_decode(p, h, cfg: ModelConfig, cache, pos, *,
+                attn_impl: Optional[str] = None):
+    """One token per row against the layer's cache: MLA or GQA."""
+    if cfg.attention == "mla":
+        return attn.mla_decode(p, h, cfg, cache, pos, attn_impl=attn_impl)
+    return attn.gqa_decode(p, h, cfg, cache, pos, attn_impl=attn_impl)
+
+
 def layer_prefill(p, x, cfg: ModelConfig, positions, *, make_cache,
                   attn_impl: Optional[str] = None):
     h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    a, cache = attn.gqa_prefill(p["attn"], h, cfg, positions,
-                                causal=cfg.causal, make_cache=make_cache,
-                                attn_impl=attn_impl)
+    a, cache = attn_prefill(p["attn"], h, cfg, positions,
+                            make_cache=make_cache, attn_impl=attn_impl)
     return _ffn(p, x + a, cfg, attn_impl), cache
 
 
 def layer_decode(p, x, cfg: ModelConfig, cache, pos, *,
                  attn_impl: Optional[str] = None):
     h = common.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos,
-                               attn_impl=attn_impl)
+    a, cache = attn_decode(p["attn"], h, cfg, cache, pos,
+                           attn_impl=attn_impl)
     return _ffn(p, x + a, cfg, attn_impl), cache
 
 

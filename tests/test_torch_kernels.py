@@ -141,6 +141,50 @@ def test_fully_masked_rows_match_chunked_attention():
                                **TOL)
 
 
+@pytest.mark.parametrize("dqk,dv,sq,g", [(48, 32, 11, 1), (96, 64, 32, 1),
+                                         (96, 64, 40, 2)])
+def test_attention_dv_below_dqk_matches_chunked_attention(dqk, dv, sq, g):
+    """MLA's prefill heads: q / k wider than v (reduced minicpm3_4b's 48 /
+    32 and the full model's 96 / 64) against the reference prefill
+    attention."""
+    import jax.numpy as jnp
+    from repro.models.attention import chunked_attention
+    rng = np.random.default_rng(dqk + sq)
+    b, kv = 2, 3
+    q = _rand(rng, (b, sq, kv, g, dqk))
+    k, v = _rand(rng, (b, sq, kv, dqk)), _rand(rng, (b, sq, kv, dv))
+    want = chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, block_q=16, block_k=16)
+    got = ops.attention_gqa(_t(q), _t(k), _t(v), causal=True)
+    assert tuple(got.shape) == (b, sq, kv, g, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dc,dr,lengths", [(32, 16, [5, 16, 9]),
+                                           (256, 32, [40, 1, 33])])
+def test_latent_decode_matches_attention_module(dc, dr, lengths):
+    """MLA's absorbed decode over the latent cache (key rows [c, kr], value
+    rows c, one virtual KV head for every query head) against
+    ``repro.models.attention.flash_decode`` over ``concat(c, kr)``, the
+    call ``mla_decode`` makes (its jnp path: the Pallas kernel needs K and
+    V of one width)."""
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    rng = np.random.default_rng(dc)
+    b, s, g = 3, 40, 5
+    q = _rand(rng, (b, 1, g, dc + dr))
+    c, kr = _rand(rng, (b, s, dc)), _rand(rng, (b, s, dr))
+    valid = np.arange(s)[None] < np.asarray(lengths)[:, None]
+    got = ops.decode_latent(_t(q), _t(c), _t(kr), _t(valid))
+    assert tuple(got.shape) == (b, 1, g, dc)
+    k = np.concatenate([c, kr], -1)[:, :, None]
+    for impl in (None, "pallas"):
+        want = jattn.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(c[:, :, None]),
+                                  jnp.asarray(valid), None, impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_cpu_path_counts_no_launches():
     ops.reset_launches()
     rng = np.random.default_rng(0)
@@ -155,6 +199,9 @@ def test_cpu_path_counts_no_launches():
     ops.quant_matmul(q[0, :, 0, 0], w8, torch.ones(8), 8)
     ops.matmul(q[0, :, 0, 0], torch.ones((32, 8)))
     ops.paged_decode(q[:, 0], pages, pages, tables, lengths, impl="gather")
+    ops.decode_latent(torch.zeros((1, 1, 2, 48)), torch.zeros((1, 8, 32)),
+                      torch.zeros((1, 8, 16)),
+                      torch.ones((1, 8), dtype=torch.bool))
     assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0,
                             "paged_flash_decode": 0,
                             "paged_flash_verify": 0,
@@ -274,6 +321,57 @@ def test_cuda_paged_verify_matches_plain(cuda, b, w, kv, g, dh, page, nb,
         torch.testing.assert_close(
             got[:, 0], ops.paged_decode(args[0][:, 0].contiguous(),
                                         *args[1:]), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,sq,h,g", [(1, 32, 40, 1),   # minicpm3_4b prefill
+                                      (2, 77, 4, 2), (1, 130, 3, 1)])
+def test_cuda_attention_qk96_v64(cuda, dtype, b, sq, h, g):
+    """MLA's prefill: q / k rows of 96, v rows of 64, causal."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + h)
+    q = torch.randn((b, sq, h, g, 96), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, sq, h, 96), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, sq, h, 64), generator=gen, device=cuda).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.attention_gqa(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert tuple(got.shape) == (b, sq, h, g, 64)
+    _close(got, ref.attention_gqa_ref(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,s,g", [(2, 40, 40),     # minicpm3_4b decode
+                                   (3, 1000, 40), (2, 37, 1), (4, 200, 12)])
+def test_cuda_latent_decode(cuda, dtype, b, s, g):
+    """MLA's decode on the latent cache: q (B, 1, G, 288), c (B, S, 256),
+    kr (B, S, 32), ragged valid lengths; one launch per call."""
+    gen = torch.Generator(device=cuda).manual_seed(s + g)
+    q = torch.randn((b, 1, g, 288), generator=gen, device=cuda).to(dtype)
+    c = torch.randn((b, s, 256), generator=gen, device=cuda).to(dtype)
+    kr = torch.randn((b, s, 32), generator=gen, device=cuda).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=cuda)
+    valid = torch.arange(s, device=cuda)[None] < lens[:, None]
+    before = ops.LAUNCHES["flash_decode"]
+    got = ops.decode_latent(q, c, kr, valid)
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+    _close(got, ref.decode_latent_ref(q, c, kr, valid), dtype)
+
+
+def test_cuda_attention_and_latent_decode_refuse_other_widths(cuda):
+    q = torch.zeros((1, 8, 2, 1, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention_gqa(q, q[:, :, :, 0], q[:, :, :, 0])
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention_gqa(torch.zeros((1, 8, 2, 1, 64), device=cuda),
+                          torch.zeros((1, 8, 2, 64), device=cuda),
+                          torch.zeros((1, 8, 2, 32), device=cuda))
+    c = torch.zeros((1, 8, 128), device=cuda)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="latent shapes"):
+        ops.decode_latent(torch.zeros((1, 1, 4, 160), device=cuda), c,
+                          torch.zeros((1, 8, 32), device=cuda), valid)
 
 
 def test_cuda_kernels_reject_other_dtypes(cuda):

@@ -21,7 +21,8 @@ def _close(got, want):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
 
 
-@pytest.fixture(scope="module", params=["gpt2_base", "yi_9b"])
+@pytest.fixture(scope="module", params=["gpt2_base", "yi_9b", "minicpm3_4b",
+                                        "qwen2_vl_2b"])
 def model(request):
     jcfg = get_config(request.param).reduced()
     tcfg = torch_get(request.param).reduced()
@@ -58,7 +59,8 @@ def test_embed_layer_head(model):
 
 def test_layer_cache_then_ragged_decode(model):
     """Cache-capturing prefill padded to total_len, then decode steps with
-    a scalar pos and with a RAGGED (B,) pos vector."""
+    a scalar pos and with a RAGGED (B,) pos vector.  Every cache leaf:
+    GQA's {k, v}, MLA's latent {c, kr}."""
     jcfg, jf, j, tcfg, tf, t = model
     rng = np.random.default_rng(1)
     b, s, total = 3, 11, 16
@@ -67,7 +69,8 @@ def test_layer_cache_then_ragged_decode(model):
     jy, jc = jf["layer_cache"](jw, jnp.asarray(x), total)
     ty, tc = tf["layer_cache"](tw, torch.from_numpy(x), total)
     _close(ty, jy)
-    for key in ("k", "v"):
+    assert set(tc) == set(jc)
+    for key in jc:
         assert tuple(tc[key].shape) == jc[key].shape
         _close(tc[key], jc[key])
     # scalar position: every row writes slot s
@@ -83,7 +86,7 @@ def test_layer_cache_then_ragged_decode(model):
     ty2, tc = tf["layer_decode"](tw, torch.from_numpy(x2), tc,
                                  torch.as_tensor(pos))
     _close(ty2, jy2)
-    for key in ("k", "v"):
+    for key in jc:
         _close(tc[key], jc[key])
 
 
@@ -112,4 +115,4 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         torch_fns(torch_get("seamless_m4t_medium").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_fns(torch_get("minicpm3_4b").reduced(), device="cpu")
+        torch_fns(torch_get("xlstm_1_3b").reduced(), device="cpu")

@@ -149,16 +149,20 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "zamba2_1_2b"],
-                                   ["--arch", "minicpm3_4b"],
-                                   ["--arch", "qwen2_vl_2b"],
+                                   ["--arch", "seamless_m4t_medium"],
+                                   ["--arch", "minicpm3_4b", "--quant",
+                                    "int8"],
                                    ["--arch", "xlstm_1_3b"]])
 def test_serve_cli_unported_flags_exit(flags, capsys, tmp_path,
                                        monkeypatch):
-    """Families the port cannot serve yet exit before any checkpoint is
-    written."""
+    """Families the port cannot serve yet, and ``--quant`` with MLA
+    attention, exit before any checkpoint is written."""
     monkeypatch.setattr(serve, "CKPT_ROOT", tmp_path)
-    with pytest.raises(SystemExit, match=f"error: --arch {flags[1]} is not "
-                       "yet ported in repro_torch"):
+    match = (f"error: --arch {flags[1]} is not yet ported in repro_torch"
+             if len(flags) == 2 else
+             f"error: --quant {flags[3]} with MLA attention .* is not yet "
+             f"ported in repro_torch")
+    with pytest.raises(SystemExit, match=match):
         serve.main(["--device", "cpu"] + flags)
     assert list(tmp_path.iterdir()) == []
 
