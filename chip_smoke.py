@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # one CUDA card, about fifteen minutes
+    python3 chip_smoke.py        # one CUDA card, about seventeen minutes
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
    ``build/repro_torch_kernels``, one ``nvcc`` per source, in parallel),
    each library's ``-Xptxas -v`` registers and spills, and the
    tensor-core instructions (``HMMA`` / ``HGMMA`` in ``cuobjdump -sass``)
-   of the two matmul libraries, ``libflash_attention`` and
-   ``libpaged_decode``: it fails if one of the first three holds none.
+   of the two matmul libraries, ``libflash_attention``,
+   ``libpaged_decode`` and ``libflash_attention_bwd`` (plain fp32 FMA):
+   it fails if one of the first three holds none.
    TF32 is turned off for PyTorch's own matmuls.  While nvcc runs, the
    serving phases' checkpoints and the int8 / int4 transcodes are
    written on the host.
@@ -42,7 +43,18 @@ Phases, in order; any failure exits non-zero:
    latent flash_decode (q 288 against c 256 + kr 32, B=2 S=40 G=40), in
    fp32 and fp16 (SDPA on ``concat(c, kr)`` built beforehand, not timed);
    flash_attention, flash_decode and paged_flash_decode at the VLM's
-   G = 6, head_dim 128, in fp16.  For
+   G = 6, head_dim 128, in fp16.  quantized_matmul's batched entry at
+   phase 20's absorbed products (2 rows, 40 heads, 64 -> 256 and 256 ->
+   64, int8 and int4, fp16 activations; library ``torch.bmm`` on the
+   per-head weights dequantized beforehand).  flash_attention_bwd (its
+   dq, dk, dv against the plain version on the forward kernel's saved
+   out and lse, which is held against the plain log-sum-exp) at phase
+   21's shape (B=8 S=256 16 x 64 fp32 causal), vit_large's non-causal
+   fp16 prefill, a windowed GQA case (G = 4, head_dim 128, window 64),
+   qwen3_moe's G = 8 head_dim 128 fp16 and minicpm3's (96, 64) in fp32
+   and bf16; library SDPA's backward (``torch.autograd.grad`` of its
+   output), bound the bytes of q, k, v, out, d_out, lse, dq, dk, dv
+   against five attention-sized products.  For
    every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
@@ -100,9 +112,9 @@ Phases, in order; any failure exits non-zero:
    with no launch, and the tokens must be phase 5's (tie rule).
 11. gpt_j at full width (d 4096, 16 heads x 256, d_ff 16384, fp16), depth
    cut to 4 of 28 layers, 2 requests of 64 + 8 tokens under 1600 MiB
-   (below its ~2.45 GB of shards), kernels then plain versions: launches
-   exact, tokens equal (tie rule: top-2 gap within 2e-3 of the largest
-   logit).
+   (below its ~2.45 GB of shards), kernels then plain versions (their
+   first 2 new tokens): launches exact, tokens equal (tie rule: top-2 gap
+   within 2e-3 of the largest logit).
 12. vit_large at full size (24 fp16 layers, non-causal) through
    ``PipeloadEngine.run_single`` on 2 x 197 tokens under 300 MiB, kernels
    then plain: flash_attention once per layer, logits within 2e-3 of the
@@ -213,6 +225,26 @@ Phases, in order; any failure exits non-zero:
    layer per prefill and paged_flash_decode (G = 6) once per layer per
    decode round, as derived from the policy log; the prefix tree must
    hit, layers stream, and the tokens equal the plain run's (tie rule).
+20. MLA on int8 shards: phase 18's checkpoint transcoded to int8 (written
+   while nvcc builds), phase 18's 2 requests of 32 + 8 tokens through
+   ``serve.run(quant="int8")`` under ``MLA_QUANT_BUDGET_MB``, reckoned from
+   the int8 manifest (two streaming layers fit, three do not), kernels
+   then plain versions.  quantized_matmul's serving-loop launches are
+   checked exactly: 11 per layer per pass plus the head's, the decode's
+   W_uk / W_uv absorption being one batched launch each for all 40 heads;
+   the kernel run widens no quantized weight and its allocator peak stays
+   within the ledger peak + 48 MiB; the tokens equal the plain run's (tie
+   rule) and the last-token logits sit within 5% of the fp16 checkpoint's
+   largest.
+21. Training: ``repro_torch.launch.train``'s path (``train.run``) on full
+   gpt2_base (24 fp32 layers, its config's remat), batch 8 x 256 tokens,
+   5 AdamW steps, TF32 off, kernels then plain versions from the same
+   seed: each step's loss within 1e-4 relative, step 1's gradients (one
+   backward on the same parameters and batch) within 1e-4 of each leaf's
+   largest |g|; flash_attention launches exactly 24 x 5 x 2 (the forward
+   and remat's recompute) and flash_attention_bwd 24 x 5, nothing else,
+   the plain run nothing; step ms and the allocator peak beside params +
+   grads + two fp32 moments.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -251,8 +283,13 @@ kernel also reports phase 13's launches (``spec_launches``,
 ``moe_serve_launches``), phase 17's (``moe_quant_launches``,
 ``moe_quant_serve_launches``; quantized_matmul has these two as well),
 phase 18's (``mla_launches``, ``mla_serve_launches``: the dense and the
-paged kernel runs together) and phase 19's (``vlm_launches``,
-``vlm_serve_launches``).
+paged kernel runs together), phase 19's (``vlm_launches``,
+``vlm_serve_launches``), phase 20's (``mla_quant_launches``,
+``mla_quant_serve_launches``; quantized_matmul too) and phase 21's
+(``train_launches``).  flash_attention_bwd's row (the counterpart of the
+JAX package's jnp custom VJP, not of a Pallas kernel) takes its launches
+from phase 21, its numbers at phase 21's shape, and adds that phase's
+mean step ms after the first (``train_step_ms``) and allocator peak.
 Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
@@ -305,6 +342,7 @@ AUTOTUNE = dict(requests=4, page_size=16, shared_prefix=96)
 GPTJ_LAYERS = 4
 GPTJ = dict(requests=2, prompt_len=64, new_tokens=8, max_inflight=2)
 GPTJ_BUDGET_MB = 1600
+GPTJ_PLAIN_NEW_TOKENS = 2        # the plain partner's new tokens
 # vit_large at full size: 24 fp16 layers of ~25 MB, non-causal, batch 2 x
 # 197 tokens (196 patches + class token) through run_single, streamed
 # under a budget below its ~605 MB
@@ -390,6 +428,16 @@ MLA_PAGE = 16
 # not three.  4 requests of 64 + 8 tokens, the first 48 shared, paged at
 # 16 on the planner's schedule with the page size fixed (as phase 18's
 # paged run)
+# phase 20: phase 18's model on its int8 transcode; two int8 streaming
+# layers fit the budget's ledger share and three do not (embed 188.8 MB +
+# head 189.0 MB + KV 0.2 MB + 2 x 62.8 MB layers = 512.2 MiB with cuBLAS's
+# 32 MiB workspace, three 572.1 MiB)
+MLA_QUANT = "int8"
+MLA_QUANT_BUDGET_MB = 540
+# phase 21: launch/train.py's path on full gpt2_base (24 layers, fp32, its
+# config's remat), TF32 off
+TRAIN = dict(batch=8, seq=256, steps=5)
+TRAIN_RTOL = 1e-4   # kernels vs plain: each step's loss, step 1's grads
 VLM_LAYERS = 4
 VLM = dict(requests=4, prompt_len=64, new_tokens=8, max_inflight=4,
            shared_prefix=48)
@@ -797,6 +845,8 @@ def quant_shapes(cfg):
     M = the capacity of a phase 17 prefill (a decode round's is the same
     8 rows), with its launches per streamed expert (its count per round
     follows the routing)."""
+    if cfg.attention == "mla":
+        return mla_quant_shapes(cfg)
     path = MOE_PATH if cfg.family == "moe" else MAIN
     d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
@@ -819,6 +869,31 @@ def quant_shapes(cfg):
         for kn in ffn:
             per_expert[kn] = per_expert.get(kn, 0) + 1
         out += [("expert", cap, k, n, c) for (k, n), c in per_expert.items()]
+    return out
+
+
+def mla_quant_shapes(cfg):
+    """``quant_shapes`` of an MLA config on phase 20's path: every linear
+    of a layer in both passes (the SwiGLU MLP's included); the prefill
+    multiplies by W_uk and W_uv as linears, the decode absorbs them with
+    one batched launch each for all heads (its entries: the per-head K x
+    N, counted once per layer)."""
+    d, h, f = cfg.d_model, cfg.n_heads, cfg.d_ff
+    dq, dc, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
+    dn = dv = cfg.v_head_dim
+    both = [(d, dq), (dq, h * dn), (dq, h * dr), (d, dc), (d, dr),
+            (h * dv, d), (d, f), (f, d)] + ([(d, f)] if cfg.gated_mlp else [])
+    per = {"decode": both + [(dn, dc), (dc, dv)],
+           "prefill": both + [(dc, h * dn), (dc, h * dv)]}
+    out = []
+    for kind, m in (("decode", MLA["max_inflight"]),
+                    ("prefill", MLA["prompt_len"])):
+        counts = {}
+        for kn in per[kind]:
+            counts[kn] = counts.get(kn, 0) + cfg.num_layers
+        out += [(kind, m, k, n, c) for (k, n), c in counts.items()]
+        out.append((kind, m if kind == "decode" else 1, d, cfg.padded_vocab,
+                    1))
     return out
 
 
@@ -870,6 +945,149 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
                 ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
                 kernel_names=names, plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by)
+
+
+def bwd_case(torch, fa, fab, ref, gen, name, b, s, kv, g, dqk, dv=None,
+             window=None, causal=True, dtype=None):
+    """The flash-attention backward at one shape against its plain version
+    (``ref.attention_gqa_bwd_ref``) on the forward kernel's saved (out,
+    lse), whose lse is held against the plain log-sum-exp first.  Error:
+    each of dq, dk, dv within TOL (fp32) or ``HALF_RTOL`` of its largest
+    magnitude; the worst of the three is reported.  Library: SDPA's
+    backward on the same heads (K / V repeated to the q heads, the forward
+    not timed).  Bound: the bytes of q, k, v, out, d_out, lse, dq, dk, dv
+    against the five products' 2 (3 dqk + 2 dv) flops per unmasked pair."""
+    dev = "cuda"
+    dv = dv or dqk
+    dtype = dtype or torch.float32
+    kw = dict(causal=causal, window=window)
+    q = torch.randn((b, s, kv, g, dqk), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, dqk), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, dv), generator=gen, device=dev).to(dtype)
+    d_out = torch.randn((b, s, kv, g, dv), generator=gen, device=dev).to(
+        dtype)
+    out, lse = fa.flash_attention_gqa(q, k, v, return_lse=True, **kw)
+    _, want_lse = ref.attention_gqa_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    lse_err = (lse - want_lse).abs().max().item()
+    lse_limit = TOL * max(1.0, want_lse.abs().max().item())
+    if not lse_err <= lse_limit:
+        fail(f"flash_attention {name}: lse error {lse_err} above "
+             f"{lse_limit}")
+    run = lambda: fab.flash_attention_bwd(q, k, v, out, lse,  # noqa: E731
+                                          d_out, **kw)
+    plain = lambda: ref.attention_gqa_bwd_ref(q, k, v, out,  # noqa: E731
+                                              lse, d_out, **kw)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if any(gt.dtype != dtype for gt in got):
+        fail(f"flash_attention_bwd {name}: gradients not in {dtype}")
+    rtol = TOL if dtype == torch.float32 else HALF_RTOL[dtype_name(q)]
+    errs = [((gt.float() - wt.float()).abs().max().item(),
+             rtol * wt.float().abs().max().item())
+            for gt, wt in zip(got, want)]
+    worst = max(errs, key=lambda e: e[0] / e[1])    # (error, its limit)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, s, kv * g, dqk).transpose(1, 2).detach()
+    ks = k.transpose(1, 2).repeat_interleave(g, dim=1).detach()
+    vs = v.transpose(1, 2).repeat_interleave(g, dim=1).detach()
+    for t in (qs, ks, vs):
+        t.requires_grad_(True)
+    ids = torch.arange(s, device=dev)
+    ok = (ids[None, :] <= ids[:, None]) if causal else torch.ones(
+        (s, s), dtype=torch.bool, device=dev)
+    if window is not None:
+        ok &= ids[None, :] > ids[:, None] - window
+    o = (sdpa(qs, ks, vs, is_causal=True) if causal and window is None
+         else sdpa(qs, ks, vs, attn_mask=ok) if window is not None
+         else sdpa(qs, ks, vs))
+    go = d_out.reshape(b, s, kv * g, dv).transpose(1, 2)
+    lib = lambda: torch.autograd.grad(o, (qs, ks, vs), go,  # noqa: E731
+                                      retain_graph=True)
+    times = timings(torch, run, plain, lib)
+    pairs = int(ok.sum().item())
+    nbytes = (q.element_size() * (2 * (q.numel() + k.numel() + v.numel())
+                                  + 2 * out.numel()) + 4 * lse.numel())
+    flops = 2 * pairs * b * kv * g * (3 * dqk + 2 * dv)
+    b_ms, b_by = bound(nbytes, flops, dtype_name(q))
+    del o, qs, ks, vs
+    return dict(kernel="flash_attention_bwd", case=name,
+                max_abs_err=worst[0], limit=worst[1], dtype=dtype_name(q),
+                lse_err=lse_err, **times, bound_ms=b_ms, bound_by=b_by)
+
+
+def bwd_cases(torch, fa, fab, ref, gen):
+    """The backward at phase 21's shape (gpt2_base's training batch: B=8,
+    S=256, 16 heads of 64, fp32, causal: the main path), vit_large's
+    non-causal fp16 prefill (B=2, S=197), a windowed GQA case (yi_9b's
+    G = 4 at head_dim 128, window 64, fp32), qwen3_moe's G = 8 head_dim
+    128 fp16 (B=1 S=32) and minicpm3's MLA heads (q / k 96, v 64, B=1
+    S=32 H=40) in fp32 and bf16."""
+    f16, bf16 = torch.float16, torch.bfloat16
+    return [
+        bwd_case(torch, fa, fab, ref, gen, "main path gpt2_base train B=8 "
+                 "S=256 H=16 dh=64 causal float32", 8, 256, 16, 1, 64),
+        bwd_case(torch, fa, fab, ref, gen, "vit_large B=2 S=197 H=16 dh=64 "
+                 "non-causal float16", 2, 197, 16, 1, 64, causal=False,
+                 dtype=f16),
+        bwd_case(torch, fa, fab, ref, gen, "windowed GQA B=2 S=256 KV=4 G=4 "
+                 "dh=128 window=64 float32", 2, 256, 4, 4, 128, window=64),
+        bwd_case(torch, fa, fab, ref, gen, "qwen3_moe B=1 S=32 KV=4 G=8 "
+                 "dh=128 causal float16", 1, 32, 4, 8, 128, dtype=f16),
+        bwd_case(torch, fa, fab, ref, gen, "minicpm3 B=1 S=32 H=40 qk=96 "
+                 "v=64 causal float32", 1, 32, 40, 1, 96, dv=64),
+        bwd_case(torch, fa, fab, ref, gen, "minicpm3 B=1 S=32 H=40 qk=96 "
+                 "v=64 causal bfloat16", 1, 32, 40, 1, 96, dv=64,
+                 dtype=bf16)]
+
+
+def heads_case(torch, ref, gen, m, bits, trans, dtype):
+    """The batched quantized_matmul (MLA's absorbed decode products, all
+    40 heads in one launch) at minicpm3_4b's widths against its plain
+    version: W_uk's transposed absorption (per head 64 -> 256) or W_uv's
+    un-absorption (256 -> 64).  Library: ``torch.bmm`` on the per-head
+    weights dequantized beforehand (not timed).  Bound: bytes of x, the
+    quantized weight, the scales and the output, or 2 M H K N flops."""
+    from repro_torch.kernels import quant_matmul as qm
+    dev = "cuda"
+    h, k, n = (40, 64, 256) if trans else (40, 256, 64)
+    logical = n if trans else k
+    rows = logical if bits == 8 else (logical + 1) // 2
+    cols = h * (k if trans else n)
+    if bits == 8:
+        w_q = torch.randint(-127, 128, (rows, cols), generator=gen,
+                            device=dev, dtype=torch.int8)
+    else:
+        w_q = torch.randint(0, 256, (rows, cols), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    scale = torch.rand((cols,), generator=gen, device=dev) / 64
+    x = torch.randn((m, h, k), generator=gen, device=dev).to(dtype)
+    run = lambda: qm.quant_matmul_batched(x, w_q, scale, bits,  # noqa: E731
+                                          n, trans)
+    plain = lambda: ref.quant_matmul_batched_ref(  # noqa: E731
+        x, w_q, scale, n, bits=bits, trans=trans)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err, limit = error(got, want)
+    w = ref.dequant_ref(w_q, scale, bits=bits)[:logical]
+    w_h = (w.reshape(n, h, k).permute(1, 2, 0) if trans
+           else w.reshape(k, h, n).transpose(0, 1)).to(dtype).contiguous()
+    xt = x.transpose(0, 1).contiguous()
+    lib = lambda: torch.bmm(xt, w_h)  # noqa: E731
+    dev_ms, per_call, names = device_ms(torch, run)
+    nbytes = (x.element_size() * (x.numel() + m * h * n) + 4 * cols
+              + w_q.numel())
+    b_ms, b_by = bound(nbytes, 2 * m * h * k * n, dtype_name(x))
+    what = "W_uk" if trans else "W_uv"
+    return dict(kernel="quantized_matmul", bits=bits, kind="heads",
+                dtype=dtype_name(x), case=f"mla absorb {what} M={m} H={h} "
+                f"K={k} N={n} int{bits} {dtype_name(x)}",
+                max_abs_err=err, limit=limit, ms=time_ms(torch, run),
+                device_ms=dev_ms, kernels_per_call=per_call,
+                kernel_names=names, plain_ms=time_ms(torch, plain),
+                library_ms=time_ms(torch, lib),
+                library_device_ms=device_ms(torch, lib)[0], bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def half_cases(torch, fd, fa, ref, gen):
@@ -1035,6 +1253,7 @@ def matmul_cases(torch, ref, gen, cfg):
 def phase_kernels(torch):
     from repro_torch.configs import get
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
@@ -1068,6 +1287,11 @@ def phase_kernels(torch):
     cases += half_cases(torch, fd, fa, ref, gen)
     cases += moe_cases(torch, fd, fa, ref, gen)
     cases += mla_vlm_cases(torch, fd, fa, ref, gen)
+    # phase 20's absorbed products (the 2 rows in flight, fp16 activations)
+    cases += [heads_case(torch, ref, gen, MLA["max_inflight"], bits, trans,
+                         torch.float16)
+              for bits in (8, 4) for trans in (True, False)]
+    cases += bwd_cases(torch, fa, fab, ref, gen)
     # phase 17's streamed experts (fp16 activations on int8 / int4 shards)
     cases += [quant_case(torch, ref, gen, *shape, bits, torch.float16)
               for bits in (8, 4) for shape in quant_shapes(moe_config())
@@ -1455,7 +1679,8 @@ def write_checkpoints() -> str:
         cfg, path = checkpoint(label)
         took.append(f"{label} {time.perf_counter() - t0:.1f}s")
         quants = {"gpt2_base": ("int8", "int4"),
-                  "qwen3_moe": (MOE_QUANT,)}.get(label, ())
+                  "qwen3_moe": (MOE_QUANT,),
+                  "minicpm3": (MLA_QUANT,)}.get(label, ())
         for quant in quants:
             t0 = time.perf_counter()
             ensure_quantized(path, ckpt_dir(cfg, quant), quant)
@@ -1704,7 +1929,8 @@ def phase_autotune(torch, ops, cfg, paged_outs):
 def phase_gptj(torch, ops):
     """Phase 11: gpt_j at full width, fp16, head_dim 256, depth cut to
     GPTJ_LAYERS, served under a budget below its shards (kernels, then
-    the plain versions; tokens by the tie rule)."""
+    the plain versions on their first GPTJ_PLAIN_NEW_TOKENS new tokens;
+    tokens by the tie rule)."""
     from repro_torch.checkpoint import load_manifest
     cfg, path = checkpoint("gpt_j")
     man = load_manifest(path)
@@ -1721,9 +1947,11 @@ def phase_gptj(torch, ops):
         fail(f"gpt_j: a kernel never launched: {launches}")
     if stats.loads <= len(man["shards"]):
         fail(f"gpt_j: {stats.loads} shard loads: layers did not stream")
-    outs_plain, _, _ = run_path(torch, ops, cfg, "gpt_j", None, **kw)
+    outs_plain, _, _ = run_path(torch, ops, cfg, "gpt_j", None,
+                                **dict(kw, new_tokens=GPTJ_PLAIN_NEW_TOKENS))
     same_tokens(torch, cfg, outs, outs_plain, "gpt_j kernel vs plain "
-                "greedy tokens")
+                "greedy tokens",
+                n=GPTJ["prompt_len"] + GPTJ_PLAIN_NEW_TOKENS)
     return launches, stats
 
 
@@ -2588,13 +2816,14 @@ def phase_moe_quant(torch, ops, fp16_outs):
 # ---------------------------------------------------------------------------
 # phases 18-19: the MLA and VLM engine families
 # ---------------------------------------------------------------------------
-def stream_reckoning(torch, label: str, cfg, budget_mb: float, path_kw):
-    """Print the budget's reckoning from ``cfg``'s manifest and fail unless
-    its ledger share holds the embed, head, the path's KV and two
-    streaming layers but not three."""
+def stream_reckoning(torch, label: str, cfg, budget_mb: float, path_kw,
+                     quant: str = "fp32"):
+    """Print the budget's reckoning from the manifest of ``cfg``'s
+    ``quant`` checkpoint and fail unless its ledger share holds the embed,
+    head, the path's KV and two streaming layers but not three."""
     from repro_torch.checkpoint import load_manifest
     from repro_torch.core.engine import blas_workspace_bytes
-    man = load_manifest(ckpt_dir(cfg))
+    man = load_manifest(ckpt_dir(cfg, quant))
     kinds = {}
     for row in man["shards"]:
         kinds.setdefault(row["kind"], []).append(row["bytes"])
@@ -2791,6 +3020,139 @@ def phase_vlm(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: MLA on int8 shards; phase 21: training
+# ---------------------------------------------------------------------------
+def phase_mla_quant(torch, ops):
+    """Phase 20: phase 18's model on its int8 transcode (written while nvcc
+    built), through ``serve.run(quant="int8")`` under MLA_QUANT_BUDGET_MB
+    (reckoned from the int8 manifest: two streaming layers fit, three do
+    not), kernels then plain versions (``run_path``: quantized_matmul's
+    serving-loop launches exactly, 11 per layer per pass plus the head's,
+    of which the decode's two per layer are the batched W_uk / W_uv
+    absorption launches; no fp32 widening in the kernel run; its allocator
+    peak within the ledger peak + 48 MiB); tokens equal the plain run's
+    (tie rule); the last-token logits within INT8_LOGIT_RTOL of the fp16
+    checkpoint's largest.  Returns the kernel run's (serve.run launches,
+    serving-loop launches)."""
+    cfg, _ = checkpoint("minicpm3")
+    label = f"mla {MLA_QUANT}"
+    man = stream_reckoning(torch, label, cfg, MLA_QUANT_BUDGET_MB, MLA,
+                           quant=MLA_QUANT)
+    if man["quant"] != MLA_QUANT:
+        fail(f"{label}: the transcode is not an {MLA_QUANT} checkpoint")
+    kw = dict(MLA, arch=cfg, quant=MLA_QUANT, budget_mb=MLA_QUANT_BUDGET_MB)
+    outs, stats, launches = run_path(torch, ops, cfg, label, "auto", **kw)
+    if stats.loads <= cfg.num_layers:
+        fail(f"{label}: {stats.loads} shard loads for {cfg.num_layers} "
+             f"layers: layers did not stream")
+    if launches["paged_flash_decode"] or launches["paged_flash_verify"]:
+        fail(f"{label}: a paged kernel launched: {launches}")
+    decode_rounds, _, prefills = serve_rounds(stats)
+    batched = 2 * cfg.num_layers * len(decode_rounds)
+    print(f"{label}: quantized_matmul in the serving loop "
+          f"{stats.kernel_launches['quantized_matmul']} = "
+          f"{linears_per_pass(cfg)} per pass x ({len(decode_rounds)} decode "
+          f"rounds + {prefills} prefills), of which {batched} batched "
+          f"W_uk / W_uv absorption launches (2 per layer per decode round)",
+          flush=True)
+    outs_plain, _, _ = run_path(torch, ops, cfg, label, None, **kw)
+    same_tokens(torch, cfg, outs, outs_plain, f"{label} kernel vs plain "
+                "greedy tokens", quant=MLA_QUANT)
+    prompt = serve_prompts(cfg, MLA)[0].tolist()
+    fp16 = last_logits(torch, cfg, "fp32", prompt)
+    logits = last_logits(torch, cfg, MLA_QUANT, prompt)
+    rel = ((logits.float() - fp16.float()).abs().max()
+           / fp16.float().abs().max()).item()
+    print(f"{label}: last-token logits vs the fp16 checkpoint's: max "
+          f"|delta| / max |fp16| = {rel:.5f} (limit {INT8_LOGIT_RTOL})",
+          flush=True)
+    if not rel <= INT8_LOGIT_RTOL:
+        fail(f"{label}: logit error {rel} above {INT8_LOGIT_RTOL}")
+    return launches, stats.kernel_launches
+
+
+def phase_train(torch, ops):
+    """Phase 21: ``repro_torch.launch.train``'s path (``train.run``) on
+    full gpt2_base, 24 fp32 layers with its config's remat, TRAIN's batch,
+    sequence and steps, TF32 off: the kernels, then the plain versions
+    from the same seed.  Each step's loss within TRAIN_RTOL of the plain
+    run's, and step 1's gradients (one ``api.loss`` backward on the same
+    parameters and batch, outside the counted runs) within TRAIN_RTOL of
+    each leaf's largest |g|; the kernel run launches flash_attention
+    exactly layers x steps x 2 (the forward and remat's recompute) and
+    flash_attention_bwd layers x steps, and nothing else; the plain run
+    launches nothing.  Prints step ms and the allocator peak beside params
+    + grads + two fp32 moments.  Returns the kernel run's launches and
+    its numbers."""
+    import numpy as np
+    from repro_torch.checkpoint.partition import tree_leaves
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    cfg = get("gpt2_base")
+    n_layers, steps = cfg.num_layers, TRAIN["steps"]
+    batch = {k: v.cuda() for k, v in make_batch(
+        cfg, TRAIN["batch"], TRAIN["seq"], seed=0).items()}
+    params = build_model(cfg).init(np.random.default_rng(0), "cuda")
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    for p in leaves:
+        p.requires_grad_(True)
+    grads = {}
+    for impl in ("auto", None):
+        loss, _ = build_model(cfg, attn_impl=impl).loss(params, batch)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+    worst = max((gk - gp).abs().max().item()
+                / max(gp.abs().max().item(), 1e-30)
+                for gk, gp in zip(grads["auto"], grads[None]))
+    print(f"train: step 1 gradients, kernels vs plain: worst leaf max "
+          f"|delta| / max |g| = {worst:.3e} over {len(leaves)} leaves "
+          f"(limit {TRAIN_RTOL})", flush=True)
+    if not worst <= TRAIN_RTOL:
+        fail(f"train: step 1 gradients differ by {worst} of a leaf's "
+             f"largest |g|")
+    del params, leaves, grads, loss
+    torch.cuda.empty_cache()
+    runs = {}
+    for impl in ("auto", None):
+        how = "kernels" if impl else "plain"
+        secs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses = train.run(cfg, steps=steps, batch=TRAIN["batch"],
+                           seq=TRAIN["seq"], device="cuda", attn_impl=impl,
+                           log_every=1, step_seconds=secs)
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        runs[impl] = (losses, launches)
+        print(f"train ({how}): losses {losses}; step ms "
+              f"{[round(t * 1e3, 3) for t in secs]}; kernel launches "
+              f"{json.dumps(launches)}; torch.cuda.max_memory_allocated "
+              f"{peak} B against params + grads + two fp32 moments "
+              f"{16 * n_params} B ({n_params} params)", flush=True)
+        if impl:
+            step_ms = 1e3 * sum(secs[1:]) / max(len(secs) - 1, 1)
+            kernel = dict(launches=launches, step_ms=step_ms, peak=peak)
+    remat = 2 if cfg.remat else 1
+    want = dict.fromkeys(runs["auto"][1], 0)
+    want["flash_attention"] = n_layers * steps * remat
+    want["flash_attention_bwd"] = n_layers * steps
+    if runs["auto"][1] != want:
+        fail(f"train (kernels): launches {runs['auto'][1]} != {want}")
+    if any(runs[None][1].values()):
+        fail(f"train (plain): launched kernels: {runs[None][1]}")
+    for i, (lk, lp) in enumerate(zip(runs["auto"][0], runs[None][0])):
+        if not abs(lk - lp) <= TRAIN_RTOL * abs(lp):
+            fail(f"train: step {i} loss {lk} (kernels) vs {lp} (plain)")
+    print(f"train: {steps} steps' losses within {TRAIN_RTOL} relative of "
+          f"the plain run's; launches as predicted {json.dumps(want)}",
+          flush=True)
+    return kernel
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -2850,10 +3212,12 @@ def main() -> int:
     for k in build.KERNELS:
         print(f"  ptxas -v: {build.ptxas_summary(k)}", flush=True)
     for k in ("quant_matmul", "streamed_matmul", "flash_attention",
-              "paged_decode"):
+              "paged_decode", "flash_attention_bwd"):
         counts = build.sass_counts(k, ("HMMA", "HGMMA", "FFMA"))
         print(f"  sass: lib{k}: {json.dumps(counts)}", flush=True)
-        if k != "paged_decode" and not counts["HMMA"] + counts["HGMMA"]:
+        tensor_cores = k in ("quant_matmul", "streamed_matmul",
+                             "flash_attention")
+        if tensor_cores and not counts["HMMA"] + counts["HGMMA"]:
             fail(f"lib{k} holds no tensor-core instruction (HMMA or HGMMA "
                  f"in cuobjdump -sass): its products are not on the tensor "
                  f"cores")
@@ -2917,6 +3281,11 @@ def main() -> int:
     # ---- phases 18-19: the MLA and VLM engine families
     mla_launches, mla_serve = timed("18", phase_mla, torch, ops)
     vlm_launches, vlm_serve = timed("19", phase_vlm, torch, ops)
+
+    # ---- phase 20: MLA on int8 shards; 21: training
+    mla_q_launches, mla_q_serve = timed("20", phase_mla_quant, torch, ops)
+    trained = timed("21", phase_train, torch, ops)
+    train_launches = trained["launches"]
 
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2987,6 +3356,9 @@ def main() -> int:
             "mla_serve_launches": mla_serve[key],
             "vlm_launches": vlm_launches[key],
             "vlm_serve_launches": vlm_serve[key],
+            "mla_quant_launches": mla_q_launches[key],
+            "mla_quant_serve_launches": mla_q_serve[key],
+            "train_launches": train_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -3006,7 +3378,26 @@ def main() -> int:
         moe_quant_launches=moe_q_launches["quantized_matmul"],
         moe_quant_serve_launches=moe_q_stats.kernel_launches[
             "quantized_matmul"],
+        mla_quant_launches=mla_q_launches["quantized_matmul"],
+        mla_quant_serve_launches=mla_q_serve["quantized_matmul"],
         **quant_row(cases, quant_stats)))
+    # flash_attention_bwd: phase 21's launches; its numbers at phase 21's
+    # shape (the main path's)
+    bwd = [c for c in cases if c["kernel"] == "flash_attention_bwd"]
+    main_bwd = [c for c in bwd if c["case"].startswith("main")][0]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source=csrc + "flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:192",
+        launches=train_launches["flash_attention_bwd"],
+        train_step_ms=trained["step_ms"],
+        train_alloc_peak=trained["peak"],
+        max_abs_err=max(c["max_abs_err"] for c in bwd
+                        if c["dtype"] == "float32"),
+        **{k: main_bwd[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_device_ms",
+                                    "kernels_per_call")}))
     # streamed_matmul: the autotune sweep's launches; its time at the tile
     # the sweep chose, at the shape it tuned
     tile = [tuned["block_m"], tuned["block_n"], tuned["block_k"]]

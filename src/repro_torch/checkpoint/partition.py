@@ -99,6 +99,13 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     out = {}
     if isinstance(tree, dict):

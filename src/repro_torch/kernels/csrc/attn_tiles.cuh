@@ -62,6 +62,8 @@
 //                                     weigh exactly 0
 //   const T* q_row(int r)             block-local query row r (nullptr:
 //   T* out_row(int r)                 past the rows, not written)
+//   float* lse_row(int r)             where row r's log-sum-exp goes
+//                                     (nullptr: not written)
 //   size_t key_row(int slot)          index of the key's K/V row: K at
 //                                     key_row * DQK, V at key_row * DV
 //   bool allowed(int r, int slot)     unmasked?
@@ -871,11 +873,20 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
     l_lo += __shfl_xor_sync(kFull, l_lo, x);
     l_hi += __shfl_xor_sync(kFull, l_hi, x);
   }
+  // the row's natural log-sum-exp, m + log(l) (m in the log2 domain here),
+  // for the backward's recompute; written only where the Tile asks
+  constexpr float kLn2 = 0.6931471805599453f;
   if constexpr (NKW == 1) {   // one key warp: the registers are the result
     const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
     const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
     T* out_lo = t.out_row(r_lo);
     T* out_hi = t.out_row(r_hi);
+    if (tq == 0) {
+      float* lse_lo = t.lse_row(r_lo);
+      float* lse_hi = t.lse_row(r_hi);
+      if (lse_lo) *lse_lo = m_lo * kLn2 + logf(fmaxf(l_lo, 1e-30f));
+      if (lse_hi) *lse_hi = m_hi * kLn2 + logf(fmaxf(l_hi, 1e-30f));
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int c = 8 * n + 2 * tq;
@@ -923,6 +934,8 @@ __device__ __forceinline__ void attend_tile(const Tile& t, float scale) {
       oo = fmaf(red_o[(w * 16 + rr) * DV + d], c, oo);
     }
     out[d] = from_f32<T>(oo / fmaxf(ll, 1e-30f));
+    float* lse = d == 0 ? t.lse_row(r) : nullptr;
+    if (lse) *lse = mm * kLn2 + logf(fmaxf(ll, 1e-30f));
   }
 }
 

@@ -46,6 +46,9 @@
 //    it, the mean of V over all Sk keys (every score is -1e30): a block
 //    holding such a row walks every key tile, and for its other rows the
 //    extra masked keys weigh exactly zero.
+//  * With a non-null lse pointer a block also writes each row's natural
+//    log-sum-exp, m + log(l), which it holds anyway: the saved statistic of
+//    the backward (flash_attention_bwd.cu).  Serving passes nullptr.
 // This file supplies the dense addressing, the causal / window mask and the
 // tile range.
 #include "attn_tiles.cuh"
@@ -61,7 +64,9 @@ struct CausalTile {
   const T* k;
   const T* v;
   T* out;
+  float* lse;               // (B, KV, G, Sq) fp32, or nullptr
   size_t q_base, o_base;    // offsets of (b, row 0, this head) in q, out
+  size_t lse_base;          // offset of (b, this head, row 0) in lse
   size_t q_stride, o_stride;
   size_t kv_row0;           // row index of (b, slot 0, this kv head)
   int KV;
@@ -73,6 +78,9 @@ struct CausalTile {
   }
   __device__ T* out_row(int r) const {
     return q0 + r < Sq ? out + o_base + (size_t)(q0 + r) * o_stride : nullptr;
+  }
+  __device__ float* lse_row(int r) const {
+    return lse && q0 + r < Sq ? lse + lse_base + q0 + r : nullptr;
   }
   __device__ size_t key_row(int slot) const {
     return kv_row0 + (size_t)slot * KV;
@@ -90,20 +98,21 @@ struct CausalTile {
 template <int DQK, int DV, class T, int NKW>
 __global__ void __launch_bounds__(attn::kMaxTileThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-            int KV, int G, int causal, int window, int q_offset,
-            float scale) {
+            const T* __restrict__ v, T* __restrict__ out,
+            float* __restrict__ lse, int Sq, int Sk, int KV, int G,
+            int causal, int window, int q_offset, float scale) {
   constexpr int BK = attn::AttnShape<DQK, DV, T, NKW>::BK;
   const int bq = blockDim.x / 2;
   CausalTile<T> t;
   const int q0 = blockIdx.x * bq;
   const int kvh = blockIdx.y / G, g = blockIdx.y - (blockIdx.y / G) * G;
   const int b = blockIdx.z;
-  t.q = q; t.k = k; t.v = v; t.out = out;
+  t.q = q; t.k = k; t.v = v; t.out = out; t.lse = lse;
   t.q_stride = (size_t)KV * G * DQK;  // between query rows
   t.o_stride = (size_t)KV * G * DV;   // between output rows
   t.q_base = (size_t)b * Sq * t.q_stride + ((size_t)kvh * G + g) * DQK;
   t.o_base = (size_t)b * Sq * t.o_stride + ((size_t)kvh * G + g) * DV;
+  t.lse_base = (((size_t)b * KV + kvh) * G + g) * Sq;
   t.kv_row0 = (size_t)b * Sk * KV + kvh;
   t.KV = KV;
   t.Sq = Sq; t.q0 = q0; t.qa0 = q_offset + q0;
@@ -122,29 +131,32 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int DQK, int DV, class T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int KV, int G, int causal, int window, int q_offset,
-           int rows, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int KV, int G, int causal,
+           int window, int q_offset, int rows, float scale, cudaStream_t st) {
   static bool opted[2] = {false, false};   // this library's smem opt-ins
   const dim3 grid((Sq + rows - 1) / rows, KV * G, B);
   return attn::launch_tiles<DQK, DV, T>(
       attn_kernel<DQK, DV, T, 1>, attn_kernel<DQK, DV, T, attn::kTileWarps>,
       opted, grid, rows, st, static_cast<const T*>(q),
       static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, KV, G, causal,
-      window, q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, KV, G,
+      causal, window, q_offset, scale);
 }
 
 }  // namespace
 
 // q (B, Sq, KV, G, dqk); k (B, Sk, KV, dqk); v (B, Sk, KV, dv); out (B, Sq,
 // KV, G, dv); all contiguous, 16-byte aligned and of the storage type
-// `dtype` (attn::DType).  window <= 0 means no window.  (dqk, dv) must be
+// `dtype` (attn::DType); lse: nullptr, or (B, KV, G, Sq) fp32 that gets
+// each row's natural log-sum-exp (the backward's saved statistic; serving
+// passes nullptr).  window <= 0 means no window.  (dqk, dv) must be
 // (32, 32), (64, 64), (128, 128), (256, 256) or (96, 64)
 // (kernels/flash_attention.py::HEAD_DIMS); rows (query rows per block) 16
 // or 64.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
+                                     const void* v, void* out, float* lse,
+                                     int B, int Sq,
                                      int Sk, int KV, int G, int dqk, int dv,
                                      int causal, int window, int q_offset,
                                      int rows, float scale, int dtype,
@@ -153,7 +165,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return elem::with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
 #define REPRO_ATTN(DQK, DV)                                                  \
-  launch<DQK, DV, T>(q, k, v, out, B, Sq, Sk, KV, G, causal, window,         \
+  launch<DQK, DV, T>(q, k, v, out, lse, B, Sq, Sk, KV, G, causal, window,    \
                      q_offset, rows, scale, st)
     if (dqk == 96 && dv == 64) return REPRO_ATTN(96, 64);
     if (dqk != dv) return (int)cudaErrorInvalidValue;

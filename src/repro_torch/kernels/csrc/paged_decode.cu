@@ -103,6 +103,7 @@ struct PagedVerifyTile {
   __device__ T* out_row(int r) const {
     return r0 + r < rows ? out + index(r0 + r) : nullptr;
   }
+  __device__ float* lse_row(int) const { return nullptr; }
   __device__ size_t key_row(int slot) const {
     return paged_index(tab, slot, page, KV, kvh);
   }

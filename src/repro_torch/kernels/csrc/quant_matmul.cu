@@ -57,6 +57,19 @@
 //    given.  The launcher splits K (whole stages, in split order, as
 //    above) whenever the output's blocks would leave the SMs under-filled:
 //    (128, 4096, 1024) runs 32 regions x 5 splits.
+//
+// A batched entry (repro_quant_matmul_batched) runs H heads' products in one
+// launch, the MLA decode's absorbed products: head h multiplies x[:, h, :]
+// (M, K) by a K x N slice of one quantized weight, either the columns
+// [h N, (h + 1) N) of q (K, ld) with their scales (W_uv's un-absorption), or
+// the transpose of the columns [h K, (h + 1) K) of q (N, ld), whose scales
+// then lie along K and are folded into x as it is staged (W_uk's
+// absorption, whose int4 packing runs along N).  Bound by bytes (M is the
+// decode batch): each block stages its head's 64 x 64 weight tile once per
+// 4 rows of x, dequantized into fp32 in shared memory through coalesced
+// reads in the weight's own row order, and each thread sums one output on
+// the CUDA cores.  Simple and exact rather than fast: the decode rounds
+// that call it are bound by the host.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -337,7 +350,105 @@ int launch(const T* x, const uint8_t* w, const float* scale, T* out,
   return (int)cudaGetLastError();
 }
 
+// ---- batched heads ----------------------------------------------------------
+constexpr int kBatM = 4, kBatN = 64, kBatK = 64;
+constexpr int kBatThreads = kBatM * kBatN;       // one output per thread
+
+// grid (ceil(N / kBatN), H, ceil(M / kBatM)).  x (M, H, K), out (M, H, N).
+// TRANS 0: W_h[k, n] = q[k, h N + n] * scale[h N + n], q (K rows, ldw);
+// TRANS 1: W_h[k, n] = q[n, h K + k] * scale[h K + k], q (N rows, ldw);
+// for 4 bits the stored rows are packed in pairs (row 2i low nibble).
+template <int BITS, int TRANS, class T>
+__global__ void __launch_bounds__(kBatThreads)
+batched_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
+               const float* __restrict__ scale, T* __restrict__ out, int M,
+               int H, int K, int N, int ldw) {
+  __shared__ float xs[kBatM][kBatK];
+  __shared__ float ws[kBatK][kBatN + 1];
+  const int n0 = blockIdx.x * kBatN, h = blockIdx.y, m0 = blockIdx.z * kBatM;
+  const int t = threadIdx.x;
+  const int mm = t / kBatN, nn = t - mm * kBatN;
+  float acc = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kBatK) {
+    {   // x rows m0.., columns k0.., with W_uk's scales folded in
+      const int m = m0 + t / kBatK, k = k0 + t % kBatK;
+      float v = 0.f;
+      if (m < M && k < K) {
+        v = ld(x + ((size_t)m * H + h) * K + k);
+        if (TRANS) v *= scale[(size_t)h * K + k];
+      }
+      xs[t / kBatK][t % kBatK] = v;
+    }
+    for (int i = t; i < kBatK * kBatN; i += kBatThreads) {
+      // walk the stored rows' contiguous axis: n without TRANS, k with it
+      const int a = i / (TRANS ? kBatK : kBatN);
+      const int c = i - a * (TRANS ? kBatK : kBatN);
+      const int kk = TRANS ? c : a, nc = TRANS ? a : c;
+      const int k = k0 + kk, n = n0 + nc;
+      float v = 0.f;
+      if (k < K && n < N) {
+        const int r = TRANS ? n : k;                       // stored row
+        const size_t col = TRANS ? (size_t)h * K + k : (size_t)h * N + n;
+        if (BITS == 8) {
+          v = (float)reinterpret_cast<const int8_t*>(w)[(size_t)r * ldw + col];
+        } else {
+          const uint32_t byte = w[(size_t)(r >> 1) * ldw + col];
+          v = (r & 1) ? hi4(byte) : lo4(byte);
+        }
+      }
+      ws[kk][nc] = v;
+    }
+    __syncthreads();
+#pragma unroll 16
+    for (int kk = 0; kk < kBatK; ++kk) acc = fmaf(xs[mm][kk], ws[kk][nn], acc);
+    __syncthreads();
+  }
+  const int m = m0 + mm, n = n0 + nn;
+  if (m < M && n < N) {
+    const float s = TRANS ? 1.f : scale[(size_t)h * N + n];
+    out[((size_t)m * H + h) * N + n] = from_f32<T>(acc * s);
+  }
+}
+
+template <int BITS, class T>
+int launch_batched(const T* x, const uint8_t* w, const float* scale, T* out,
+                   int M, int H, int K, int N, int ldw, int trans,
+                   cudaStream_t st) {
+  const dim3 grid((N + kBatN - 1) / kBatN, H, (M + kBatM - 1) / kBatM);
+  if (trans)
+    batched_kernel<BITS, 1, T><<<grid, kBatThreads, 0, st>>>(x, w, scale, out,
+                                                             M, H, K, N, ldw);
+  else
+    batched_kernel<BITS, 0, T><<<grid, kBatThreads, 0, st>>>(x, w, scale, out,
+                                                             M, H, K, N, ldw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// x (M, H, K) and out (M, H, N) of the storage type `dtype`; w int8 (bits 8)
+// or nibble-packed uint8 (bits 4) with row stride ldw: without trans, (K or
+// ceil(K/2)) x ldw with head h's columns [h N, (h + 1) N) and scale (H N,);
+// with trans, (N or ceil(N/2)) x ldw with head h's columns [h K, (h + 1) K)
+// and scale (H K,) along K.  All contiguous, M, H, K, N > 0.  One launch;
+// returns its CUDA error (0 = none).
+extern "C" int repro_quant_matmul_batched(const void* x, const uint8_t* w,
+                                          const float* scale, void* out,
+                                          int M, int H, int K, int N, int ldw,
+                                          int bits, int trans, int dtype,
+                                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((bits != 8 && bits != 4) || M <= 0 || H <= 0 || K <= 0 || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  return elem::with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    const T* xt = static_cast<const T*>(x);
+    T* ot = static_cast<T*>(out);
+    if (bits == 8)
+      return launch_batched<8>(xt, w, scale, ot, M, H, K, N, ldw, trans, st);
+    return launch_batched<4>(xt, w, scale, ot, M, H, K, N, ldw, trans, st);
+  });
+}
 
 // x (M, K) and out (M, N) of the storage type `dtype` (elem::DType); w:
 // int8 (K, N) for bits 8, uint8 (ceil(K/2), N) for bits 4; scale (N,) f32;

@@ -10,7 +10,9 @@ q / k width at the pairs in ``HEAD_DIMS``: MLA's prefill heads are q / k
 products run on the tensor cores (3xTF32 for fp32 inputs); ``block_rows``
 plans the query rows per block so the grid reaches the SMs.
 ``flash_attention`` keeps the reference's BH-flat signature as a thin
-view (one head per row).  Inputs
+view (one head per row).  ``return_lse=True`` also returns each row's
+natural log-sum-exp (B, KV, G, Sq) in fp32, the statistic the backward
+(``kernels/flash_attention_bwd.py``) recomputes from.  Inputs
 are fp32, fp16 or bf16 (one type for q, k and v, 16-byte aligned); the
 output is in q's type.
 
@@ -40,7 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     fn = build.library("flash_attention").repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 11 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 11 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
@@ -54,9 +56,11 @@ def block_rows(rows: int, columns: int) -> int:
 
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None, q_offset: int = 0,
+                        return_lse: bool = False):
     """q (B, Sq, KV, G, dqk); k (B, Sk, KV, dqk), v (B, Sk, KV, dv) ->
-    (B, Sq, KV, G, dv), (dqk, dv) one of ``HEAD_DIMS``."""
+    (B, Sq, KV, G, dv), (dqk, dv) one of ``HEAD_DIMS``; with
+    ``return_lse``, (out, lse (B, KV, G, Sq) fp32)."""
     tag = check_cuda("flash_attention", q, k, v)
     b, sq, kv, g, dh = q.shape
     sk, dv = k.shape[1], v.shape[-1]
@@ -73,19 +77,22 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
         raise ValueError("flash_attention: q, k and v must be 16-byte "
                          "aligned")
     out = q.new_empty((b, sq, kv, g, dv))
+    lse = (torch.empty((b, kv, g, sq), device=q.device, dtype=torch.float32)
+           if return_lse else None)
     if sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     if sk == 0:
         raise ValueError("flash_attention: no keys")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, kv, g, dh, dv, int(causal), int(window or 0),
-                 int(q_offset), block_rows(sq, b * kv * g),
+                 None if lse is None else lse.data_ptr(), b, sq, sk, kv, g,
+                 dh, dv, int(causal), int(window or 0), int(q_offset),
+                 block_rows(sq, b * kv * g),
                  1.0 / (dh ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -21,19 +21,23 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_gqa)
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_gqa,
                                               flash_decode_latent,
                                               flash_decode_partial)
 from repro_torch.kernels.paged_decode import (paged_flash_decode,
                                               paged_flash_verify)
+from repro_torch.kernels.quant_matmul import batched_dims
 from repro_torch.kernels.quant_matmul import quant_matmul as _quant_matmul
+from repro_torch.kernels.quant_matmul import quant_matmul_batched
 from repro_torch.kernels.streamed_matmul import (check_tiles,
                                                  streamed_matmul)
 
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0,
-            "paged_flash_decode": 0, "paged_flash_verify": 0,
-            "quantized_matmul": 0, "streamed_matmul": 0}
+            "flash_attention_bwd": 0, "paged_flash_decode": 0,
+            "paged_flash_verify": 0, "quantized_matmul": 0,
+            "streamed_matmul": 0}
 
 # ---- autotuned defaults (kernels/autotune.py) ----------------------------
 # ``set_tuned`` installs per-device selections; the wrappers resolve their
@@ -162,6 +166,35 @@ def attention_gqa(q, k, v, *, causal: bool = True,
     return out
 
 
+def attention_gqa_lse(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0):
+    """``attention_gqa`` that also returns each row's log-sum-exp (B, KV,
+    G, Sq) fp32, the statistic the backward saves (counted under
+    ``flash_attention``)."""
+    if not _on_cuda(q, k, v):
+        return ref.attention_gqa_lse_ref(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset)
+    out = flash_attention_gqa(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, return_lse=True)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def attention_gqa_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0):
+    """(dq, dk, dv) of ``attention_gqa`` from the saved (q, k, v, out,
+    lse) and the cotangent: the backward kernel on the card (one count per
+    call, two launches), ``ref.attention_gqa_bwd_ref`` on the CPU."""
+    if not _on_cuda(q, k, v, out, lse, d_out):
+        return ref.attention_gqa_bwd_ref(q, k, v, out, lse, d_out,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+    grads = flash_attention_bwd(q, k, v, out, lse, d_out, causal=causal,
+                                window=window, q_offset=q_offset)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
 def paged_decode(q, k_pages, v_pages, tables, lengths,
                  impl: Optional[str] = None):
     """Paged decode through per-row block tables, over the scheduler's
@@ -255,5 +288,21 @@ def quant_matmul(x, w_q, scale, bits: int = 8, *,
     if not _on_cuda(x, w_q, scale):
         return ref.quant_matmul_ref(x, w_q, scale, bits=bits)
     out = _quant_matmul(x, w_q, scale, bits, tiles)
+    LAUNCHES["quantized_matmul"] += 1
+    return out
+
+
+def quant_matmul_heads(x, w_q, scale, bits: int, n: int,
+                       trans: bool = False):
+    """H heads in one call: x (M, H, K) @ per-head slices of the quantized
+    weight -> (M, H, N) in x's dtype (``quant_matmul.quant_matmul_batched``;
+    ``trans`` for a weight whose per-head block is (N, K) with its scales
+    along K).  One launch for all heads, counted under
+    ``quantized_matmul``."""
+    batched_dims(x.shape, w_q.shape, n, bits, trans)
+    if not _on_cuda(x, w_q, scale):
+        return ref.quant_matmul_batched_ref(x, w_q, scale, n, bits=bits,
+                                            trans=trans)
+    out = quant_matmul_batched(x, w_q, scale, bits, n, trans)
     LAUNCHES["quantized_matmul"] += 1
     return out

@@ -22,6 +22,12 @@ The workspace of a split call is ``torch.empty((splits, M, N), float32)``:
 prefill shapes (2 x 128 x 4096 x 4 B), never above 16 MiB
 (``streamed_matmul.MAX_PART_BYTES``).
 
+``quant_matmul_batched(x, w_q, scale, bits, n, trans)`` runs H heads in
+one launch (MLA's absorbed decode products): x (M, H, K) -> (M, H, N),
+head h on a K x N slice of one quantized weight, the columns [h N, (h + 1)
+N) of w_q (K, H N) with their scales, or with ``trans`` the transpose of
+the columns [h K, (h + 1) K) of w_q (N, H K), its scales along K.
+
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
 launches.
 """
@@ -138,4 +144,74 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if err:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err}")
+    return out
+
+
+def _batched_lib():
+    fn = build.library("quant_matmul").repro_quant_matmul_batched
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def batched_dims(x_shape, w_shape, n: int, bits: int, trans: bool):
+    """(M, H, K) of x and the weight's stored rows / row stride checked
+    against the batched layout; raises ``ValueError`` on a mismatch."""
+    m, h, k = x_shape
+    rows, ld = w_shape
+    want_rows = stored_rows(n if trans else k, bits)
+    want_ld = h * (k if trans else n)
+    if rows != want_rows or ld != want_ld:
+        raise ValueError(f"quant_matmul_batched: w_q {tuple(w_shape)} does "
+                         f"not hold {h} heads of K={k} x N={n} "
+                         f"({'transposed, ' if trans else ''}{bits} bits: "
+                         f"want ({want_rows}, {want_ld}))")
+    return m, h, k
+
+
+def quant_matmul_batched(x: torch.Tensor, w_q: torch.Tensor,
+                         scale: torch.Tensor, bits: int, n: int,
+                         trans: bool = False) -> torch.Tensor:
+    """x (M, H, K) @ per-head slices of dequant(w_q, scale) -> (M, H, N)
+    in x's dtype (see the module docstring)."""
+    idx = x.get_device()     # -1 on the CPU
+    if idx < 0 or w_q.get_device() != idx or scale.get_device() != idx:
+        raise ValueError(f"quant_matmul_batched: x, w_q and scale must be "
+                         f"on one CUDA device, got {x.device}, "
+                         f"{w_q.device}, {scale.device}")
+    if not (x.is_contiguous() and w_q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("quant_matmul_batched: x, w_q and scale must be "
+                         "contiguous")
+    if bits not in (8, 4):
+        raise ValueError(f"quant_matmul_batched: bits must be 8 or 4, got "
+                         f"{bits}")
+    tag = DTYPES.get(x.dtype)
+    if tag is None or scale.dtype != torch.float32:
+        raise TypeError(f"quant_matmul_batched: x must be float32, float16 "
+                        f"or bfloat16 and scale float32, got {x.dtype}, "
+                        f"{scale.dtype}")
+    if w_q.dtype != (torch.int8 if bits == 8 else torch.uint8):
+        raise TypeError(f"quant_matmul_batched: {bits}-bit weights must be "
+                        f"int8 / uint8, got {w_q.dtype}")
+    if x.ndim != 3 or w_q.ndim != 2:
+        raise ValueError(f"quant_matmul_batched: x must be 3-D and w_q 2-D, "
+                         f"got {tuple(x.shape)}, {tuple(w_q.shape)}")
+    m, h, k = batched_dims(x.shape, w_q.shape, n, bits, trans)
+    if scale.numel() != w_q.shape[1]:
+        raise ValueError(f"quant_matmul_batched: scale {tuple(scale.shape)} "
+                         f"against {w_q.shape[1]} columns")
+    out = x.new_empty((m, h, n))
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _batched_lib()(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                         out.data_ptr(), m, h, k, n, w_q.shape[1], bits,
+                         int(trans), tag, stream)
+    if err:
+        raise RuntimeError(f"quant_matmul_batched kernel launch failed: "
+                           f"CUDA error {err}")
     return out

@@ -130,6 +130,53 @@ def attention_gqa_ref(q, k, v, *, causal: bool = True,
     return out.to(v.dtype)
 
 
+def attention_gqa_lse_ref(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0):
+    """``attention_gqa_ref`` with the statistic the backward saves: (out
+    (B, Sq, KV, G, dv) in v's dtype, lse (B, KV, G, Sq) fp32, the natural
+    log-sum-exp ``m + log(max(l, 1e-30))`` of each row's masked scores),
+    as ``_flash_fn``'s forward pass returns them."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqkgd,bpkd->bkgqp", q.float() * scale, k.float())
+    ok = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp(p.sum(-1), min=1e-30)
+    out = torch.einsum("bkgqp,bpkd->bqkgd", p / l[..., None], v.float())
+    return out.to(v.dtype), m + torch.log(l)
+
+
+def attention_gqa_bwd_ref(q, k, v, out, lse, d_out, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0):
+    """(dq, dk, dv) of ``attention_gqa_ref`` from the saved (q, k, v, out,
+    lse) and the cotangent ``d_out``, step by step as the reference's
+    recompute VJP (``_flash_fn``'s ``f_bwd``) computes them, over the
+    whole sequence at once: ``qs = q * scale`` (in q's dtype); ``delta =
+    rowsum(d_out * out)``; ``P = exp(qs k^T + bias - lse)`` with the
+    additive ``-1e30`` mask bias; ``dP = d_out v^T``; ``dS = P (dP -
+    delta)``; ``dq = dS k * scale``, ``dk = dS^T qs``, ``dv = P^T d_out``
+    (GQA's G query heads summed into dk and dv), each in its input's
+    dtype."""
+    scale = torch.tensor(1.0 / (q.shape[-1] ** 0.5), dtype=q.dtype)
+    qs = q * scale.to(q.device)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", d_out.float(), out.float())
+    d_out = d_out.to(v.dtype)
+    s = torch.einsum("bqkgd,bpkd->bkgqp", qs.float(), k.float())
+    ok = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    s = s + torch.where(ok, 0.0, NEG_INF)
+    p = torch.exp(s - lse[..., None])                     # (B,KV,G,Sq,Sk)
+    dp = torch.einsum("bqkgd,bpkd->bkgqp", d_out.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqp,bpkd->bqkgd", ds.to(k.dtype).float(),
+                      k.float()) * scale.float().item()
+    dv = torch.einsum("bkgqp,bqkgd->bpkd", p.to(q.dtype).float(),
+                      d_out.float())
+    dk = torch.einsum("bkgqp,bqkgd->bpkd", ds.to(q.dtype).float(),
+                      qs.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Paged decode / stacked-query verify through block tables
 # ---------------------------------------------------------------------------
@@ -202,3 +249,21 @@ def quant_matmul_ref(x, w_q, scale, *, bits: int = 8):
     an odd K (int4) drops the padding row."""
     w = dequant_ref(w_q, scale, bits=bits)
     return (x.float() @ w[:x.shape[-1]]).to(x.dtype)
+
+
+def quant_matmul_batched_ref(x, w_q, scale, n: int, *, bits: int = 8,
+                             trans: bool = False):
+    """H heads of x (M, H, K) against per-head slices of
+    ``dequant_ref(w_q, scale)``, in f32 -> (M, H, N) in x's dtype: the
+    columns [h N, (h + 1) N) of the (K, H N) weight, or with ``trans`` the
+    transpose of the columns [h K, (h + 1) K) of the (N, H K) weight, as
+    the reference's ``mla_decode`` multiplies its dequantized ``w_uv`` and
+    ``w_uk``."""
+    _, h, k = x.shape
+    if trans:
+        w = dequant_ref(w_q, scale, bits=bits)[:n].reshape(n, h, k)
+        out = torch.einsum("mhk,nhk->mhn", x.float(), w)
+    else:
+        w = dequant_ref(w_q, scale, bits=bits)[:k].reshape(k, h, n)
+        out = torch.einsum("mhk,khn->mhn", x.float(), w)
+    return out.to(x.dtype)

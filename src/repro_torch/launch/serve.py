@@ -73,10 +73,11 @@ profile is cached as ``profile_torch_<device>.json``.  MLA configs
 (``--arch minicpm3_4b``) serve through the same scheduler, their latent
 {c, kr} caches paged through the gather path; VLM configs (``--arch
 qwen2_vl_2b``) serve their decoder backbone on text, as the reference's
-engine does.  An ``--arch`` of a family not yet ported (recurrent,
-encoder-decoder), or ``--quant`` with MLA attention (the absorbed W_uk /
-W_uv products have no quantized route yet), exits with a "not yet ported
-in repro_torch" error before any checkpoint is written.
+engine does.  ``--quant`` with an MLA arch serves its int8 / int4
+transcode as for a dense model: the absorbed W_uk / W_uv products run as
+one batched quantized matmul launch each for all heads.  An ``--arch`` of
+a family not yet ported (recurrent, encoder-decoder) exits with a "not
+yet ported in repro_torch" error before any checkpoint is written.
 """
 from __future__ import annotations
 
@@ -172,11 +173,6 @@ def run(arch, *, budget_mb: float | None = None, requests: int = 4,
     check_ported(cfg, "--arch", arch if isinstance(arch, str) else cfg.name)
     if draft_arch:
         check_ported(get(draft_arch), "--draft-arch", draft_arch)
-    if cfg.attention == "mla" and quant != "fp32":
-        raise SystemExit(f"error: --quant {quant} with MLA attention "
-                         f"({cfg.name}) is not yet ported in repro_torch "
-                         f"(the absorbed W_uk / W_uv products have no "
-                         f"quantized route)")
     if cfg.family == MOE and page_size:
         raise SystemExit("error: paged KV serving is not supported with "
                          "expert-split MoE checkpoints yet; repartition "

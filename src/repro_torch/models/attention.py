@@ -12,7 +12,18 @@ versions for CPU tensors); ``attn_impl=None`` asks for the plain versions
 explicitly on any device.  The projections go through ``common.linear``
 with the same ``attn_impl``, which runs the quantized matmul kernel for an
 int8/int4 weight; MLA's ``W_uk`` absorption and ``W_uv`` un-absorption
-are ``torch.einsum``, as the reference computes them outside Pallas.
+are ``torch.einsum`` on float weights, as the reference computes them
+outside Pallas, and on int8/int4 weights one batched quantized matmul
+launch each for all heads (``ops.quant_matmul_heads``), so no dequantized
+copy of either weight is built.
+
+Training: when autograd records, prefill attention runs
+``flash_attention_train``, the port of the reference's custom-VJP flash
+attention (``_flash_fn``): the forward saves (q, k, v, out, lse) and the
+backward recomputes from them, on the card through the hand-written
+backward kernel (``ops.attention_gqa_bwd``).  ``gqa_mrope_prefill`` and
+``gqa_decode``'s ``mrope_positions3`` take the VLM's 3-section M-RoPE
+positions.
 
 Decode keeps the ragged ``(B,)`` position vector on the device through
 the cache write and the valid mask: the only host round trip in a decode
@@ -25,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.quant import QuantizedTensor
 from repro_torch.kernels import ops, ref
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
@@ -143,9 +155,45 @@ def _project_qkv(params, x, cfg: ModelConfig, impl: Optional[str] = None):
             v.reshape(b, s, kv, dh))
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Prefill attention whose backward recomputes from the saved
+    (q, k, v, out, lse): the hand-written kernels (``kernel=True``; their
+    plain versions for CPU tensors) or the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kernel):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        fwd = ops.attention_gqa_lse if kernel else ref.attention_gqa_lse_ref
+        out, lse = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw, ctx.kernel = kw, kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        bwd = (ops.attention_gqa_bwd if ctx.kernel
+               else ref.attention_gqa_bwd_ref)
+        dq, dk, dv = bwd(*ctx.saved_tensors, d_out.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          impl: Optional[str] = None):
+    """Differentiable prefill attention (the reference's ``_flash_fn``):
+    q (B,Sq,KV,G,dqk), k (B,Sk,KV,dqk), v (B,Sk,KV,dv) -> (B,Sq,KV,G,dv)."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                 impl == KERNEL)
+
+
 def prefill_attention(q, k, v, *, causal: bool, window: Optional[int],
                       impl: Optional[str]):
-    """q: (B,Sq,KV,G,dh), k/v: (B,Sk,KV,dh) -> (B,Sq,KV,G,dh)."""
+    """q: (B,Sq,KV,G,dh), k/v: (B,Sk,KV,dh) -> (B,Sq,KV,G,dh).  Through
+    ``flash_attention_train`` when autograd records q, k or v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_train(q, k, v, causal=causal, window=window,
+                                     impl=impl)
     if impl == KERNEL:
         return ops.attention_gqa(q, k, v, causal=causal, window=window)
     return ref.attention_gqa_ref(q, k, v, causal=causal, window=window)
@@ -162,6 +210,25 @@ def gqa_prefill(params, x, cfg: ModelConfig, positions, *, causal=True,
     qg = q.reshape(b, s, kv, g, dh)
     out = prefill_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=cfg.sliding_window,
+                            impl=attn_impl)
+    out = common.linear(out.reshape(b, s, kv * g * dh), params["w_o"],
+                        attn_impl)
+    cache = {"k": k, "v": v} if make_cache else None
+    return out, cache
+
+
+def gqa_mrope_prefill(params, x, cfg: ModelConfig, positions3, *,
+                      make_cache=True, attn_impl: Optional[str] = None):
+    """Qwen2-VL style prefill with 3-section M-RoPE positions (3, B, S):
+    ``gqa_prefill`` with ``common.apply_mrope`` in place of RoPE."""
+    b, s, _ = x.shape
+    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
+    q, k, v = _project_qkv(params, x, cfg, attn_impl)
+    q = common.apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+    k = common.apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
+    qg = q.reshape(b, s, kv, g, dh)
+    out = prefill_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, window=cfg.sliding_window,
                             impl=attn_impl)
     out = common.linear(out.reshape(b, s, kv * g * dh), params["w_o"],
                         attn_impl)
@@ -190,15 +257,22 @@ def decode_valid(cfg: ModelConfig, pos_b: torch.Tensor, s_cache: int):
 
 
 def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
-               attn_impl: Optional[str] = None):
+               mrope_positions3=None, attn_impl: Optional[str] = None):
     """x: (B,1,D); cache{k,v}: (B,S,KV,dh); pos: int or RAGGED (B,) device
-    vector of per-row cache positions -> (out, cache)."""
+    vector of per-row cache positions -> (out, cache).  A VLM's text token
+    takes its (3, B, 1) M-RoPE ids as ``mrope_positions3``."""
     b = x.shape[0]
     kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
     pos_b = _pos_column(pos, b, x.device)
     q, k, v = _project_qkv(params, x, cfg, attn_impl)
-    q = common.apply_rope(q, pos_b, cfg.rope_theta)
-    k = common.apply_rope(k, pos_b, cfg.rope_theta)
+    if mrope_positions3 is not None:
+        q = common.apply_mrope(q, mrope_positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+        k = common.apply_mrope(k, mrope_positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+    else:
+        q = common.apply_rope(q, pos_b, cfg.rope_theta)
+        k = common.apply_rope(k, pos_b, cfg.rope_theta)
     s_cache = cache["k"].shape[1]
     write_idx = pos % s_cache                       # ring buffer for windows
     k_cache = cache_update(cache["k"], k[:, 0], write_idx)
@@ -351,6 +425,26 @@ def latent_decode(q, c_cache, kr_cache, valid, impl: Optional[str] = None):
     return ref.decode_latent_ref(q, c_cache, kr_cache, valid)
 
 
+def absorb_heads(x, w, n: int, *, trans: bool,
+                 impl: Optional[str] = None):
+    """MLA decode's per-head products with one (K, H N) or, ``trans``,
+    (N, H K) weight: x (B, H, K) -> (B, H, N).  Without ``trans`` head h
+    multiplies the columns [h N, (h + 1) N) (W_uv); with it, the transpose
+    of the columns [h K, (h + 1) K) (W_uk).  A float weight is the
+    reference's einsum; an int8/int4 one runs the batched quantized matmul
+    (one launch for all heads, ``impl=KERNEL``) or its plain version."""
+    b, h, k = x.shape
+    if not isinstance(w, QuantizedTensor):
+        if trans:
+            return torch.einsum("bhk,nhk->bhn", x, w.reshape(n, h, k))
+        return torch.einsum("bhk,khn->bhn", x, w.reshape(k, h, n))
+    if impl == KERNEL:
+        return ops.quant_matmul_heads(x.contiguous(), w.q, w.scale, w.bits,
+                                      n, trans)
+    return ref.quant_matmul_batched_ref(x, w.q, w.scale, n, bits=w.bits,
+                                        trans=trans)
+
+
 def mla_decode(params, x, cfg: ModelConfig, cache, pos, *,
                attn_impl: Optional[str] = None):
     """Absorbed-matrix MLA decode over the latent cache: x (B,1,D); cache
@@ -371,8 +465,8 @@ def mla_decode(params, x, cfg: ModelConfig, cache, pos, *,
         qc, params["w_uq_rope"], attn_impl).reshape(b, 1, h, dr), pos_b,
         cfg.rope_theta)
     # absorb W_uk: q_abs[h] = q_nope[h] @ W_uk[h].T, into the latent space
-    w_uk = params["w_uk"].reshape(dc, h, dn)
-    q_abs = torch.einsum("bhn,chn->bhc", q_nope[:, 0], w_uk)   # (B,H,dc)
+    q_abs = absorb_heads(q_nope[:, 0], params["w_uk"], dc, trans=True,
+                         impl=attn_impl)                       # (B,H,dc)
     q_eff = torch.cat([q_abs, q_rope[:, 0]], -1)               # (B,H,dc+dr)
     c_new = common.rms_norm(common.linear(x, params["w_dkv"], attn_impl),
                             params["kv_norm"], cfg.norm_eps)[:, 0]
@@ -386,8 +480,7 @@ def mla_decode(params, x, cfg: ModelConfig, cache, pos, *,
     o_lat = latent_decode(q_eff[:, None].contiguous(), c_cache, kr_cache,
                           valid, impl=attn_impl)               # (B,1,H,dc)
     # un-absorb W_uv: out[h] = o_lat[h] @ W_uv[h]
-    w_uv = params["w_uv"].reshape(dc, h, dv)
-    out = torch.einsum("bhc,chv->bhv", o_lat[:, 0], w_uv).reshape(
-        b, 1, h * dv)
+    out = absorb_heads(o_lat[:, 0], params["w_uv"], dv, trans=False,
+                       impl=attn_impl).reshape(b, 1, h * dv)
     out = common.linear(out, params["w_o"], attn_impl)
     return out, {"c": c_cache, "kr": kr_cache}

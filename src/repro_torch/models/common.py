@@ -1,6 +1,7 @@
 """Shared building blocks: norms, rotary embeddings, MLPs, initializers.
 
-PyTorch port of ``repro/models/common.py`` (dense-family subset).  The
+PyTorch port of ``repro/models/common.py`` (dense-family subset, with
+the VLM's M-RoPE and the training loss's chunked cross-entropy).  The
 per-layer math is plain functions on tensors with the weights passed in,
 because PIPELOAD streams each layer's weights in and destroys them.
 Weights keep the reference's ``(in, out)`` layout (``x @ W``).
@@ -17,11 +18,12 @@ is built.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.quant import QuantizedTensor
 from repro_torch.kernels import ops, ref
@@ -108,6 +110,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Sequence[int], theta: float) -> torch.Tensor:
+    """Multimodal rotary (Qwen2-VL).  positions3: (3, ..., seq) t/h/w
+    ids.  The rotary half is split into ``sections`` (summing to
+    head_dim // 2); each section takes its angle from its stream."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    inv = rope_freqs(x.shape[-1], theta, x.device)         # (half,)
+    ang_all = positions3[..., None].float() * inv          # (3, ..., half)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                         # (..., seq, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU when gated, else GELU)
 # ---------------------------------------------------------------------------
@@ -120,3 +142,37 @@ def mlp_apply(params: dict, x: torch.Tensor,
     # jax.nn.gelu defaults to the tanh approximation
     return linear(F.gelu(linear(x, params["w_up"], impl), approximate="tanh"),
                   params["w_down"], impl)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never materialises (B, S, V) at once)
+# ---------------------------------------------------------------------------
+def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    logits = (h @ lm_head).float()                         # (B, s/c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                         labels: torch.Tensor,
+                         n_chunks: int = 8) -> torch.Tensor:
+    """hidden (B, S, D); lm_head (D, V); labels (B, S) -> mean token loss
+    (fp32), over the reference's sequence chunks.  While autograd records,
+    each chunk runs under ``torch.utils.checkpoint``: the backward
+    recomputes the chunk's logits instead of keeping (B, S, V) alive, as
+    the reference's ``jax.checkpoint`` does."""
+    b, s, _ = hidden.shape
+    while s % n_chunks:
+        n_chunks //= 2
+    c = s // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        h, y = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            part = checkpoint(_xent_chunk, h, lm_head, y, use_reentrant=False)
+        else:
+            part = _xent_chunk(h, lm_head, y)
+        total = total + part
+    return total / (b * s)

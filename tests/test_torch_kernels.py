@@ -202,7 +202,13 @@ def test_cpu_path_counts_no_launches():
     ops.decode_latent(torch.zeros((1, 1, 2, 48)), torch.zeros((1, 8, 32)),
                       torch.zeros((1, 8, 16)),
                       torch.ones((1, 8), dtype=torch.bool))
+    qa = torch.zeros((1, 4, 1, 2, 32))
+    ka = torch.zeros((1, 4, 1, 32))
+    out, lse = ops.attention_gqa_lse(qa, ka, ka)
+    ops.attention_gqa_bwd(qa, ka, ka, out, lse, torch.ones_like(out))
+    ops.quant_matmul_heads(torch.zeros((2, 2, 32)), w8, torch.ones(8), 8, 4)
     assert ops.LAUNCHES == {"flash_decode": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "paged_flash_decode": 0,
                             "paged_flash_verify": 0,
                             "quantized_matmul": 0, "streamed_matmul": 0}
@@ -1094,3 +1100,69 @@ def test_cuda_attention_block_rows(cuda, b, sq, kv, g, dh, window, rows):
     got = ops.attention_gqa(q, k, v, causal=True, window=window)
     want = ref.attention_gqa_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sq,sk,kv,g,dqk,dv,causal,window,dtype", [
+    (128, 128, 4, 1, 64, 64, True, None, torch.float32),
+    (77, 77, 2, 3, 128, 128, True, 32, torch.float32),
+    (40, 40, 2, 1, 96, 64, True, None, torch.float32),
+    (50, 50, 1, 2, 256, 256, False, None, torch.float32),
+    (64, 64, 2, 2, 32, 32, True, None, torch.float16),
+    (64, 64, 3, 1, 96, 64, True, None, torch.bfloat16)])
+def test_cuda_attention_bwd_matches_plain(cuda, sq, sk, kv, g, dqk, dv,
+                                          causal, window, dtype):
+    """The forward's lse output and the backward kernel's (dq, dk, dv)
+    against ``attention_gqa_lse_ref`` / ``attention_gqa_bwd_ref`` on the
+    same saved tensors: fp32 within 1e-4, fp16 / bf16 within 2e-3 /
+    1.6e-2 of each gradient's largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + dqk)
+    q = torch.randn((2, sq, kv, g, dqk), generator=gen, device=cuda)
+    k = torch.randn((2, sk, kv, dqk), generator=gen, device=cuda)
+    v = torch.randn((2, sk, kv, dv), generator=gen, device=cuda)
+    d_out = torch.randn((2, sq, kv, g, dv), generator=gen, device=cuda)
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
+    kw = dict(causal=causal, window=window)
+    before = dict(ops.LAUNCHES)
+    out, lse = ops.attention_gqa_lse(q, k, v, **kw)
+    grads = ops.attention_gqa_bwd(q, k, v, out, lse, d_out, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert (ops.LAUNCHES["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    _, want_lse = ref.attention_gqa_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    want = ref.attention_gqa_bwd_ref(q, k, v, out, lse, d_out, **kw)
+    rtol = {torch.float32: 1e-4, torch.float16: 2e-3,
+            torch.bfloat16: 1.6e-2}[dtype]
+    for got, w in zip(grads, want):
+        assert got.dtype == dtype
+        lim = rtol * w.float().abs().max().item() if dtype != torch.float32 \
+            else 1e-4
+        assert (got.float() - w.float()).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [2, 5])
+def test_cuda_quant_matmul_heads_matches_plain(cuda, m, bits, trans):
+    """MLA's absorbed products at minicpm3_4b's widths (40 heads, latent
+    256, head 64), one launch for all heads, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(m * bits)
+    h, k, n = (40, 64, 256) if trans else (40, 256, 64)
+    rows = (n if trans else k) if bits == 8 else -(-(n if trans else k) // 2)
+    cols = h * (k if trans else n)
+    if bits == 8:
+        w_q = torch.randint(-127, 128, (rows, cols), generator=gen,
+                            device=cuda, dtype=torch.int8)
+    else:
+        w_q = torch.randint(0, 256, (rows, cols), generator=gen, device=cuda,
+                            dtype=torch.uint8)
+    scale = torch.rand((cols,), generator=gen, device=cuda) / 64
+    x = torch.randn((m, h, k), generator=gen, device=cuda)
+    before = ops.LAUNCHES["quantized_matmul"]
+    got = ops.quant_matmul_heads(x, w_q, scale, bits, n, trans)
+    assert ops.LAUNCHES["quantized_matmul"] == before + 1
+    want = ref.quant_matmul_batched_ref(x, w_q, scale, n, bits=bits,
+                                        trans=trans)
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(),
+                               rtol=0)

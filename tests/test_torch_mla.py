@@ -3,8 +3,10 @@ package's: ``mla_prefill`` / ``mla_decode`` on the same weights, the
 latent cache's widths, the MLA branches of the expert-streaming MoE
 router fns, shards member for member, and continuous batching (dense and
 paged, the latent {c, kr} leaves paged through the gather path) with
-identical tokens and ledger peaks to the byte; plus the serve CLI and the
-refusals MLA keeps (``--quant``, speculation, chunked prefill).  fp32,
+identical tokens and ledger peaks to the byte; ``mla_decode`` on int8 /
+int4 shards against the reference's dequantized decode; plus the serve
+CLI (``--quant`` against the JAX CLI's tokens and ledger peak) and the
+refusals MLA keeps (speculation, chunked prefill).  fp32,
 reduced configs, within 1e-5."""
 import json
 import re
@@ -23,6 +25,7 @@ from repro.core import Hermes as JaxHermes
 from repro.core import PipeloadEngine as JaxEngine
 from repro.core.engine import DraftModel as JaxDraft
 from repro.core.modules import build_module_fns as jax_fns
+from repro.launch import serve as jax_serve
 from repro.models import attention as jattn
 from repro.models.dense_lm import init_params as jax_init
 from repro_torch.checkpoint import partition as tp
@@ -305,15 +308,114 @@ def test_serve_cli_mla_on_cpu(tmp_path, monkeypatch, capsys, flags):
         assert int(re.search(r"prefix_hit_pages\s+(\d+)", out).group(1)) > 0
 
 
+def serve_both(root, monkeypatch, **kw):
+    """Serve one seeded reduced-minicpm3_4b workload through the JAX
+    package's ``serve.run`` and then the port's on the CPU, the port on
+    the checkpoints the JAX CLI wrote (its quantized siblings included)
+    and its measured profile, so both planners see the same inputs:
+    ((jax outs, stats), (port outs, stats))."""
+    jroot, troot = root / "jax", root / "torch"
+    monkeypatch.setattr(jax_serve, "CKPT_ROOT", jroot)
+    want = jax_serve.run("minicpm3_4b", **kw)
+    troot.mkdir()
+    for d in jroot.iterdir():
+        shutil.copytree(d, troot / d.name)
+        if (d / "profile.json").exists():
+            shutil.copy(d / "profile.json",
+                        troot / d.name / "profile_torch_cpu.json")
+    return want, serve.run("minicpm3_4b", device="cpu", ckpt_root=troot,
+                           **kw)
+
+
+def assert_same_serving(want, got) -> None:
+    """The same tokens per request and the same ledger peak."""
+    (jouts, jstats), (touts, tstats) = want, got
+    assert sorted(touts) == sorted(jouts)
+    for rid in jouts:
+        assert list(map(int, touts[rid])) == list(map(int, jouts[rid])), rid
+    assert tstats.peak_bytes == jstats.peak_bytes
+
+
+QUANT_SERVE = dict(requests=2, prompt_len=16, new_tokens=3, max_inflight=2,
+                   budget_mb=10)
+PAGED = dict(page_size=4, shared_prefix=12)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_serve_cli_mla_int8_matches_jax_cli(tmp_path, monkeypatch, paged):
+    """``serve --arch minicpm3_4b --quant int8``, dense and paged: the JAX
+    CLI's tokens and ledger peak on its checkpoint, transcode and
+    profile."""
+    want, got = serve_both(tmp_path, monkeypatch, quant="int8",
+                           **QUANT_SERVE, **(PAGED if paged else {}))
+    assert_same_serving(want, got)
+    assert got[1].page_size == (4 if paged else 0)
+    assert (tmp_path / "torch" / "minicpm3-4b-smoke-int8").is_dir()
+
+
 @pytest.mark.parametrize("quant", ["int4", "auto"])
 def test_serve_cli_mla_quant_exits_before_writing(quant, tmp_path,
-                                                  monkeypatch):
-    monkeypatch.setattr(serve, "CKPT_ROOT", tmp_path)
-    with pytest.raises(SystemExit, match=f"error: --quant {quant} with MLA "
-                       "attention .* not yet ported in repro_torch"):
-        serve.main(["--device", "cpu", "--arch", "minicpm3_4b", "--quant",
-                    quant])
-    assert list(tmp_path.iterdir()) == []
+                                                  monkeypatch, capsys):
+    """``serve --quant int4|auto`` with MLA attention, once refused, now
+    serves: dense and paged, the tokens and ledger peak of the JAX
+    package's CLI on the same checkpoints and profile; both planners name
+    the same dtype.  ``auto`` runs under 2.5 MB, which one fp32 layer
+    (1.8 MB) beside the fp32 embed and head (1 MB) does not fit, so its
+    pick is a quantized dtype whatever the profile's timings."""
+    kw = dict(QUANT_SERVE, budget_mb=2.5) if quant == "auto" else QUANT_SERVE
+    for page in ({}, PAGED):
+        want, got = serve_both(tmp_path / f"p{len(page)}", monkeypatch,
+                               quant=quant, **kw, **page)
+        assert_same_serving(want, got)
+        assert got[1].page_size == (4 if page else 0)
+        dtypes = re.findall(r"planner\(serve\): .*dtype=(\w+)",
+                            capsys.readouterr().out)
+        assert len(dtypes) == 2 and dtypes[0] == dtypes[1]
+        assert dtypes[0] == quant if quant != "auto" else dtypes[0] in (
+            "int8", "int4")
+
+
+def test_mla_decode_on_quantized_shards_matches_reference():
+    """``mla_decode`` on int8 / int4 ``QuantizedTensor`` leaves (the
+    absorbed W_uk / W_uv through the batched quantized matmul's plain
+    version, the kernel route on CPU tensors included) against the
+    reference's ``mla_decode`` on the same weights dequantized, at one
+    slot and at ragged slots."""
+    from repro.checkpoint import quant as jqz
+    from repro_torch.checkpoint import quant as qz
+    from repro_torch.models.attention import KERNEL
+    jcfg = get_config("minicpm3_4b").reduced()
+    tcfg = torch_get("minicpm3_4b").reduced()
+    params = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(5), jcfg))
+    attn_p = _layer(params["layers"], 0)["attn"]
+    rng = np.random.default_rng(6)
+    b, total = 3, 12
+    c = rng.standard_normal((b, total, jcfg.kv_lora_rank)).astype(np.float32)
+    kr = rng.standard_normal((b, total, jcfg.rope_head_dim)).astype(
+        np.float32)
+    for quant in ("int8", "int4"):
+        jp = {k: (jqz.quantize_array(a, quant).dequantize()
+                  if a.ndim == 2 else jnp.asarray(a))
+              for k, a in attn_p.items()}
+        tpp = {k: (qz.quantize_array(a, quant) if a.ndim == 2
+                   else torch.from_numpy(np.array(a)))
+               for k, a in attn_p.items()}
+        assert isinstance(tpp["w_uk"], qz.QuantizedTensor)
+        for pos in (7, np.asarray([9, 3, 11])):
+            x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+            jy, jc = jattn.mla_decode(jp, jnp.asarray(x), jcfg, None,
+                                      {"c": jnp.asarray(c),
+                                       "kr": jnp.asarray(kr)},
+                                      jnp.asarray(pos, jnp.int32))
+            tpos = pos if np.ndim(pos) == 0 else torch.as_tensor(pos)
+            for impl in (None, KERNEL):
+                cache = {"c": torch.from_numpy(c.copy()),
+                         "kr": torch.from_numpy(kr.copy())}
+                ty, tc = tattn.mla_decode(tpp, torch.from_numpy(x), tcfg,
+                                          cache, tpos, attn_impl=impl)
+                _close(ty, jy)
+                for key in jc:
+                    _close(tc[key], jc[key])
 
 
 def test_hermes_facade_mla_matches_jax(mla_ckpt, tmp_path):

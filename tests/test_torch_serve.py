@@ -82,6 +82,7 @@ def test_scheduler_matches_jax(ckpt, seed, pin):
     assert sum(tst.peak_breakdown.values()) == tst.peak_bytes
     # CPU tensors take the plain versions, which launch nothing
     assert tst.kernel_launches == {"flash_decode": 0, "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "paged_flash_decode": 0,
                                    "paged_flash_verify": 0,
                                    "quantized_matmul": 0,
@@ -155,14 +156,22 @@ def test_serve_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
                                    ["--arch", "xlstm_1_3b"]])
 def test_serve_cli_unported_flags_exit(flags, capsys, tmp_path,
                                        monkeypatch):
-    """Families the port cannot serve yet, and ``--quant`` with MLA
-    attention, exit before any checkpoint is written."""
+    """Families the port cannot serve yet exit before any checkpoint is
+    written.  ``--quant`` with MLA attention, once refused here too, now
+    serves: its int8 transcode is written beside the checkpoint and read
+    by the planner."""
     monkeypatch.setattr(serve, "CKPT_ROOT", tmp_path)
-    match = (f"error: --arch {flags[1]} is not yet ported in repro_torch"
-             if len(flags) == 2 else
-             f"error: --quant {flags[3]} with MLA attention .* is not yet "
-             f"ported in repro_torch")
-    with pytest.raises(SystemExit, match=match):
+    if "--quant" in flags:
+        serve.main(["--device", "cpu", "--requests", "2", "--prompt-len",
+                    "8", "--new-tokens", "2"] + flags)
+        out = capsys.readouterr().out
+        assert re.search(r"planner\(serve\): .*dtype=int8", out)
+        assert re.search(r"served 2 reqs x 2 tokens in \d+ rounds", out)
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "minicpm3-4b-smoke", "minicpm3-4b-smoke-int8"]
+        return
+    with pytest.raises(SystemExit, match=f"error: --arch {flags[1]} is not "
+                       f"yet ported in repro_torch"):
         serve.main(["--device", "cpu"] + flags)
     assert list(tmp_path.iterdir()) == []
 
@@ -174,7 +183,10 @@ def test_import_leaves_out_jax_and_repro():
             "repro_torch.kernels.autotune, "
             "repro_torch.kernels.streamed_matmul, "
             "repro_torch.data.traces, repro_torch.core.expert_stream, "
-            "repro_torch.models.moe\n"
+            "repro_torch.models.moe, repro_torch.models.api, "
+            "repro_torch.launch.train, repro_torch.launch.stepfns, "
+            "repro_torch.optim.adamw, repro_torch.data.synthetic, "
+            "repro_torch.kernels.flash_attention_bwd\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
