@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
    each library's ``-Xptxas -v`` registers and spills, and the
    tensor-core instructions (``HMMA`` / ``HGMMA`` in ``cuobjdump -sass``)
    of the two matmul libraries, ``libflash_attention``,
-   ``libpaged_decode`` and ``libflash_attention_bwd`` (plain fp32 FMA):
-   it fails if one of the first three holds none.
+   ``libpaged_decode`` and ``libflash_attention_bwd``: it fails if one of
+   the matmul libraries, ``libflash_attention`` or
+   ``libflash_attention_bwd`` holds none.
    TF32 is turned off for PyTorch's own matmuls.  While nvcc runs, the
    serving phases' checkpoints and the int8 / int4 transcodes are
    written on the host.
@@ -54,7 +55,9 @@ Phases, in order; any failure exits non-zero:
    qwen3_moe's G = 8 head_dim 128 fp16 and minicpm3's (96, 64) in fp32
    and bf16; library SDPA's backward (``torch.autograd.grad`` of its
    output), bound the bytes of q, k, v, out, d_out, lse, dq, dk, dv
-   against five attention-sized products.  For
+   against five attention-sized products; the bwd and batched lines also
+   print their library's ptxas registers / spills and SASS ``HMMA``
+   count.  For
    every timed case also ``device_ms``: the
    kernels' own time per call from ``torch.profiler`` (no host time
    between calls), beside ``ms`` (CUDA events over 50 back-to-back calls,
@@ -1314,6 +1317,11 @@ def phase_kernels(torch):
             line += (" library_device_ms "
                      + ("not measured" if lib is None else f"{lib:.5f}"))
         print(line, flush=True)
+    from repro_torch.kernels import build
+    for lib in ("flash_attention_bwd", "quant_matmul_batched"):
+        hmma = build.sass_counts(lib, ("HMMA",))["HMMA"]
+        print(f"  {lib}: ptxas -v: {build.ptxas_summary(lib)}; sass HMMA "
+              f"{hmma}", flush=True)
     bad = [c for c in cases if not c["max_abs_err"] <= c.get("limit", TOL)]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -3216,7 +3224,7 @@ def main() -> int:
         counts = build.sass_counts(k, ("HMMA", "HGMMA", "FFMA"))
         print(f"  sass: lib{k}: {json.dumps(counts)}", flush=True)
         tensor_cores = k in ("quant_matmul", "streamed_matmul",
-                             "flash_attention")
+                             "flash_attention", "flash_attention_bwd")
         if tensor_cores and not counts["HMMA"] + counts["HGMMA"]:
             fail(f"lib{k} holds no tensor-core instruction (HMMA or HGMMA "
                  f"in cuobjdump -sass): its products are not on the tensor "
@@ -3370,6 +3378,7 @@ def main() -> int:
     kernels.append(dict(
         name="quantized_matmul", route="cuda",
         source=csrc + "quant_matmul.cu",
+        batched_source=csrc + "quant_matmul_batched.cu",
         replaces="src/repro/kernels/streamed_matmul.py:101",
         launches=sum(ln["quantized_matmul"]
                      for ln in quant_launches.values()),
@@ -3390,6 +3399,7 @@ def main() -> int:
         source=csrc + "flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:192",
         launches=train_launches["flash_attention_bwd"],
+        sass_hmma=build.sass_counts("flash_attention_bwd", ("HMMA",))["HMMA"],
         train_step_ms=trained["step_ms"],
         train_alloc_peak=trained["peak"],
         max_abs_err=max(c["max_abs_err"] for c in bwd

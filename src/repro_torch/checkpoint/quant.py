@@ -61,6 +61,16 @@ def widen_bf16(a: np.ndarray) -> np.ndarray:
     return (u << 16).view(np.float32)
 
 
+def narrow_bf16(a: np.ndarray) -> np.ndarray:
+    """float32 values -> bfloat16 bytes (``BF16``), rounded to nearest even
+    as ``jnp.asarray(a, jnp.float32).astype(jnp.bfloat16)`` rounds them; a
+    NaN stays a (quiet) NaN of the same sign."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    r = (u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16
+    r = np.where(np.isnan(a), (u >> 16) | np.uint32(0x40), r)
+    return r.astype(np.uint16).view(BF16)
+
+
 def bf16_to_torch(a: np.ndarray) -> torch.Tensor:
     """A numpy bfloat16 leaf -> ``torch.bfloat16`` over the same bytes."""
     return torch.from_numpy(

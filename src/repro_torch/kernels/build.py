@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_decode", "flash_attention", "flash_attention_bwd",
-           "paged_decode", "quant_matmul", "streamed_matmul")
+           "paged_decode", "quant_matmul", "quant_matmul_batched",
+           "streamed_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"

@@ -6,14 +6,18 @@ package trains through (``repro/models/attention.py::_flash_fn``'s
 ``flash_attention_bwd(q, k, v, out, lse, d_out)`` takes what the forward
 (``flash_attention_gqa(..., return_lse=True)``) saved: q (B, Sq, KV, G,
 dqk), k (B, Sk, KV, dqk), v (B, Sk, KV, dv), out and d_out (B, Sq, KV, G,
-dv), all of one type (fp32, fp16 or bf16), and lse (B, KV, G, Sq) fp32;
-it returns (dq, dk, dv) in the inputs' type.  Two launches per call: dq
-(and delta = rowsum(d_out * out), into a fp32 workspace), then dk / dv,
-with GQA's sum over the G query heads done inside the second kernel's
-blocks.  Masks and the (dqk, dv) pairs are the forward's
-(``flash_attention.HEAD_DIMS``).  Every query row must see at least one
-key (true of every causal or windowed training call); a call where a
-windowed row sees none raises.
+dv), all of one type (fp32, fp16 or bf16) and 16-byte aligned, and lse
+(B, KV, G, Sq) fp32; it returns (dq, dk, dv) in the inputs' type.  Three
+launches per call: delta = rowsum(d_out * out) with a zeroed fp32 dq
+workspace; the products on the tensor cores, one block per (key tile, KV
+head, slice of the tile's (query head, query tile) steps, b) as ``plan``
+chooses, dq added to the workspace by atomics; then dq scaled into the
+inputs' type and, where the grid slices a key tile's steps, dk / dv
+summed over the slices in order.  So dq may differ
+in its last bits from call to call; dk and dv do not.  Masks and the (dqk,
+dv) pairs are the forward's (``flash_attention.HEAD_DIMS``).  Every query
+row must see at least one key (true of every causal or windowed training
+call); a call where a windowed row sees none raises.
 
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
 launches.
@@ -21,13 +25,14 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import HEAD_DIMS
-from repro_torch.kernels.flash_decode import check_cuda
+from repro_torch.kernels.flash_attention import HEAD_DIMS, SMS
+from repro_torch.kernels.flash_decode import _ptr, aligned16, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -35,9 +40,40 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     fn = build.library("flash_attention_bwd").repro_flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 13 + [_I] * 11 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
+
+
+MAX_PART_BYTES = 64 << 20   # fp32 dk / dv partials of a sliced grid, at most
+
+
+def key_rows(dqk: int, dv: int) -> int:
+    """Keys per block (csrc ``BwdShape::BKEY``): 64 in four warps, 32 in
+    two where dK and dV accumulate in shared memory (head dim 256)."""
+    return 32 if dqk + dv > 256 else 64
+
+
+def query_rows(dqk: int, dv: int, itemsize: int) -> int:
+    """Query rows per step (csrc ``BwdShape::BQ``), by the inputs' bytes
+    per element: the most a thread's registers hold fragments for."""
+    if itemsize == 4:
+        return 16 if dqk + dv > 160 else 32
+    return 32 if dqk + dv > 128 else 64
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, sq: int, sk: int, kv: int, g: int, dqk: int, dv: int,
+         itemsize: int) -> Tuple[int, int]:
+    """(slices, blocks): each key tile's (query head, query tile) steps cut
+    into the fewest slices whose grid of (key tiles, KV heads x slices, B)
+    reaches the ``SMS``, at most one slice a step and ``MAX_PART_BYTES``
+    of the fp32 dk / dv partials that slices past one go through."""
+    base = -(-sk // key_rows(dqk, dv)) * kv * b
+    steps = g * -(-sq // query_rows(dqk, dv, itemsize))
+    cap = MAX_PART_BYTES // (4 * b * sk * kv * (dqk + dv))
+    slices = max(1, min(-(-SMS // base), steps, cap))
+    return slices, base * slices
 
 
 def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
@@ -65,6 +101,9 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_bwd: window must be positive, "
                          f"got {window}")
+    if not aligned16(q, k, v, out, d_out):
+        raise ValueError("flash_attention_bwd: q, k, v, out and d_out must "
+                         "be 16-byte aligned")
     if sq and sk == 0:
         raise ValueError("flash_attention_bwd: no keys")
     if window is not None and q_offset + sq - window >= sk:
@@ -73,13 +112,21 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0:
         return dq, dk.zero_(), dvv.zero_()
-    delta = torch.empty((b, kv, g, sq), device=q.device, dtype=torch.float32)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((b, kv, g, sq), **f32)
+    dq_acc = torch.empty(q.shape, **f32)
+    slices, _ = plan(b, sq, sk, kv, g, dqk, dv, q.element_size())
+    part_k = part_v = None
+    if slices > 1:    # dk / dv per slice, summed in slice order
+        part_k = torch.empty((slices, b, sk, kv, dqk), **f32)
+        part_v = torch.empty((slices, b, sk, kv, dv), **f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dvv.data_ptr(), delta.data_ptr(), b, sq, sk,
+                 dk.data_ptr(), dvv.data_ptr(), delta.data_ptr(),
+                 dq_acc.data_ptr(), _ptr(part_k), _ptr(part_v), b, sq, sk,
                  kv, g, dqk, dv, int(causal), int(window or 0),
-                 int(q_offset), 1.0 / (dqk ** 0.5), tag, stream)
+                 int(q_offset), slices, 1.0 / (dqk ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

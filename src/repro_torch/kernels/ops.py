@@ -184,7 +184,7 @@ def attention_gqa_bwd(q, k, v, out, lse, d_out, *, causal: bool = True,
                       window: Optional[int] = None, q_offset: int = 0):
     """(dq, dk, dv) of ``attention_gqa`` from the saved (q, k, v, out,
     lse) and the cotangent: the backward kernel on the card (one count per
-    call, two launches), ``ref.attention_gqa_bwd_ref`` on the CPU."""
+    call, three launches), ``ref.attention_gqa_bwd_ref`` on the CPU."""
     if not _on_cuda(q, k, v, out, lse, d_out):
         return ref.attention_gqa_bwd_ref(q, k, v, out, lse, d_out,
                                          causal=causal, window=window,

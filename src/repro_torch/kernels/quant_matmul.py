@@ -23,10 +23,15 @@ prefill shapes (2 x 128 x 4096 x 4 B), never above 16 MiB
 (``streamed_matmul.MAX_PART_BYTES``).
 
 ``quant_matmul_batched(x, w_q, scale, bits, n, trans)`` runs H heads in
-one launch (MLA's absorbed decode products): x (M, H, K) -> (M, H, N),
-head h on a K x N slice of one quantized weight, the columns [h N, (h + 1)
-N) of w_q (K, H N) with their scales, or with ``trans`` the transpose of
-the columns [h K, (h + 1) K) of w_q (N, H K), its scales along K.
+one launch of ``csrc/quant_matmul_batched.cu`` (MLA's absorbed decode
+products): x (M, H, K) -> (M, H, N), head h on a K x N slice of one
+quantized weight, the columns [h N, (h + 1) N) of w_q (K, H N) with their
+scales, or with ``trans`` the transpose of the columns [h K, (h + 1) K) of
+w_q (N, H K), its scales along K.  At M <= ``SKINNY_M`` the first runs the
+skinny body on blocks of ``HEAD_BLOCK_N`` columns of a head, K split
+across blocks only where those leave the SMs idle (``head_k_splits``;
+fp32 partial sums (H, splits, M, N), added in split order), the second
+four lanes per stored row; a larger M runs an exact tile route.
 
 CUDA tensors only; ``kernels/ops.py`` dispatches by device and counts
 launches.
@@ -40,14 +45,16 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import SMS
 from repro_torch.kernels.flash_decode import DTYPES, _ptr
-from repro_torch.kernels.streamed_matmul import (counters, cta_tile,
-                                                 tile_k_splits)
+from repro_torch.kernels.streamed_matmul import (N_COUNTERS, counters,
+                                                 cta_tile, tile_k_splits)
 
 SKINNY_M = 4              # csrc kSkinnyM: rows of x one skinny launch serves
 LANES_K = 64              # csrc kLanesK: threads across K in a skinny block
 BLOCK_N = 64              # csrc kBlockN: columns per skinny block
-TARGET_BLOCKS = 2 * 132   # enough blocks to fill the H100's SMs twice
+TARGET_BLOCKS = 2 * SMS   # enough blocks to fill the H100's SMs twice
+HEAD_BLOCK_N = 16         # columns per batched skinny block (csrc LN = 1)
 DEFAULT_CTA = (64, 64, 64, 64, 32)   # no tiles: region, tile, K band
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -148,11 +155,24 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
 
 
 def _batched_lib():
-    fn = build.library("quant_matmul").repro_quant_matmul_batched
+    fn = build.library("quant_matmul_batched").repro_quant_matmul_batched
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 6 + [_I] * 11 + [_P]
         fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=1024)
+def head_k_splits(n: int, rows: int, heads: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) of a batched skinny launch (``trans``
+    off): split each head's stored rows so that heads x ceil(N /
+    HEAD_BLOCK_N) x splits blocks reach the ``SMS``, one split where the
+    heads' column tiles alone do or outnumber ``N_COUNTERS``."""
+    tiles = heads * -(-n // HEAD_BLOCK_N)
+    if tiles >= SMS or tiles > N_COUNTERS:
+        return 1, rows
+    per = max(1, rows // -(-SMS // tiles))
+    return -(-rows // per), per
 
 
 def batched_dims(x_shape, w_shape, n: int, bits: int, trans: bool):
@@ -208,9 +228,19 @@ def quant_matmul_batched(x: torch.Tensor, w_q: torch.Tensor,
     if k == 0:
         return out.zero_()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _batched_lib()(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                         out.data_ptr(), m, h, k, n, w_q.shape[1], bits,
-                         int(trans), tag, stream)
+    ld, w_ptr = w_q.shape[1], w_q.data_ptr()
+    splits, per, part, cnt = 1, 0, None, None
+    if m <= SKINNY_M and not trans:
+        splits, per = head_k_splits(n, stored_rows(k, bits), h)
+        if splits > 1:    # H x splits x M x N x 4 bytes of partial sums
+            part = torch.empty((h, splits, m, n), device=x.device,
+                               dtype=torch.float32)
+            cnt = counters(x.device, stream)
+    vec = ld % 16 == 0 and w_ptr % 16 == 0 and (k if trans else n) % 16 == 0
+    err = _batched_lib()(x.data_ptr(), w_ptr, scale.data_ptr(),
+                         out.data_ptr(), _ptr(part), _ptr(cnt), m, h, k, n,
+                         ld, bits, int(trans), splits, per, int(vec), tag,
+                         stream)
     if err:
         raise RuntimeError(f"quant_matmul_batched kernel launch failed: "
                            f"CUDA error {err}")

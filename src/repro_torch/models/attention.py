@@ -33,7 +33,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint.quant import QuantizedTensor
@@ -56,9 +55,9 @@ def gqa_init(rng, cfg: ModelConfig) -> dict:
          "w_v": common.dense_init(rng, d, kv * dh, dt),
          "w_o": common.dense_init(rng, h * dh, d, dt)}
     if cfg.qkv_bias:
-        p["b_q"] = np.zeros((h * dh,), dt)
-        p["b_k"] = np.zeros((kv * dh,), dt)
-        p["b_v"] = np.zeros((kv * dh,), dt)
+        p["b_q"] = common.zeros((h * dh,), dt)
+        p["b_k"] = common.zeros((kv * dh,), dt)
+        p["b_v"] = common.zeros((kv * dh,), dt)
     return p
 
 
@@ -67,11 +66,11 @@ def mla_init(rng, cfg: ModelConfig) -> dict:
     dq, dc = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.v_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     return {"w_dq": common.dense_init(rng, d, dq, dt),
-            "q_norm": np.ones((dq,), dt),
+            "q_norm": common.ones((dq,), dt),
             "w_uq_nope": common.dense_init(rng, dq, h * dn, dt),
             "w_uq_rope": common.dense_init(rng, dq, h * dr, dt),
             "w_dkv": common.dense_init(rng, d, dc, dt),
-            "kv_norm": np.ones((dc,), dt),
+            "kv_norm": common.ones((dc,), dt),
             "w_kr": common.dense_init(rng, d, dr, dt),
             "w_uk": common.dense_init(rng, dc, h * dn, dt),
             "w_uv": common.dense_init(rng, dc, h * dv, dt),

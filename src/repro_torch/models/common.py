@@ -8,7 +8,10 @@ Weights keep the reference's ``(in, out)`` layout (``x @ W``).
 
 Initialisers draw from an explicit ``numpy.random.Generator`` and return
 numpy arrays: a checkpoint written from a seed is the same bytes on any
-machine, with or without a GPU.
+machine, with or without a GPU.  As in the reference, they draw fp32 and
+cast to the config's dtype; numpy has no bfloat16, so a bfloat16 leaf is
+the fp32 draw rounded to nearest even and kept as its 2-byte void bytes
+(``checkpoint.quant.BF16``), which shards and ``from_jax_params`` take.
 
 Every weight product goes through ``linear``: a plain weight is ``x @ w``;
 a quantized one (``checkpoint/quant.QuantizedTensor``, from an int8/int4
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.checkpoint.quant import QuantizedTensor
+from repro_torch.checkpoint.quant import BF16, QuantizedTensor, narrow_bf16
 from repro_torch.kernels import ops, ref
 
 KERNEL = "cuda"   # impl value selecting the hand-written kernels
@@ -34,19 +37,40 @@ KERNEL = "cuda"   # impl value selecting the hand-written kernels
 # ---------------------------------------------------------------------------
 # Initialisation helpers.  Param trees are plain nested dicts of arrays.
 # ---------------------------------------------------------------------------
+def np_dtype(dtype) -> np.dtype:
+    """The numpy form of a leaf dtype: bfloat16 as ``BF16``."""
+    return BF16 if str(dtype) == "bfloat16" else np.dtype(dtype)
+
+
+def cast(a: np.ndarray, dtype) -> np.ndarray:
+    """An fp32 array in ``dtype``, as the reference's ``.astype(dtype)``
+    (bfloat16: rounded to nearest even, as ``BF16`` bytes)."""
+    if np_dtype(dtype) == BF16:
+        return narrow_bf16(a)
+    return a.astype(dtype, copy=False)
+
+
+def ones(shape, dtype) -> np.ndarray:
+    return cast(np.ones(shape, np.float32), dtype)
+
+
+def zeros(shape, dtype) -> np.ndarray:
+    return cast(np.zeros(shape, np.float32), dtype)
+
+
 def dense_init(rng: np.random.Generator, in_dim: int, out_dim: int,
                dtype) -> np.ndarray:
     scale = np.float32(1.0 / math.sqrt(in_dim))
     w = rng.standard_normal((in_dim, out_dim), dtype=np.float32)
     w *= scale
-    return w.astype(dtype, copy=False)
+    return cast(w, dtype)
 
 
 def embed_init(rng: np.random.Generator, vocab: int, dim: int,
                dtype) -> np.ndarray:
     w = rng.standard_normal((vocab, dim), dtype=np.float32)
     w *= np.float32(0.02)
-    return w.astype(dtype, copy=False)
+    return cast(w, dtype)
 
 
 def mlp_init(rng: np.random.Generator, d_model: int, d_ff: int, dtype,

@@ -50,9 +50,9 @@ def check_dense(cfg: ModelConfig) -> None:
 # ===========================================================================
 def layer_init(rng: np.random.Generator, cfg: ModelConfig) -> dict:
     p = {
-        "attn_norm": np.ones((cfg.d_model,), cfg.dtype),
+        "attn_norm": common.ones((cfg.d_model,), cfg.dtype),
         "attn": attn.attn_init(rng, cfg),
-        "ffn_norm": np.ones((cfg.d_model,), cfg.dtype),
+        "ffn_norm": common.ones((cfg.d_model,), cfg.dtype),
     }
     if cfg.family == MOE:
         p["moe"] = moe.moe_init(rng, cfg)
@@ -76,7 +76,7 @@ def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
         "embed": common.embed_init(rng, cfg.padded_vocab, cfg.d_model,
                                    cfg.dtype),
         "layers": stack(*layers),
-        "final_norm": np.ones((cfg.d_model,), cfg.dtype),
+        "final_norm": common.ones((cfg.d_model,), cfg.dtype),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(rng, cfg.d_model,

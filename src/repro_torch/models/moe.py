@@ -35,11 +35,11 @@ def moe_init(rng: np.random.Generator, cfg: ModelConfig) -> dict:
 
     def experts(rows: int, cols: int) -> np.ndarray:
         scale = np.float32(1.0 / math.sqrt(rows))
-        out = np.empty((e, rows, cols), cfg.dtype)
+        out = np.empty((e, rows, cols), common.np_dtype(cfg.dtype))
         for i in range(e):
             w = rng.standard_normal((rows, cols), dtype=np.float32)
             w *= scale
-            out[i] = w
+            out[i] = common.cast(w, cfg.dtype)
         return out
 
     return {"router": common.dense_init(rng, d, e, np.float32),

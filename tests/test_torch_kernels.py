@@ -886,6 +886,73 @@ def test_attention_block_plan(rows, columns):
     assert (r == 64) == (-(-rows // 64) * columns >= fa.FILL_BLOCKS)
 
 
+@given(st.integers(1, 16), st.integers(1, 4096), st.integers(1, 4096),
+       st.integers(1, 64), st.sampled_from([1, 2, 4, 6, 8, 40]),
+       st.sampled_from([(32, 32), (64, 64), (128, 128), (256, 256),
+                        (96, 64)]), st.sampled_from([2, 4]))
+@example(1, 32, 32, 4, 8, (128, 128), 2)      # qwen3_moe's prefill
+@example(1, 512, 512, 4, 8, (128, 128), 2)    # qwen3_moe, training length
+@example(2, 256, 256, 4, 4, (128, 128), 4)    # the windowed GQA case
+@example(8, 256, 256, 16, 1, (64, 64), 4)     # gpt2_base's training batch
+@example(2, 197, 197, 16, 1, (64, 64), 2)     # vit_large
+@settings(max_examples=200, deadline=None)
+def test_attention_bwd_plan(b, sq, sk, kv, g, dims, itemsize):
+    """The backward's slices: one where the key tiles alone reach the 132
+    SMs, else the fewest that do, unless each slice is down to one
+    (query head, query tile) step or the fp32 partials reach their cap;
+    the slices cut a key tile's steps into runs that cover each step
+    once."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    slices, blocks = fab.plan(b, sq, sk, kv, g, *dims, itemsize)
+    base = -(-sk // fab.key_rows(*dims)) * kv * b
+    steps = g * -(-sq // fab.query_rows(*dims, itemsize))
+    assert 1 <= slices and blocks == base * slices
+    if base >= fab.SMS:
+        assert slices == 1
+    part = 4 * b * sk * kv * sum(dims)
+    if slices > 1:
+        assert slices <= steps and slices * part <= fab.MAX_PART_BYTES
+        assert (slices - 1) * base < fab.SMS
+    if blocks < fab.SMS:
+        assert slices == steps or (slices + 1) * part > fab.MAX_PART_BYTES
+    for n in range(steps + 1):      # the kernel's runs, at any step count
+        runs = [(s * n // slices, (s + 1) * n // slices)
+                for s in range(slices)]
+        assert runs[0][0] == 0 and runs[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(runs, runs[1:]))
+    assert fab.plan(1, 512, 512, 4, 8, 128, 128, 2)[1] >= fab.SMS
+    assert fab.plan(2, 197, 197, 16, 1, 64, 64, 2)[1] >= fab.SMS
+
+
+@given(st.integers(1, 4096), st.integers(1, 4096), st.integers(1, 64))
+@example(64, 256, 40)     # minicpm3_4b's W_uv, int8
+@example(64, 128, 40)     # int4
+@example(64, 256, 4)      # fewer heads: K split across blocks
+@settings(max_examples=200, deadline=None)
+def test_quant_heads_split_plan(n, rows, heads):
+    """The batched skinny launch's K splits cover each head's stored rows
+    once with no empty split, reach the 132 SMs where the rows allow, and
+    stay one split where the heads' column tiles fill the card; at
+    minicpm3_4b's absorbed products (M = 2, 40 heads) every batched launch
+    runs at least 132 blocks."""
+    from repro_torch.kernels import quant_matmul as qm
+    splits, per = qm.head_k_splits(n, rows, heads)
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < rows <= splits * per
+    tiles = heads * -(-n // qm.HEAD_BLOCK_N)
+    if tiles >= qm.SMS:
+        assert splits == 1
+    elif tiles * rows >= qm.SMS:
+        assert tiles * splits >= qm.SMS
+    for bits in (8, 4):
+        # W_uv (256 -> 64): 16-column blocks of each head, K split where
+        # needed; W_uk (64 -> 256): 32 stored rows a block (csrc kTransRows)
+        uv = 40 * -(-64 // qm.HEAD_BLOCK_N) * qm.head_k_splits(
+            64, qm.stored_rows(256, bits), 40)[0]
+        uk = 40 * -(-qm.stored_rows(256, bits) // 32)
+        assert uv >= qm.SMS and uk >= qm.SMS
+
+
 def _attention_emulated(q, k, v, causal, window, p_dtype=None, kw=16,
                         n_kw=4):
     """The tile body's arithmetic on BH-flat fp32 inputs: runs of ``kw``
@@ -1108,20 +1175,27 @@ def test_cuda_attention_block_rows(cuda, b, sq, kv, g, dh, window, rows):
     (40, 40, 2, 1, 96, 64, True, None, torch.float32),
     (50, 50, 1, 2, 256, 256, False, None, torch.float32),
     (64, 64, 2, 2, 32, 32, True, None, torch.float16),
-    (64, 64, 3, 1, 96, 64, True, None, torch.bfloat16)])
+    (64, 64, 3, 1, 96, 64, True, None, torch.bfloat16),
+    (32, 32, 4, 8, 128, 128, True, None, torch.float16),    # qwen3_moe
+    (77, 77, 2, 2, 64, 64, True, None, torch.float16),      # ragged tiles
+    (45, 109, 2, 4, 64, 64, True, 40, torch.float32),       # q_offset 64
+    (40, 72, 1, 3, 256, 256, True, None, torch.bfloat16),   # q_offset 32
+    (200, 200, 4, 6, 128, 128, False, None, torch.bfloat16)])
 def test_cuda_attention_bwd_matches_plain(cuda, sq, sk, kv, g, dqk, dv,
                                           causal, window, dtype):
     """The forward's lse output and the backward kernel's (dq, dk, dv)
     against ``attention_gqa_lse_ref`` / ``attention_gqa_bwd_ref`` on the
-    same saved tensors: fp32 within 1e-4, fp16 / bf16 within 2e-3 /
-    1.6e-2 of each gradient's largest magnitude."""
+    same saved tensors, the queries the last Sq of Sk positions (q_offset
+    Sk - Sq): fp32 within 1e-4, fp16 / bf16 within 2e-3 / 1.6e-2 of each
+    gradient's largest magnitude.  dq's atomics add in no fixed order, so
+    its bits may vary from call to call within these tolerances."""
     gen = torch.Generator(device=cuda).manual_seed(sq + dqk)
     q = torch.randn((2, sq, kv, g, dqk), generator=gen, device=cuda)
     k = torch.randn((2, sk, kv, dqk), generator=gen, device=cuda)
     v = torch.randn((2, sk, kv, dv), generator=gen, device=cuda)
     d_out = torch.randn((2, sq, kv, g, dv), generator=gen, device=cuda)
     q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq)
     before = dict(ops.LAUNCHES)
     out, lse = ops.attention_gqa_lse(q, k, v, **kw)
     grads = ops.attention_gqa_bwd(q, k, v, out, lse, d_out, **kw)
@@ -1141,15 +1215,77 @@ def test_cuda_attention_bwd_matches_plain(cuda, sq, sk, kv, g, dqk, dv,
         assert (got.float() - w.float()).abs().max().item() <= lim
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_cuda_attention_bwd_repeats(cuda, dtype):
+    """Two back-to-back calls on the same inputs at a grid that slices each
+    key tile's steps (qwen3_moe's 8 heads on 4 KV heads at 512 tokens): dk
+    and dv are the same bits (the slices' partials summed in order) and dq
+    differs at most by the atomics' order, within the stated tolerance of
+    the plain version's largest magnitude (fp32 1e-4; fp16 2e-3)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    b, s, kv, g, dh = 1, 512, 4, 8, 128
+    assert fab.plan(b, s, s, kv, g, dh, dh, dtype.itemsize)[0] > 1
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, s, kv, g, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    d_out = torch.randn((b, s, kv, g, dh), generator=gen,
+                        device=cuda).to(dtype)
+    out, lse = ops.attention_gqa_lse(q, k, v)
+    first = ops.attention_gqa_bwd(q, k, v, out, lse, d_out)
+    second = ops.attention_gqa_bwd(q, k, v, out, lse, d_out)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    want = ref.attention_gqa_bwd_ref(q, k, v, out, lse, d_out)[0].float()
+    lim = 1e-4 if dtype == torch.float32 else 2e-3 * want.abs().max().item()
+    assert (first[0].float() - second[0].float()).abs().max().item() <= lim
+    for got in (first[0], second[0]):
+        assert (got.float() - want).abs().max().item() <= lim
+
+
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("m", [2, 5])
+@pytest.mark.parametrize("m", [2, 5, 1, 3, 4])
 def test_cuda_quant_matmul_heads_matches_plain(cuda, m, bits, trans):
     """MLA's absorbed products at minicpm3_4b's widths (40 heads, latent
     256, head 64), one launch for all heads, against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(m * bits)
     h, k, n = (40, 64, 256) if trans else (40, 256, 64)
     rows = (n if trans else k) if bits == 8 else -(-(n if trans else k) // 2)
+    cols = h * (k if trans else n)
+    if bits == 8:
+        w_q = torch.randint(-127, 128, (rows, cols), generator=gen,
+                            device=cuda, dtype=torch.int8)
+    else:
+        w_q = torch.randint(0, 256, (rows, cols), generator=gen, device=cuda,
+                            dtype=torch.uint8)
+    scale = torch.rand((cols,), generator=gen, device=cuda) / 64
+    x = torch.randn((m, h, k), generator=gen, device=cuda)
+    before = ops.LAUNCHES["quantized_matmul"]
+    got = ops.quant_matmul_heads(x, w_q, scale, bits, n, trans)
+    assert ops.LAUNCHES["quantized_matmul"] == before + 1
+    want = ref.quant_matmul_batched_ref(x, w_q, scale, n, bits=bits,
+                                        trans=trans)
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("m,bits,trans,h,k,n", [
+    (3, 4, False, 40, 255, 64),    # odd K: the padding nibble meets x = 0
+    (2, 8, False, 8, 200, 48),
+    (2, 4, False, 6, 256, 40),     # N % 16 != 0: byte-wise weight reads
+    (5, 4, False, 4, 129, 64),
+    (1, 4, True, 40, 64, 255),     # odd N, packed along N
+    (4, 8, True, 8, 40, 72),       # K % 16 != 0: byte-wise row reads
+    (5, 8, True, 4, 96, 33)])
+def test_cuda_quant_matmul_heads_ragged(cuda, m, bits, trans, h, k, n):
+    """The batched products at widths the absorption never uses (odd K for
+    int4, N and K off the 16-byte vectors, M past the skinny rows) against
+    the plain version, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    logical = n if trans else k
+    rows = logical if bits == 8 else -(-logical // 2)
     cols = h * (k if trans else n)
     if bits == 8:
         w_q = torch.randint(-127, 128, (rows, cols), generator=gen,

@@ -25,7 +25,8 @@ import pytest
 import torch
 from test_torch_moe_stream import (EXPERT_FIELDS, NEW, PROMPT,
                                    ROUTER_SCALE, TOTAL, _budget,
-                                   assert_decisive, assert_same_run)
+                                   _serial_budget, assert_decisive,
+                                   assert_same_run)
 
 from repro.checkpoint import load_manifest, load_shard, partition_and_save
 from repro.checkpoint import partition as jax_partition
@@ -168,10 +169,10 @@ def test_each_package_reads_the_others_expert_shards(ckpts, quant,
 def test_run_single_matches_jax(ckpts, toks, quant):
     params, paths = ckpts
     assert_decisive(_dequantized(params, quant), JCFG, TCFG, toks)
-    with JaxEngine(paths[quant], JCFG, num_agents=2) as je:
+    kw = dict(num_agents=2, budget_bytes=_serial_budget(paths[quant]))
+    with JaxEngine(paths[quant], JCFG, **kw) as je:
         jl, jst = je.run_single(toks)
-    with PipeloadEngine(paths[quant], TCFG, num_agents=2,
-                        device="cpu") as te:
+    with PipeloadEngine(paths[quant], TCFG, device="cpu", **kw) as te:
         tl, st = te.run_single(toks)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert st.expert_misses > 0
