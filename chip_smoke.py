@@ -122,7 +122,8 @@ Phases, in order; any failure exits non-zero:
    ``PipeloadEngine.run_single`` on 2 x 197 tokens under 300 MiB, kernels
    then plain: flash_attention once per layer, logits within 2e-3 of the
    plain run's largest and the same argmax.
-13. Speculative serving: phase 5's first 4 requests at page size 16
+13. Speculative serving: phase 5's first 4 requests, 16 new tokens each
+   (``SPEC["new_tokens"]``), at page size 16
    through ``Hermes.scheduler`` with a ``DraftModel`` at depth 4: a
    full-width gpt2_base cut to 2 layers, its own checkpoint from numpy
    seed 1, under 1450 MiB (below target plus draft, so target layers
@@ -248,6 +249,31 @@ Phases, in order; any failure exits non-zero:
    and remat's recompute) and flash_attention_bwd 24 x 5, nothing else,
    the plain run nothing; step ms and the allocator peak beside params +
    grads + two fp32 moments.
+22. The enc-dec, xLSTM and Zamba2 families through the model API, at
+   full width cut in depth, in their configs' bf16: seamless_m4t_medium
+   (2 encoder + 2 decoder layers, 1024 frames), xlstm_1_3b (one
+   super-block, 8 of 48 layers) and zamba2_1_2b (8 of 38 layers: a
+   group of 6, the shared site, a remainder of 2), their numpy params
+   drawn while nvcc builds.  For each: step 1's loss and gradients,
+   kernels vs plain (loss within a quarter of ``HALF_RTOL``, each leaf
+   within 4 x ``HALF_RTOL`` of its largest |g|); ``train.run``'s 3 AdamW
+   steps at B=4 x 256, kernels then plain from the same params (losses
+   alike; ``flash_attention`` launches 2 x and ``flash_attention_bwd``
+   1 x the step's attention calls, which the layer layout gives: the
+   enc-dec's encoder, self and cross attention, Zamba2's shared site,
+   none in xLSTM; the plain run none; step ms and the allocator peak
+   beside params + grads + two fp32 moments; xLSTM's sLSTM layer timed
+   alone against its step); then ``make_prefill_step`` on B=2 x 64 and 8
+   greedy ``make_serve_step`` steps, kernels then plain: prefill logits
+   within ``HALF_RTOL`` of the largest, the same tokens (tie rule: a
+   top-2 gap within ``HALF_RTOL`` of the largest |logit|), one
+   ``flash_attention`` per attention call of the prefill and one
+   ``flash_decode`` per attention per decode step, checked exactly.
+   Phase 2 holds its attention shapes: seamless's encoder (B=4 x 1024,
+   non-causal) and cross attention (Sq 256 against Sk 1024, non-causal),
+   forward and backward, and the cross decode over 1024 slots; Zamba2's
+   site (B=4 x 256, 32 heads of 128, causal), forward and backward, and
+   its decode.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -288,11 +314,13 @@ kernel also reports phase 13's launches (``spec_launches``,
 phase 18's (``mla_launches``, ``mla_serve_launches``: the dense and the
 paged kernel runs together), phase 19's (``vlm_launches``,
 ``vlm_serve_launches``), phase 20's (``mla_quant_launches``,
-``mla_quant_serve_launches``; quantized_matmul too) and phase 21's
-(``train_launches``).  flash_attention_bwd's row (the counterpart of the
+``mla_quant_serve_launches``; quantized_matmul too), phase 21's
+(``train_launches``) and phase 22's (``families_launches``: its kernel
+runs', training and generation).  flash_attention_bwd's row (the counterpart of the
 JAX package's jnp custom VJP, not of a Pallas kernel) takes its launches
-from phase 21, its numbers at phase 21's shape, and adds that phase's
-mean step ms after the first (``train_step_ms``) and allocator peak.
+from phase 21 (phase 22's as ``families_launches``), its numbers at
+phase 21's shape, and adds that phase's mean step ms after the first
+(``train_step_ms``) and allocator peak.
 Before them, each phase's wall.
 
 ``--kernels-only`` stops after phase 2 (a quick check of every kernel,
@@ -351,7 +379,10 @@ GPTJ_PLAIN_NEW_TOKENS = 2        # the plain partner's new tokens
 # under a budget below its ~605 MB
 VIT = dict(batch=2, seq=197, budget_mb=300, agents=2)
 # speculative serving at depth 4, so verify windows of W = 5.  Phase 13:
-# the paged phase's first 4 requests with a full-width 2-layer draft of
+# the paged phase's first 4 requests, their first 16 new tokens (32 until
+# the families' phase 22 came in: the phase streams every target layer
+# each round, so its wall follows its rounds, not its requests), with a
+# full-width 2-layer draft of
 # its own weights (~520 MB of shards), under a budget that holds the
 # ~900 MiB of the paged phase plus the draft and its cache rows, below
 # target plus draft (~2.15 GB).  The planner models a verify round's
@@ -366,8 +397,10 @@ VIT = dict(batch=2, seq=197, budget_mb=300, agents=2)
 # fixed: 1 agent streaming every layer, pin 0, whose 1,125,695,488 ledger
 # bytes and cuBLAS's 32 MiB the budget holds.
 SPEC_W = 5
-SPEC = dict(requests=4, draft_layers=2, budget_mb=1450, acceptance=1.0)
-SELF = dict(layers=4, budget_mb=1150, new_tokens=32, schedule=(1, 0))
+SPEC = dict(requests=4, draft_layers=2, budget_mb=1450, acceptance=1.0,
+            new_tokens=16)
+SELF = dict(layers=4, budget_mb=1150, new_tokens=32, schedule=(1, 0),
+            requests=4)
 # phase 15, the SLO tier on phase 3's checkpoint and budget: two tenants'
 # 12 requests from a seeded trace (Poisson arrivals at 0.5 per round,
 # lognormal prompts of mean 96 clipped to [4, 192], geometric outputs of
@@ -441,6 +474,28 @@ MLA_QUANT_BUDGET_MB = 540
 # config's remat), TF32 off
 TRAIN = dict(batch=8, seq=256, steps=5)
 TRAIN_RTOL = 1e-4   # kernels vs plain: each step's loss, step 1's grads
+# phase 22: the enc-dec, xLSTM and Zamba2 families through the model API
+# at full width, cut in depth, in their configs' bf16 (seamless_m4t_medium
+# 2 + 2 of 12 + 12 layers ~605M params, xlstm_1_3b one super-block of 8 of
+# 48 layers ~646M, zamba2_1_2b 8 of 38 layers, a group of 6, the shared
+# site, a remainder of 2, ~448M): train.run's 3 steps at B=4 x 256, then
+# a prefill of B=2 x 64 and 8 greedy decode steps, kernels then plain
+FAMILY_TRAIN = dict(batch=4, seq=256, steps=3)
+FAMILY_INFER = dict(batch=2, prompt_len=64, new_tokens=8)
+# kernels vs plain in bf16: the kernels and the plain attention round one
+# fp32 result to bf16 after summing in other orders, and every layer after
+# carries that one-unit difference on; losses within a quarter of
+# HALF_RTOL relative, each gradient leaf within 4 x HALF_RTOL of its
+# largest |g| (measured on an H100: 1.7e-2, seamless's cross_norm, and
+# 2.7e-2, Zamba2's embed; the backward's dq atomics add in no fixed
+# order, so the gradients move from call to call), prefill logits within
+# HALF_RTOL of the largest |logit|
+FAMILY_LOSS_RTOL = HALF_RTOL["bfloat16"] / 4
+FAMILY_GRAD_RTOL = 4 * HALF_RTOL["bfloat16"]
+# bf16 logits: a tie is a top-2 gap within HALF_RTOL of the largest
+# |logit| (two units in bf16's last place)
+TIE_RTOL_BF16 = HALF_RTOL["bfloat16"]
+FAMILY_PARAMS = {}               # label -> numpy tree, drawn while nvcc runs
 VLM_LAYERS = 4
 VLM = dict(requests=4, prompt_len=64, new_tokens=8, max_inflight=4,
            shared_prefix=48)
@@ -951,22 +1006,24 @@ def quant_case(torch, ref, gen, kind, m, k, n, count, bits, dtype=None):
 
 
 def bwd_case(torch, fa, fab, ref, gen, name, b, s, kv, g, dqk, dv=None,
-             window=None, causal=True, dtype=None):
-    """The flash-attention backward at one shape against its plain version
-    (``ref.attention_gqa_bwd_ref``) on the forward kernel's saved (out,
-    lse), whose lse is held against the plain log-sum-exp first.  Error:
-    each of dq, dk, dv within TOL (fp32) or ``HALF_RTOL`` of its largest
-    magnitude; the worst of the three is reported.  Library: SDPA's
-    backward on the same heads (K / V repeated to the q heads, the forward
-    not timed).  Bound: the bytes of q, k, v, out, d_out, lse, dq, dk, dv
-    against the five products' 2 (3 dqk + 2 dv) flops per unmasked pair."""
+             window=None, causal=True, dtype=None, sk=None):
+    """The flash-attention backward at one shape (Sq = ``s``, Sk = ``sk``,
+    default ``s``) against its plain version (``ref.attention_gqa_bwd_ref``)
+    on the forward kernel's saved (out, lse), whose lse is held against
+    the plain log-sum-exp first.  Error: each of dq, dk, dv within TOL
+    (fp32) or ``HALF_RTOL`` of its largest magnitude; the worst of the
+    three is reported.  Library: SDPA's backward on the same heads (K / V
+    repeated to the q heads, the forward not timed).  Bound: the bytes of
+    q, k, v, out, d_out, lse, dq, dk, dv against the five products' 2 (3
+    dqk + 2 dv) flops per unmasked pair."""
     dev = "cuda"
     dv = dv or dqk
+    sk = sk or s
     dtype = dtype or torch.float32
     kw = dict(causal=causal, window=window)
     q = torch.randn((b, s, kv, g, dqk), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, s, kv, dqk), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, s, kv, dv), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, kv, dqk), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=dev).to(dtype)
     d_out = torch.randn((b, s, kv, g, dv), generator=gen, device=dev).to(
         dtype)
     out, lse = fa.flash_attention_gqa(q, k, v, return_lse=True, **kw)
@@ -996,14 +1053,15 @@ def bwd_case(torch, fa, fab, ref, gen, name, b, s, kv, g, dqk, dv=None,
     vs = v.transpose(1, 2).repeat_interleave(g, dim=1).detach()
     for t in (qs, ks, vs):
         t.requires_grad_(True)
-    ids = torch.arange(s, device=dev)
-    ok = (ids[None, :] <= ids[:, None]) if causal else torch.ones(
-        (s, s), dtype=torch.bool, device=dev)
+    q_ids = torch.arange(s, device=dev)[:, None]
+    k_ids = torch.arange(sk, device=dev)[None, :]
+    ok = (k_ids <= q_ids) if causal else torch.ones(
+        (s, sk), dtype=torch.bool, device=dev)
     if window is not None:
-        ok &= ids[None, :] > ids[:, None] - window
+        ok &= k_ids > q_ids - window
     o = (sdpa(qs, ks, vs, is_causal=True) if causal and window is None
-         else sdpa(qs, ks, vs, attn_mask=ok) if window is not None
-         else sdpa(qs, ks, vs))
+         and sk == s else sdpa(qs, ks, vs) if not causal and window is None
+         else sdpa(qs, ks, vs, attn_mask=ok))
     go = d_out.reshape(b, s, kv * g, dv).transpose(1, 2)
     lib = lambda: torch.autograd.grad(o, (qs, ks, vs), go,  # noqa: E731
                                       retain_graph=True)
@@ -1176,6 +1234,41 @@ def mla_vlm_cases(torch, fd, fa, ref, gen):
                    16, 5, [65, 68, 70, 72], shared=3, dtype=f16)]
 
 
+def family_cases(torch, fd, fa, fab, ref, gen):
+    """Phase 22's attention shapes, bf16 as its configs: seamless_m4t's
+    encoder (B=4 x 1024 frames, non-causal) and cross attention (256
+    decoder tokens against the 1024 frames' K / V, non-causal, Sq != Sk),
+    forward and backward, and its decode over the cross cache (B=2, all
+    1024 slots valid); Zamba2's shared site (B=4 x 256, 32 heads of 128 on
+    32 KV heads, causal), forward and backward, and its decode (B=2, 72
+    slots)."""
+    bf16 = torch.bfloat16
+    return [
+        attention_case(torch, fa, ref, gen, "seamless encoder B=4 S=1024 "
+                       "H=16 dh=64 non-causal bfloat16", 4, 1024, 16, 1, 64,
+                       dtype=bf16, causal=False),
+        bwd_case(torch, fa, fab, ref, gen, "seamless encoder B=4 S=1024 "
+                 "H=16 dh=64 non-causal bfloat16", 4, 1024, 16, 1, 64,
+                 causal=False, dtype=bf16),
+        attention_case(torch, fa, ref, gen, "seamless cross B=4 Sq=256 "
+                       "Sk=1024 H=16 dh=64 non-causal bfloat16", 4, 256, 16,
+                       1, 64, sk=1024, dtype=bf16, causal=False),
+        bwd_case(torch, fa, fab, ref, gen, "seamless cross B=4 Sq=256 "
+                 "Sk=1024 H=16 dh=64 non-causal bfloat16", 4, 256, 16, 1, 64,
+                 sk=1024, causal=False, dtype=bf16),
+        decode_case(torch, fd, ref, gen, "seamless cross decode B=2 S=1024 "
+                    "KV=16 G=1 dh=64 bfloat16", 2, 1024, 16, 1, 64,
+                    dtype=bf16),
+        attention_case(torch, fa, ref, gen, "zamba2 site B=4 S=256 H=32 "
+                       "dh=128 causal bfloat16", 4, 256, 32, 1, 128,
+                       dtype=bf16),
+        bwd_case(torch, fa, fab, ref, gen, "zamba2 site B=4 S=256 H=32 "
+                 "dh=128 causal bfloat16", 4, 256, 32, 1, 128, dtype=bf16),
+        decode_case(torch, fd, ref, gen, "zamba2 site decode B=2 S=72 KV=32 "
+                    "G=1 dh=128 bfloat16", 2, 72, 32, 1, 128,
+                    lengths=[65, 72], dtype=bf16)]
+
+
 def autotune_shape(cfg):
     """The shape ``tune_for_model`` times the streamed matmul at: 256
     tokens x d_model @ d_model x d_ff."""
@@ -1295,6 +1388,7 @@ def phase_kernels(torch):
                          torch.float16)
               for bits in (8, 4) for trans in (True, False)]
     cases += bwd_cases(torch, fa, fab, ref, gen)
+    cases += family_cases(torch, fd, fa, fab, ref, gen)
     # phase 17's streamed experts (fp16 activations on int8 / int4 shards)
     cases += [quant_case(torch, ref, gen, *shape, bits, torch.float16)
               for bits in (8, 4) for shape in quant_shapes(moe_config())
@@ -1676,9 +1770,10 @@ PARALLEL_CHECKPOINTS = (("qwen3_moe",), ("minicpm3", "qwen2_vl"))
 
 def write_checkpoints() -> str:
     """Write every serving checkpoint, the int8 / int4 transcodes of
-    phase 3's and the int8 transcode of phase 16's, numpy on the host:
-    ``main`` runs this while nvcc builds the kernels.  Returns the seconds
-    each took."""
+    phase 3's and the int8 transcode of phase 16's, and draw phase 22's
+    parameters (in a thread of their own), numpy on the host: ``main``
+    runs this while nvcc builds the kernels.  Returns the seconds each
+    took."""
     from repro_torch.checkpoint.partition import ensure_quantized
     took, errors = [], []
 
@@ -1701,8 +1796,15 @@ def write_checkpoints() -> str:
         except BaseException as exc:      # noqa: BLE001 (re-raised below)
             errors.append(exc)
 
+    def draw_families() -> None:
+        try:
+            took.append(draw_family_params())
+        except BaseException as exc:      # noqa: BLE001 (re-raised below)
+            errors.append(exc)
+
     writers = [threading.Thread(target=write_parallel, args=(group,))
                for group in PARALLEL_CHECKPOINTS]
+    writers.append(threading.Thread(target=draw_families))
     for w in writers:
         w.start()
     apart = {label for group in PARALLEL_CHECKPOINTS for label in group}
@@ -2037,20 +2139,22 @@ def count_draft_steps() -> None:
     DraftModel.decode_batch = counted
 
 
-def paged_prompts(cfg):
-    """Phase 5's first 4 prompts, drawn as ``serve.run`` draws them."""
+def paged_prompts(cfg, n: int):
+    """Phase 5's first ``n`` prompts, drawn as ``serve.run`` draws
+    them."""
     import numpy as np
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (MAIN["requests"], MAIN["prompt_len"]))
     prompts[:, :PAGED["shared_prefix"]] = prompts[0, :PAGED["shared_prefix"]]
-    return prompts[:SPEC["requests"]]
+    return prompts[:n]
 
 
 def serve_spec(torch, ops, cfg, label: str, budget_mb: float, draft=None,
                new_tokens: int = MAIN["new_tokens"], schedule=None,
-               acceptance: float = 0.8):
-    """Serve phase 5's first 4 requests at page size 16, with ``draft`` at
+               acceptance: float = 0.8, requests: int = SELF["requests"]):
+    """Serve phase 5's first ``requests`` requests at page size 16, with
+    ``draft`` at
     depth SPEC_W - 1 or without one, the launch counts set to 0 just
     before and read just after: through ``Hermes.scheduler`` (the planner
     models the draft at ``acceptance``), or with ``schedule`` = (agents,
@@ -2095,7 +2199,7 @@ def serve_spec(torch, ops, cfg, label: str, budget_mb: float, draft=None,
               f"agents, pin {eng.pin}, inflight {sched.max_inflight}, page "
               f"size {sched.page_size}, spec depth {sched.spec_depth}",
               flush=True)
-        for p in paged_prompts(cfg):
+        for p in paged_prompts(cfg, requests):
             sched.submit(p, new_tokens)
         steps0 = DRAFT_STEPS[0]
         outs, stats = sched.run()
@@ -2108,7 +2212,7 @@ def serve_spec(torch, ops, cfg, label: str, budget_mb: float, draft=None,
     launches = dict(ops.LAUNCHES)
     loop_peak = torch.cuda.max_memory_allocated()
     alloc_peak = max(warm_peak, loop_peak)
-    check_outputs(outs, cfg.padded_vocab, SPEC["requests"], total)
+    check_outputs(outs, cfg.padded_vocab, requests, total)
     if stats.page_size != PAGED["page_size"]:
         fail(f"{label}: the planner served page size {stats.page_size}")
     if stats.peak_bytes > budget:
@@ -2165,7 +2269,8 @@ def serve_spec(torch, ops, cfg, label: str, budget_mb: float, draft=None,
 
 
 def phase_spec(torch, ops, cfg, paged_outs):
-    """Phase 13: speculative serving of phase 5's first 4 requests on the
+    """Phase 13: speculative serving of phase 5's first 4 requests (16 new
+    tokens each) on the
     full-width checkpoint with a weak full-width 2-layer draft (its own
     checkpoint, numpy seed 1) at depth 4 through ``Hermes.scheduler``,
     under a budget below target plus draft: tokens equal phase 5's (tie
@@ -2186,11 +2291,11 @@ def phase_spec(torch, ops, cfg, paged_outs):
     if SPEC["budget_mb"] * 2**20 >= target + dman["total_bytes"]:
         fail("spec: the budget must sit below target plus draft")
     draft = DraftModel(dpath, dcfg, device="cuda")
-    total = MAIN["prompt_len"] + MAIN["new_tokens"]
+    total = MAIN["prompt_len"] + SPEC["new_tokens"]
     for acc in (0.8, SPEC["acceptance"]):
         g = Hermes(ckpt_dir(cfg), cfg, device="cuda").plan_generate(
             [int(SPEC["budget_mb"] * 2**20)], prompt_len=MAIN["prompt_len"],
-            new_tokens=MAIN["new_tokens"], max_inflight=MAIN["max_inflight"],
+            new_tokens=SPEC["new_tokens"], max_inflight=MAIN["max_inflight"],
             page_sizes=(PAGED["page_size"],),
             shared_prefix_len=PAGED["shared_prefix"],
             **spec_plan_kw(draft, SPEC_W - 1, total, acc))[0]
@@ -2199,7 +2304,8 @@ def phase_spec(torch, ops, cfg, paged_outs):
               f"predicted {g.predicted_throughput_tps:.3f} tok/s", flush=True)
     outs, stats, launches, _ = serve_spec(
         torch, ops, cfg, "spec", SPEC["budget_mb"], draft,
-        acceptance=SPEC["acceptance"])
+        acceptance=SPEC["acceptance"], requests=SPEC["requests"],
+        new_tokens=SPEC["new_tokens"])
     if stats.peak_breakdown.get("draft") != dman["total_bytes"]:
         fail(f"spec: the ledger peak's draft share "
              f"{stats.peak_breakdown.get('draft')} is not the draft's "
@@ -3161,6 +3267,318 @@ def phase_train(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the enc-dec, xLSTM and Zamba2 families
+# ---------------------------------------------------------------------------
+def family_configs() -> dict:
+    """Phase 22's configs at full width, cut in depth (FAMILY_TRAIN's
+    comment)."""
+    from repro_torch.configs import get
+    return {"seamless": get("seamless_m4t_medium").with_(num_layers=2,
+                                                         enc_layers=2),
+            "xlstm": get("xlstm_1_3b").with_(num_layers=8),
+            "zamba2": get("zamba2_1_2b").with_(num_layers=8)}
+
+
+def draw_family_params() -> str:
+    """Draw phase 22's three numpy parameter trees from seed 0 as the
+    model API's ``init`` draws them (``main`` runs this while nvcc builds);
+    returns the seconds each took."""
+    import numpy as np
+    from repro_torch.models import encdec_lm, recurrent_lm
+    inits = {"seamless": encdec_lm.init_params,
+             "xlstm": recurrent_lm.xlstm_init,
+             "zamba2": recurrent_lm.zamba_init}
+    took = []
+    for label, cfg in family_configs().items():
+        t0 = time.perf_counter()
+        FAMILY_PARAMS[label] = inits[label](np.random.default_rng(0), cfg)
+        took.append(f"{label} params {time.perf_counter() - t0:.1f}s")
+    return ", ".join(took)
+
+
+def flat_names(tree, prefix: str = ""):
+    """The leaf paths of a nested dict, in ``tree_leaves`` order."""
+    if not isinstance(tree, dict):
+        yield prefix
+        return
+    for k, v in tree.items():
+        yield from flat_names(v, f"{prefix}/{k}" if prefix else k)
+
+
+def family_attention(cfg):
+    """(flash_attention launches per forward pass, flash_decode launches
+    per decode step), from the layer layout: the enc-dec's encoder layers
+    and its decoder's self and cross attention; Zamba2's shared sites (one
+    after each full group); none in xLSTM."""
+    from repro_torch.models.config import ENCDEC, MAMBA_HYBRID
+    if cfg.family == ENCDEC:
+        return cfg.enc_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    if cfg.family == MAMBA_HYBRID:
+        sites = cfg.num_layers // cfg.shared_attn_every
+        return sites, sites
+    return 0, 0
+
+
+def family_train_launches(cfg, steps: int) -> dict:
+    """flash_attention / flash_attention_bwd launches of ``steps`` training
+    steps: each attention forward once, again in the backward where remat
+    recomputes it (every layer of the enc-dec, each shared site of
+    Zamba2), and its backward once."""
+    per_pass, _ = family_attention(cfg)
+    return {"flash_attention": steps * per_pass * (2 if cfg.remat else 1),
+            "flash_attention_bwd": steps * per_pass}
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        fail(f"{label}: kernel launches {got} != {full}")
+
+
+def family_decode_cache(api, cfg, cache, b: int, total: int):
+    """The prefill's cache as the decode cache of ``total`` slots: xLSTM's
+    state as it is; the KV caches copied into the head of ``empty_cache``'s
+    (the enc-dec's self and cross caches, Zamba2's sites beside its Mamba2
+    states)."""
+    from repro_torch.models.config import MAMBA_HYBRID, XLSTM
+    if cfg.family == XLSTM:
+        return cache
+    full = api.empty_cache(b, total, device="cuda")
+    if cfg.family == MAMBA_HYBRID:
+        full["mamba"] = cache["mamba"]
+        pairs = [(full["attn"], cache["attn"])]
+    else:
+        pairs = [(full["self"], cache["self"]), (full["cross"],
+                                                 cache["cross"])]
+    for dst, src in pairs:
+        for k in dst:
+            dst[k][:, :, :src[k].shape[2]] = src[k]
+    return full
+
+
+def family_generate(torch, ops, cfg, params, impl):
+    """``make_prefill_step`` on FAMILY_INFER's prompts (make_batch seed 1),
+    then its greedy ``make_serve_step`` decode steps: (tokens (B, 1 +
+    steps), the logits of each step, prefill ms, decode ms per step,
+    launches of the prefill, of the decode steps)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.stepfns import make_prefill_step, make_serve_step
+    from repro_torch.models.api import build_model
+    api = build_model(cfg, attn_impl=impl)
+    b, s, n = (FAMILY_INFER["batch"], FAMILY_INFER["prompt_len"],
+               FAMILY_INFER["new_tokens"])
+    batch = {k: v.cuda() for k, v in make_batch(cfg, b, s, seed=1).items()
+             if k != "labels"}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(api)(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_launches = dict(ops.LAUNCHES)
+    cache = family_decode_cache(api, cfg, cache, b, s + n)
+    serve_step = make_serve_step(api)
+    toks, steps = [logits.argmax(-1)], [logits]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, cache = serve_step(params, toks[-1][:, None], cache, s + i)
+        toks.append(logits.argmax(-1))
+        steps.append(logits)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / n
+    return (torch.stack(toks, 1).cpu(), [x.float().cpu() for x in steps],
+            prefill_ms, decode_ms, prefill_launches, dict(ops.LAUNCHES))
+
+
+def family_tokens(torch, label: str, runs) -> str:
+    """Fail unless every row's greedy tokens are the plain run's, or first
+    differ where the plain run's top-2 logits sit within TIE_RTOL_BF16 of
+    its largest |logit| (a tie)."""
+    ktoks, kstep = runs["auto"][:2]
+    ptoks, pstep = runs[None][:2]
+    ties = 0
+    for row in range(ptoks.shape[0]):
+        diff = (ktoks[row] != ptoks[row]).nonzero()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        top2 = torch.topk(pstep[i][row], 2).values
+        gap = float(top2[0] - top2[1])
+        limit = TIE_RTOL_BF16 * pstep[i][row].abs().max().item()
+        print(f"families: {label} row {row} tokens differ first at step {i}"
+              f"; plain top-2 logit gap there {gap:.3e} (tie below "
+              f"{limit:.3e})", flush=True)
+        if gap >= limit:
+            fail(f"families: {label} row {row} greedy tokens differ at step "
+                 f"{i} (gap {gap:.3e})")
+        ties += 1
+    return "differ only at ties" if ties else "identical"
+
+
+def family_slstm_ms(torch, cfg, params) -> float:
+    """The xLSTM step's sLSTM layer alone at FAMILY_TRAIN's shape (ms by
+    CUDA events): its forward twice (the super-block's remat replays it)
+    and its backward to its input and weights."""
+    from repro_torch.models import common, ssm
+    cell = {k: v.detach().clone().requires_grad_(True)
+            for k, v in common.take(params["slstm"], 0)["cell"].items()}
+    x = torch.randn((FAMILY_TRAIN["batch"], FAMILY_TRAIN["seq"],
+                     cfg.d_model), device="cuda").to(cfg.torch_dtype)
+    x.requires_grad_(True)
+
+    def fwd_bwd():
+        with torch.no_grad():
+            ssm.slstm_prefill(cell, x, cfg)
+        y, _ = ssm.slstm_prefill(cell, x, cfg)
+        torch.autograd.grad(y.float().sum(), [x] + list(cell.values()))
+    return time_ms(torch, fwd_bwd, iters=3, warmup=1)
+
+
+def phase_families(torch, ops):
+    """Phase 22: each family of ``family_configs`` (numpy params drawn
+    while nvcc built) through the model API on the card.  Step 1's loss
+    and gradients (``api.loss`` on one batch), kernels vs plain: the loss
+    within FAMILY_LOSS_RTOL, every leaf within FAMILY_GRAD_RTOL of its
+    largest |g|, the kernel backward's launches as the layout says.  Then
+    ``train.run``'s FAMILY_TRAIN steps, kernels then plain from the same
+    params and batches: each loss within FAMILY_LOSS_RTOL of the plain
+    run's, flash_attention and flash_attention_bwd launches exactly as
+    ``family_train_launches`` derives them (xLSTM none), the plain run
+    none; step ms and the allocator peak beside params + grads + two fp32
+    moments.  Then ``family_generate``, kernels then plain: prefill logits
+    within HALF_RTOL of the largest |logit|, the same greedy tokens (tie
+    rule), flash_attention per prefill and flash_decode per decode step as
+    ``family_attention`` says.  xLSTM also times its sLSTM layer against
+    its step.  Returns the kernel runs' launches, summed."""
+    from repro_torch.checkpoint.partition import from_jax_params, tree_leaves
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import XLSTM
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    tb, ts, steps = (FAMILY_TRAIN["batch"], FAMILY_TRAIN["seq"],
+                     FAMILY_TRAIN["steps"])
+    for label, cfg in family_configs().items():
+        per_pass, per_decode = family_attention(cfg)
+        params = from_jax_params(FAMILY_PARAMS[label], "cuda")
+        leaves = tree_leaves(params)
+        n_params = sum(p.numel() for p in leaves)
+        state_bytes = sum(p.numel() * (2 * p.element_size() + 8)
+                          for p in leaves)
+        print(f"families: {label}: {cfg.name} d={cfg.d_model}, "
+              f"{cfg.num_layers} layers"
+              + (f" + {cfg.enc_layers} encoder layers"
+                 if cfg.enc_layers else "")
+              + f", vocab {cfg.vocab_size} -> {cfg.padded_vocab}, "
+              f"{cfg.dtype}, remat {cfg.remat}; {n_params} params",
+              flush=True)
+        # step 1: loss and gradients, kernels vs plain
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {k: v.cuda() for k, v in make_batch(cfg, tb, ts,
+                                                    seed=0).items()}
+        losses, grads = {}, {}
+        for impl in ("auto", None):
+            ops.reset_launches()
+            loss, _ = build_model(cfg, attn_impl=impl).loss(params, batch)
+            grads[impl] = torch.autograd.grad(loss, leaves)
+            losses[impl] = loss.item()
+            if impl:
+                check_launches(f"{label} step 1 (kernels)",
+                               dict(ops.LAUNCHES),
+                               family_train_launches(cfg, 1))
+        worst = max(((gk.float() - gp.float()).abs().max().item()
+                     / max(gp.float().abs().max().item(), 1e-30), i)
+                    for i, (gk, gp) in enumerate(zip(grads["auto"],
+                                                     grads[None])))
+        names = list(flat_names(FAMILY_PARAMS[label]))
+        print(f"families: {label} step 1: loss {losses['auto']} (kernels) "
+              f"vs {losses[None]} (plain); gradients: worst leaf max "
+              f"|delta| / max |g| = {worst[0]:.3e} ({names[worst[1]]}) over "
+              f"{len(leaves)} leaves (limit {FAMILY_GRAD_RTOL})", flush=True)
+        if not abs(losses["auto"] - losses[None]) <= (
+                FAMILY_LOSS_RTOL * abs(losses[None])):
+            fail(f"families: {label} step 1 loss {losses['auto']} vs "
+                 f"{losses[None]}")
+        if not worst[0] <= FAMILY_GRAD_RTOL:
+            fail(f"families: {label} step 1 gradients differ by {worst[0]} "
+                 f"of a leaf's largest |g| ({names[worst[1]]})")
+        del params, leaves, grads, loss
+        # training through train.run, kernels then plain
+        runs = {}
+        for impl in ("auto", None):
+            secs = []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            run_losses = train.run(cfg, steps=steps, batch=tb, seq=ts,
+                                   device="cuda", attn_impl=impl,
+                                   log_every=steps, step_seconds=secs,
+                                   params=FAMILY_PARAMS[label])
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            runs[impl] = (run_losses, launches, secs)
+            print(f"families: {label} train ({'kernels' if impl else 'plain'}"
+                  f"): losses {run_losses}; step ms "
+                  f"{[round(t * 1e3, 3) for t in secs]}; kernel launches "
+                  f"{json.dumps(launches)}; torch.cuda.max_memory_allocated "
+                  f"{peak} B against params + grads + two fp32 moments "
+                  f"{state_bytes} B", flush=True)
+        check_launches(f"{label} train (kernels)", runs["auto"][1],
+                       family_train_launches(cfg, steps))
+        check_launches(f"{label} train (plain)", runs[None][1], {})
+        for i, (lk, lp) in enumerate(zip(runs["auto"][0], runs[None][0])):
+            if not abs(lk - lp) <= FAMILY_LOSS_RTOL * abs(lp):
+                fail(f"families: {label} step {i} loss {lk} (kernels) vs {lp}"
+                     f" (plain)")
+        for k, v in runs["auto"][1].items():
+            total[k] += v
+        step_ms = 1e3 * sum(runs["auto"][2][1:]) / max(steps - 1, 1)
+        params = from_jax_params(FAMILY_PARAMS.pop(label), "cuda")
+        if cfg.family == XLSTM:
+            ms = family_slstm_ms(torch, cfg, params)
+            print(f"families: {label} sLSTM layer (forward x2 + backward at "
+                  f"B={tb} S={ts}, alone) {ms:.3f} ms of the kernel run's "
+                  f"{step_ms:.3f} ms step ({100 * ms / step_ms:.1f}%)",
+                  flush=True)
+        # inference, kernels then plain
+        gens = {impl: family_generate(torch, ops, cfg, params, impl)
+                for impl in ("auto", None)}
+        ktoks, ksteps, pre_ms, dec_ms, pre_l, dec_l = gens["auto"]
+        check_launches(f"{label} prefill (kernels)", pre_l,
+                       {"flash_attention": per_pass})
+        check_launches(f"{label} decode (kernels)", dec_l,
+                       {"flash_decode": per_decode
+                        * FAMILY_INFER["new_tokens"]})
+        check_launches(f"{label} prefill (plain)", gens[None][4], {})
+        check_launches(f"{label} decode (plain)", gens[None][5], {})
+        for k in total:
+            total[k] += pre_l[k] + dec_l[k]
+        pl = gens[None][1][0]
+        lerr = (ksteps[0] - pl).abs().max().item()
+        llim = HALF_RTOL["bfloat16"] * pl.abs().max().item()
+        verdict = family_tokens(torch, label, gens)
+        print(f"families: {label} generate: prefill B={FAMILY_INFER['batch']}"
+              f" x {FAMILY_INFER['prompt_len']} {pre_ms:.3f} ms (kernels), "
+              f"{gens[None][2]:.3f} ms (plain); decode {dec_ms:.3f} ms per "
+              f"step (kernels), {gens[None][3]:.3f} ms (plain); prefill "
+              f"logits max |delta| {lerr:.3e} (limit {llim:.3e}); greedy "
+              f"tokens {verdict}: kernels {ktoks.tolist()}, plain "
+              f"{gens[None][0].tolist()}", flush=True)
+        if not lerr <= llim:
+            fail(f"families: {label} prefill logits differ by {lerr}")
+        del params
+        torch.cuda.empty_cache()
+    print(f"families: kernel launches of the kernel runs {json.dumps(total)}",
+          flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -3295,6 +3713,9 @@ def main() -> int:
     trained = timed("21", phase_train, torch, ops)
     train_launches = trained["launches"]
 
+    # ---- phase 22: the enc-dec, xLSTM and Zamba2 families
+    family_launches = timed("22", phase_families, torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel, launch key, the path's launches, stats);
@@ -3367,6 +3788,7 @@ def main() -> int:
             "mla_quant_launches": mla_q_launches[key],
             "mla_quant_serve_launches": mla_q_serve[key],
             "train_launches": train_launches[key],
+            "families_launches": family_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -3399,6 +3821,7 @@ def main() -> int:
         source=csrc + "flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:192",
         launches=train_launches["flash_attention_bwd"],
+        families_launches=family_launches["flash_attention_bwd"],
         sass_hmma=build.sass_counts("flash_attention_bwd", ("HMMA",))["HMMA"],
         train_step_ms=trained["step_ms"],
         train_alloc_peak=trained["peak"],

@@ -1,13 +1,17 @@
 """GQA attention (full / sliding-window): prefill, single-token decode,
-and paged decode / stacked verify against page pools; and MLA
-(multi-head latent attention, MiniCPM3 / DeepSeek style): prefill and
-the absorbed-matrix decode over the latent cache.
+and paged decode / stacked verify against page pools; cross attention
+(encoder-decoder); and MLA (multi-head latent attention, MiniCPM3 /
+DeepSeek style): prefill and the absorbed-matrix decode over the latent
+cache.
 
-PyTorch port of the GQA and MLA parts of ``repro/models/attention.py``.
+PyTorch port of the GQA, cross-attention and MLA parts of
+``repro/models/attention.py``.
 Prefill attention runs the hand-written flash-attention kernel (MLA's at
-q / k 96 and v 64), decode the flash-decoding kernel (MLA's on its
-latent cache) and paged attention the paged decode / verify kernels, all
-through ``kernels.ops`` (which takes their plain PyTorch
+q / k 96 and v 64; cross attention's non-causal at Sq != Sk, where the
+reference runs its jnp ``chunked_attention``), decode the flash-decoding
+kernel (MLA's on its latent cache; a cross decode over every slot of the
+encoder's cache) and paged attention the paged decode / verify kernels,
+all through ``kernels.ops`` (which takes their plain PyTorch
 versions for CPU tensors); ``attn_impl=None`` asks for the plain versions
 explicitly on any device.  The projections go through ``common.linear``
 with the same ``attn_impl``, which runs the quantized matmul kernel for an
@@ -46,8 +50,10 @@ KERNEL = common.KERNEL   # attn_impl value selecting the hand-written kernels
 # ===========================================================================
 # Parameter initialisation
 # ===========================================================================
-def gqa_init(rng, cfg: ModelConfig) -> dict:
-    d = cfg.d_model
+def gqa_init(rng, cfg: ModelConfig, d_model: Optional[int] = None) -> dict:
+    """GQA projections from ``d_model`` (default the config's; Zamba2's
+    shared block attends at twice it)."""
+    d = d_model or cfg.d_model
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
     p = {"w_q": common.dense_init(rng, d, h * dh, dt),
@@ -283,6 +289,50 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
                         attn_impl)
     return out, {"k": k_cache, "v": v_cache}
 
+
+# ===========================================================================
+# Cross attention (encoder-decoder)
+# ===========================================================================
+def cross_attn_prefill_kv(params, enc_out, cfg: ModelConfig,
+                          attn_impl: Optional[str] = None) -> dict:
+    """The static cross-attention cache {k, v} (B, S_enc, KV, dh) from the
+    encoder's output (no rotary: cross attention carries no positions)."""
+    b, s, _ = enc_out.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = common.linear(enc_out, params["w_k"], attn_impl).reshape(b, s, kv, dh)
+    v = common.linear(enc_out, params["w_v"], attn_impl).reshape(b, s, kv, dh)
+    if cfg.qkv_bias:
+        k = k + params["b_k"].reshape(kv, dh)
+        v = v + params["b_v"].reshape(kv, dh)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(params, x, kv_cache, cfg: ModelConfig,
+                     attn_impl: Optional[str] = None):
+    """x: (B, Sq, D) attends, non-causally, over the encoder's {k, v}
+    (B, Sk, KV, dh).  One query token (decode) is a flash decode with every
+    slot of the cross cache valid, the zero rows an ``empty_cache`` leaves
+    past the frames included, as in the reference; more is non-causal
+    prefill attention at Sq != Sk (the reference runs its jnp
+    ``chunked_attention`` here; the port its flash-attention kernel)."""
+    b, sq, _ = x.shape
+    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
+    q = common.linear(x, params["w_q"], attn_impl).reshape(b, sq,
+                                                          cfg.n_heads, dh)
+    if cfg.qkv_bias:
+        q = q + params["b_q"].reshape(cfg.n_heads, dh)
+    k, v = kv_cache["k"], kv_cache["v"]
+    if sq == 1:
+        valid = torch.ones((b, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = flash_decode(q.reshape(b, kv, g, dh).contiguous(),
+                           k.contiguous(), v.contiguous(), valid,
+                           impl=attn_impl)
+    else:
+        out = prefill_attention(q.reshape(b, sq, kv, g, dh).contiguous(),
+                                k.contiguous(), v.contiguous(), causal=False,
+                                window=None, impl=attn_impl)
+    return common.linear(out.reshape(b, sq, kv * g * dh), params["w_o"],
+                         attn_impl)
 
 
 # ===========================================================================

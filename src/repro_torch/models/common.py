@@ -82,6 +82,31 @@ def mlp_init(rng: np.random.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
+def stack_trees(trees: Sequence):
+    """Nested dicts of equal structure -> one dict whose leaves stack the
+    trees' on a new leading axis (numpy arrays or tensors), as the
+    reference's ``vmap``-ed init and ``lax.scan`` outputs stack layers."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], np.ndarray):
+        return np.stack(trees)
+    return torch.stack(list(trees))
+
+
+def take(tree, i):
+    """Entry ``i`` of a stacked tree: views into its leaves."""
+    if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def maybe_checkpoint(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``on`` (the
+    reference's ``jax.checkpoint``): the backward recomputes its forward
+    instead of keeping its activations."""
+    return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # Linear layers
 # ---------------------------------------------------------------------------

@@ -66,16 +66,10 @@ def init_params(rng: np.random.Generator, cfg: ModelConfig) -> dict:
     """Random weights as a numpy tree with stacked ``layers``."""
     check_dense(cfg)
     layers = [layer_init(rng, cfg) for _ in range(cfg.num_layers)]
-
-    def stack(*xs):
-        if isinstance(xs[0], dict):
-            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return np.stack(xs)
-
     params = {
         "embed": common.embed_init(rng, cfg.padded_vocab, cfg.d_model,
                                    cfg.dtype),
-        "layers": stack(*layers),
+        "layers": common.stack_trees(layers),
         "final_norm": common.ones((cfg.d_model,), cfg.dtype),
     }
     if not cfg.tie_embeddings:
@@ -216,13 +210,6 @@ def mrope_positions_decode(cfg: ModelConfig, batch: int, pos: int,
 # ===========================================================================
 # Full-model passes over the stacked layers
 # ===========================================================================
-def _layer(layers, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked leaves."""
-    if isinstance(layers, dict):
-        return {k: _layer(v, i) for k, v in layers.items()}
-    return layers[i]
-
-
 def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     """(x (B, S, D), positions (B, S) or M-RoPE ids (3, B, S), the text's
     offset in S)."""
@@ -252,7 +239,7 @@ def _layers_forward(params, cfg: ModelConfig, x, pos_or3, *, make_cache,
                                  attn_impl=attn_impl)
     caches, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        p = _layer(params["layers"], i)
+        p = common.take(params["layers"], i)
         if remat and torch.is_grad_enabled():
             x, cache, a = checkpoint(body, p, x, use_reentrant=False)
         else:
@@ -277,10 +264,6 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
-def _stack_caches(caches) -> dict:
-    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-
-
 def prefill_fn(params, batch: dict, cfg: ModelConfig,
                attn_impl: Optional[str] = None):
     """(last-token logits (B, V) fp32, the stacked cache {leaf: (L, B, S,
@@ -290,7 +273,7 @@ def prefill_fn(params, batch: dict, cfg: ModelConfig,
                                    remat=False, attn_impl=attn_impl)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, -1] @ lm_head_weight(params, cfg)
-    return logits.float(), _stack_caches(caches)
+    return logits.float(), common.stack_trees(caches)
 
 
 def decode_fn(params, tokens, cache: dict, pos: int, cfg: ModelConfig,
@@ -302,9 +285,9 @@ def decode_fn(params, tokens, cache: dict, pos: int, cfg: ModelConfig,
     mrope3 = (mrope_positions_decode(cfg, b, pos, x.device)
               if cfg.family == VLM else None)
     for i in range(cfg.num_layers):
-        x, _ = layer_decode(_layer(params["layers"], i), x, cfg,
-                            {k: a[i] for k, a in cache.items()}, pos,
-                            mrope3=mrope3, attn_impl=attn_impl)
+        x, _ = layer_decode(common.take(params["layers"], i), x, cfg,
+                            common.take(cache, i), pos, mrope3=mrope3,
+                            attn_impl=attn_impl)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, -1] @ lm_head_weight(params, cfg)
     return logits.float(), cache

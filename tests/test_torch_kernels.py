@@ -1180,7 +1180,8 @@ def test_cuda_attention_block_rows(cuda, b, sq, kv, g, dh, window, rows):
     (77, 77, 2, 2, 64, 64, True, None, torch.float16),      # ragged tiles
     (45, 109, 2, 4, 64, 64, True, 40, torch.float32),       # q_offset 64
     (40, 72, 1, 3, 256, 256, True, None, torch.bfloat16),   # q_offset 32
-    (200, 200, 4, 6, 128, 128, False, None, torch.bfloat16)])
+    (200, 200, 4, 6, 128, 128, False, None, torch.bfloat16),
+    (64, 160, 2, 1, 64, 64, False, None, torch.bfloat16)])  # cross, Sq<Sk
 def test_cuda_attention_bwd_matches_plain(cuda, sq, sk, kv, g, dqk, dv,
                                           causal, window, dtype):
     """The forward's lse output and the backward kernel's (dq, dk, dv)

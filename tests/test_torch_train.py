@@ -201,9 +201,21 @@ def test_attention_bwd_ref_matches_jax_vjp(causal, window, g, dqk, dv):
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium", "xlstm_1_3b",
                                   "zamba2_1_2b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported in "
-                       "repro_torch"):
-        build_model(torch_get(arch).reduced())
+    """The enc-dec, xLSTM and Zamba2 families, once refused, now build
+    (their parity with the JAX package is ``test_torch_encdec.py``'s and
+    ``test_torch_recurrent.py``'s); a sharding ctx still raises."""
+    api = build_model(torch_get(arch).reduced())
+    params = api.init(np.random.default_rng(0), "cpu")
+    batch = make_batch(api.cfg, BATCH, 16, 0)
+    for call in (lambda: api.loss(params, batch, ctx=object()),
+                 lambda: api.prefill(params, batch, ctx=object()),
+                 lambda: api.decode(params, batch["tokens"][:, :1],
+                                    api.empty_cache(BATCH, 16,
+                                                    device="cpu"), 0,
+                                    ctx=object())):
+        with pytest.raises(NotImplementedError, match="not yet ported in "
+                           "repro_torch"):
+            call()
 
 
 # ---------------------------------------------------------------------------
