@@ -43,6 +43,10 @@ Phases, in order; any failure exits non-zero:
    flash_attention at MLA's q / k 96, v 64 (B=1 S=32 H=40) and the
    latent flash_decode (q 288 against c 256 + kr 32, B=2 S=40 G=40), in
    fp32 and fp16 (SDPA on ``concat(c, kr)`` built beforehand, not timed);
+   the grouped partials (``ops.decode_gqa_partial``) at phase 23's decode
+   shape in bf16 (B=2, each model rank's 36 of 72 slots, KV=4, G=8,
+   head_dim 128): each slice's o / l, m and l against the plain partials,
+   and the two slices merged against the plain decode of the whole;
    flash_attention, flash_decode and paged_flash_decode at the VLM's
    G = 6, head_dim 128, in fp16.  quantized_matmul's batched entry at
    phase 20's absorbed products (2 rows, 40 heads, 64 -> 256 and 256 ->
@@ -274,6 +278,28 @@ Phases, in order; any failure exits non-zero:
    forward and backward, and the cross decode over 1024 slots; Zamba2's
    site (B=4 x 256, 32 heads of 128, causal), forward and backward, and
    its decode.
+23. The device mesh: qwen3_moe_30b_a3b at full width cut to 2 layers, in
+   its config's bf16, its numpy params drawn from seed 0 while nvcc
+   builds and saved under ``build/chip_smoke_mesh``.  Two ranks on a
+   (data 1, model 2) mesh, each a process of its own on cuda:0 (gloo,
+   since NCCL refuses two ranks on one card), started as
+   ``torch.distributed.run`` starts ranks and killed past a wall limit,
+   go through ``launch/train.py``'s rank path (``init_ranks``) and the
+   model API with a ctx: each keeps its half of the experts, heads and
+   vocabulary, takes step 1's gradients, trains 3 AdamW steps at B=2 x
+   128 through ``train.run`` and generates 8 greedy tokens after a B=2
+   x 64 prefill on its half of the sequence-sharded cache.  Beside them
+   one NCCL rank (a (1, 1) mesh) prefills and decodes one step.  Then a
+   local partner in this process does the same on the same params: each
+   rank's losses within a quarter of ``HALF_RTOL`` relative, step 1's
+   gradients of every leaf, the router's included, within 4 x
+   ``HALF_RTOL`` of its largest |g| (the partner routed on the ranks'
+   top-8 picks; the two runs' own picks are printed and may differ for
+   at most 8% of a router call's tokens), the greedy tokens identical
+   (tie rule), the logits of the prefill and of every decode step within
+   ``HALF_RTOL`` of the partner's largest, and every rank's ``flash_attention``, ``flash_attention_bwd`` and
+   ``flash_decode`` launches (the decode's grouped partials on the
+   rank's cache slice) as the layer layout derives them.
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -315,10 +341,12 @@ phase 18's (``mla_launches``, ``mla_serve_launches``: the dense and the
 paged kernel runs together), phase 19's (``vlm_launches``,
 ``vlm_serve_launches``), phase 20's (``mla_quant_launches``,
 ``mla_quant_serve_launches``; quantized_matmul too), phase 21's
-(``train_launches``) and phase 22's (``families_launches``: its kernel
-runs', training and generation).  flash_attention_bwd's row (the counterpart of the
-JAX package's jnp custom VJP, not of a Pallas kernel) takes its launches
-from phase 21 (phase 22's as ``families_launches``), its numbers at
+(``train_launches``), phase 22's (``families_launches``: its kernel
+runs', training and generation) and phase 23's (``mesh_launches``: the
+ranks' and the partner's).  flash_attention_bwd's row (the counterpart
+of the JAX package's jnp custom VJP, not of a Pallas kernel) takes its launches
+from phase 21 (phase 22's and 23's as ``families_launches`` and
+``mesh_launches``), its numbers at
 phase 21's shape, and adds that phase's mean step ms after the first
 (``train_step_ms``) and allocator peak.
 Before them, each phase's wall.
@@ -332,7 +360,10 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import subprocess
 import sys
 import threading
@@ -496,6 +527,23 @@ FAMILY_GRAD_RTOL = 4 * HALF_RTOL["bfloat16"]
 # |logit| (two units in bf16's last place)
 TIE_RTOL_BF16 = HALF_RTOL["bfloat16"]
 FAMILY_PARAMS = {}               # label -> numpy tree, drawn while nvcc runs
+# phase 23: the device mesh.  qwen3_moe_30b_a3b at full width cut to
+# MESH_LAYERS in its config's bf16 (1.875 B params: params, grads and two
+# fp32 moments ~22.5 GB in one process, about half on each rank), trained
+# and decoded on a (data 1, model 2) mesh of two gloo ranks that share
+# cuda:0, beside a local partner and one NCCL rank; each rank launch is
+# killed past MESH_WALL_S
+MESH_LAYERS = 2
+MESH_TRAIN = dict(batch=2, seq=128, steps=3)
+MESH_INFER = dict(batch=2, prompt_len=64, new_tokens=8)
+MESH_MODEL_AXIS = 2
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_WALL_S = 300
+# a router call's tokens whose top-k sets may differ between the ranks and
+# the partner, rounded up: bf16 near-ties only (measured on an H100 80GB
+# HBM3 at 700 W: 5 and 11 of 256 in step 1's calls, at most 10 of 128 in
+# a prefill's and 1 of 2 in a decode step's)
+MESH_FLIP_SHARE = 0.08
 VLM_LAYERS = 4
 VLM = dict(requests=4, prompt_len=64, new_tokens=8, max_inflight=4,
            shared_prefix=48)
@@ -682,6 +730,53 @@ def partial_case(torch, fd, ref, gen):
                  **timings(torch, run, plain, lambda: sdpa(qs, ks, vs)),
                  bound_ms=b_ms, bound_by=b_by)
     return [combined, timed]
+
+
+def mesh_partial_cases(torch, ops, ref):
+    """``ops.decode_gqa_partial`` at phase 23's decode shape in its bf16:
+    each model rank's slice of the S-sharded cache (every KV head), one
+    row at its last decode step and one at its first; each slice's
+    partials against the plain version's, and the slices' partials merged
+    as the mesh merges them against the plain decode of the whole."""
+    cfg = mesh_config()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, new = MESH_INFER["batch"], MESH_INFER["new_tokens"]
+    total = MESH_INFER["prompt_len"] + new
+    s_loc, kv = total // MESH_MODEL_AXIS, cfg.n_kv_heads
+    g, dh, dt = cfg.n_heads // kv, cfg.head_dim, torch.bfloat16
+    q = torch.randn((b, kv, g, dh), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, total, kv, dh), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, total, kv, dh), generator=gen, device="cuda").to(dt)
+    lens = torch.tensor([[total], [total - new + 1]], device="cuda")
+    valid = torch.arange(total, device="cuda")[None] < lens
+    errs = {"o / l": [0.0, 0.0], "m": [0.0, 0.0], "l": [0.0, 0.0]}
+    parts = []
+    for r in range(MESH_MODEL_AXIS):
+        sl = slice(r * s_loc, (r + 1) * s_loc)
+        args = (q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                valid[:, sl].contiguous())
+        o, m, l = ops.decode_gqa_partial(*args)
+        ro, rm, rl = ref.decode_gqa_partial_ref(*args)
+        for key, got, want in (("o / l", o / l[..., None],
+                                ro / rl[..., None]), ("m", m, rm),
+                               ("l", l, rl)):
+            errs[key][0] = max(errs[key][0], (got - want).abs().max().item())
+            errs[key][1] = max(errs[key][1], want.abs().max().item())
+        parts.append((o, m, l))
+    merged = ref.combine_partials(*(torch.stack([p[i] for p in parts])
+                                    for i in range(3))).to(dt)
+    err, limit = error(merged, ref.decode_gqa_ref(q, k, v, valid))
+    torch.cuda.synchronize()
+    shape = (f"mesh decode B={b} S_loc={s_loc} KV={kv} G={g} dh={dh} "
+             "bf16")
+    cases = [dict(kernel="flash_decode_partial", dtype="bfloat16",
+                  case=f"{shape} {key}", max_abs_err=e,
+                  limit=HALF_RTOL["bfloat16"] * big)
+             for key, (e, big) in errs.items()]
+    cases.append(dict(kernel="flash_decode_partial", dtype="bfloat16",
+                      case=f"{shape} merged vs whole", max_abs_err=err,
+                      limit=limit))
+    return cases
 
 
 def attention_case(torch, fa, ref, gen, name, b, s, kv, g, dh, window=None,
@@ -1351,7 +1446,7 @@ def phase_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases = [
@@ -1363,6 +1458,7 @@ def phase_kernels(torch):
                     "dh=64", 4, 1000, 16, 1, 64,
                     lengths=[1, 333, 640, 1000]),
         *partial_case(torch, fd, ref, gen),
+        *mesh_partial_cases(torch, ops, ref),
         # the scheduler prefills each admitted request on its own
         attention_case(torch, fa, ref, gen, "main path B=1 S=128 H=16 "
                        "dh=64 causal", 1, 128, 16, 1, 64),
@@ -1771,7 +1867,8 @@ PARALLEL_CHECKPOINTS = (("qwen3_moe",), ("minicpm3", "qwen2_vl"))
 def write_checkpoints() -> str:
     """Write every serving checkpoint, the int8 / int4 transcodes of
     phase 3's and the int8 transcode of phase 16's, and draw phase 22's
-    parameters (in a thread of their own), numpy on the host: ``main``
+    and phase 23's parameters (each in a thread of its own), numpy on the
+    host: ``main``
     runs this while nvcc builds the kernels.  Returns the seconds each
     took."""
     from repro_torch.checkpoint.partition import ensure_quantized
@@ -1796,15 +1893,16 @@ def write_checkpoints() -> str:
         except BaseException as exc:      # noqa: BLE001 (re-raised below)
             errors.append(exc)
 
-    def draw_families() -> None:
+    def draw(fn) -> None:
         try:
-            took.append(draw_family_params())
+            took.append(fn())
         except BaseException as exc:      # noqa: BLE001 (re-raised below)
             errors.append(exc)
 
     writers = [threading.Thread(target=write_parallel, args=(group,))
                for group in PARALLEL_CHECKPOINTS]
-    writers.append(threading.Thread(target=draw_families))
+    writers += [threading.Thread(target=draw, args=(fn,))
+                for fn in (draw_family_params, draw_mesh_params)]
     for w in writers:
         w.start()
     apart = {label for group in PARALLEL_CHECKPOINTS for label in group}
@@ -3579,6 +3677,561 @@ def phase_families(torch, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the device mesh
+# ---------------------------------------------------------------------------
+def mesh_config():
+    """Phase 23's model: qwen3_moe_30b_a3b at full width, MESH_LAYERS deep,
+    in its config's bf16 (and remat)."""
+    from repro_torch.configs import get
+    return get("qwen3_moe_30b_a3b").with_(num_layers=MESH_LAYERS)
+
+
+def draw_mesh_params() -> str:
+    """Draw phase 23's numpy parameters from seed 0 as the model API's
+    ``init`` draws them and save each leaf as ``.npy`` under
+    MESH_DIR / "params" (``main`` runs this while nvcc builds; the ranks
+    map the files and read their slices)."""
+    import numpy as np
+    from repro_torch.checkpoint.partition import tree_leaves
+    from repro_torch.models.dense_lm import init_params
+    t0 = time.perf_counter()
+    params = init_params(np.random.default_rng(0), mesh_config())
+    out = MESH_DIR / "params"
+    out.mkdir(parents=True, exist_ok=True)
+    for name, leaf in zip(flat_names(params), tree_leaves(params)):
+        np.save(out / f"{name.replace('/', '.')}.npy", leaf)
+    return f"mesh params {time.perf_counter() - t0:.1f}s"
+
+
+def mesh_params() -> dict:
+    """Phase 23's numpy tree, each leaf memory-mapped from its file."""
+    import numpy as np
+    files = sorted((MESH_DIR / "params").glob("*.npy"))
+    return unflatten({f.name[:-len(".npy")].replace(".", "/"):
+                      np.load(f, mmap_mode="r") for f in files})
+
+
+def mesh_expected(cfg, what: str) -> dict:
+    """Kernel launches of one rank (or the partner) per phase-23 step,
+    derived from the layout: a training step runs each layer's attention
+    forward twice under remat and its backward once (step 1's gradients,
+    taken without remat, once each); a prefill each layer's forward once;
+    a decode step each layer's flash_decode once."""
+    layers, steps = cfg.num_layers, MESH_TRAIN["steps"]
+    remat = 2 if cfg.remat else 1
+    return {"grad": {"flash_attention": layers,
+                     "flash_attention_bwd": layers},
+            "train": {"flash_attention": layers * remat * steps,
+                      "flash_attention_bwd": layers * steps},
+            "prefill": {"flash_attention": layers},
+            "decode": {"flash_decode": layers * MESH_INFER["new_tokens"]},
+            "decode1": {"flash_decode": layers}}[what]
+
+
+@contextlib.contextmanager
+def routed(torch, forced=None):
+    """Record every MoE router call's top-k picks (the router's order) into
+    the yielded list; with ``forced`` (such a list from another run),
+    route call i's tokens to ``forced[i]``'s experts instead, weighted by
+    this run's own probabilities (the picks recorded stay this run's
+    own)."""
+    from repro_torch.models import moe
+    picks, routing = [], moe.top_k_routing
+
+    def recorded(logits, k):
+        probs, top_w, ids = routing(logits, k)
+        own = ids.tolist()
+        if forced is not None:
+            ids = torch.tensor(forced[len(picks)], device=ids.device)
+            top_w = probs.gather(-1, ids)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        picks.append(own)
+        return probs, top_w, ids
+    moe.top_k_routing = recorded
+    try:
+        yield picks
+    finally:
+        moe.top_k_routing = routing
+
+
+def picks_differ(a, b) -> list:
+    """Per router call, the tokens whose top-k sets differ between two
+    recordings."""
+    return [sum(sorted(x) != sorted(y) for x, y in zip(ca, cb))
+            for ca, cb in zip(a, b)]
+
+
+def check_flips(label: str, flips: list, calls: list) -> None:
+    """Fail when a router call's differing picks (``picks_differ``) exceed
+    MESH_FLIP_SHARE of its tokens, rounded up."""
+    for i, (n, call) in enumerate(zip(flips, calls)):
+        if n > math.ceil(MESH_FLIP_SHARE * len(call)):
+            fail(f"mesh: {label}: router call {i} picks other experts for "
+                 f"{n} of {len(call)} tokens, more than near-ties explain "
+                 f"({MESH_FLIP_SHARE} of them)")
+
+
+def step1_grads(torch, ops, api, params, batch, ctx=None, forced=None):
+    """Step 1's loss and gradients (``api.loss`` on MESH_TRAIN's first
+    batch; ``api`` built without remat, so each layer's router runs once),
+    the launches they made and the routers' picks (``routed``; ``forced``
+    routes on another run's): (loss, grads, launches, picks)."""
+    from repro_torch.checkpoint.partition import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    ops.reset_launches()
+    with routed(torch, forced) as picks:
+        loss, _ = api.loss(params, batch, ctx)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), grads, dict(ops.LAUNCHES), picks
+
+
+def mesh_generate(torch, ops, api, params, ctx, steps: int, forced=None):
+    """Prefill MESH_INFER's prompts (make_batch seed 1) and ``steps``
+    greedy decode steps through the step functions, with ``ctx`` (the
+    cache then this rank's shard, ``api.shard_cache``) or without, the
+    routers' picks recorded (``routed``; ``forced`` routes on another
+    run's): (tokens (B, 1 + steps), each step's logits on the host,
+    prefill ms, decode ms per step, launches of the prefill and of the
+    decode steps, picks)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.stepfns import make_prefill_step, make_serve_step
+    from repro_torch.models.api import shard_cache
+    b, s = MESH_INFER["batch"], MESH_INFER["prompt_len"]
+    total = s + MESH_INFER["new_tokens"]
+    batch = {k: v.cuda() for k, v in make_batch(api.cfg, b, s,
+                                                seed=1).items()
+             if k != "labels"}
+    with routed(torch, forced) as picks:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(api, ctx)(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        prefill_launches = dict(ops.LAUNCHES)
+        if ctx is None:
+            full = api.empty_cache(b, total, device="cuda")
+            for k in full:
+                full[k][:, :, :s] = cache[k]
+            cache = full
+        else:
+            cache = shard_cache(cache, ctx, total)
+        serve_step = make_serve_step(api, ctx)
+        toks, logs = [logits.argmax(-1)], [logits.cpu()]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = serve_step(params, toks[-1][:, None], cache,
+                                       s + i)
+            toks.append(logits.argmax(-1))
+            logs.append(logits.cpu())
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
+    return (torch.stack(toks, 1).cpu(), logs, prefill_ms, decode_ms,
+            prefill_launches, dict(ops.LAUNCHES), picks)
+
+
+def mesh_rank(job: str) -> int:
+    """One rank of phase 23, started by ``phase_mesh`` as ``chip_smoke.py
+    --mesh-rank <job>`` with RANK / WORLD_SIZE / LOCAL_RANK /
+    LOCAL_WORLD_SIZE / MASTER_ADDR / MASTER_PORT set: joins the ranks
+    through ``launch/train.py``'s rank path (``init_ranks``; gloo when the
+    ranks share the card, NCCL for one rank), keeps its slices of the
+    saved parameters, and writes what it measured as JSON beside the job.
+    A gloo rank takes step 1's gradients (saved, with its router picks,
+    for the partner to hold), trains MESH_TRAIN's steps through
+    ``train.run`` and generates; the NCCL rank prefills and decodes one
+    step."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.partition import from_jax_params
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model, shard_params
+    missing = [k for k in build.KERNELS if not build.is_built(k)]
+    if missing:
+        raise RuntimeError(f"kernels {missing} are not built: the parent "
+                           f"builds them in phase 1, ranks only load them")
+    spec = json.loads(Path(job).read_text())
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh, dev, backend = train.init_ranks(spec["model_axis"], "cuda",
+                                          timeout_s=MESH_WALL_S)
+    rank = dist.get_rank()
+    cfg = mesh_config()
+    tb, ts, steps = (MESH_TRAIN["batch"], MESH_TRAIN["seq"],
+                     MESH_TRAIN["steps"])
+    ctx = train.make_ctx(mesh, tb)
+    api = build_model(cfg)
+    tree = mesh_params()
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "mesh": dict(zip(mesh.mesh_dim_names,
+                            [int(n) for n in mesh.mesh.shape]))}
+    t0 = time.perf_counter()
+    params = from_jax_params(shard_params(tree, ctx), dev)
+    out["load_s"] = time.perf_counter() - t0
+    gloo = spec["role"] == "gloo"
+    if gloo:
+        t0 = time.perf_counter()
+        batch = {k: v.to(dev) for k, v in make_batch(cfg, tb, ts,
+                                                     seed=0).items()}
+        (out["grad_loss"], grads, out["grad_launches"],
+         out["picks"]) = step1_grads(torch, ops, build_model(
+             cfg.with_(remat=False)), params, batch, ctx)
+        out["grad_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.save({n: g.detach().cpu() for n, g in zip(flat_names(tree),
+                                                        grads)},
+                   MESH_DIR / f"gloo_grads{rank}.pt")
+        out["save_s"] = time.perf_counter() - t0
+        del grads
+    t0 = time.perf_counter()
+    toks, logs, pre_ms, dec_ms, pre_l, dec_l, picks = mesh_generate(
+        torch, ops, api, params, ctx,
+        MESH_INFER["new_tokens"] if gloo else 1)
+    out.update(tokens=toks.tolist(), prefill_ms=pre_ms, decode_ms=dec_ms,
+               prefill_launches=pre_l, decode_launches=dec_l,
+               gen_picks=picks, gen_s=time.perf_counter() - t0)
+    del params
+    if gloo:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out["losses"] = train.run(cfg, steps=steps, batch=tb, seq=ts,
+                                  device=str(dev), log_every=steps,
+                                  step_seconds=secs, params=tree, ctx=ctx)
+        out["train_s"] = time.perf_counter() - t0
+        out["train_launches"] = dict(ops.LAUNCHES)
+        out["step_s"] = secs
+        out["train_peak"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        torch.save(logs, MESH_DIR / f"{spec['role']}_logits.pt")
+    out["wall_s"] = time.perf_counter() - t_start
+    Path(spec["out"] % rank).write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": x} -> the nested dict (``flat_names``' inverse)."""
+    tree = {}
+    for name, x in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = x
+    return tree
+
+
+def start_ranks(role: str, world: int, model_axis: int) -> list:
+    """``world`` processes of ``chip_smoke.py --mesh-rank`` (spawned
+    interpreters, not forks of this CUDA process) as
+    ``torch.distributed.run`` would start them, on a free localhost
+    port; returns [(process, output path)]."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    job = MESH_DIR / f"{role}_job.json"
+    out = str(MESH_DIR / f"{role}_rank%d.json")
+    job.write_text(json.dumps({"role": role, "model_axis": model_axis,
+                               "out": out}))
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+        log = open(MESH_DIR / f"{role}_rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(job)], env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True), out % r, log))
+    return procs
+
+
+def wait_ranks(procs, wall: float) -> list:
+    """Wait for every rank within ``wall`` seconds (killing them all past
+    it or when one fails); fail with the failing rank's log tail, else
+    return each rank's JSON."""
+    import signal
+    deadline = time.monotonic() + wall
+    failed = None
+    while any(p.poll() is None for p, *_ in procs):
+        if time.monotonic() > deadline:
+            failed = "still running after the wall limit"
+            break
+        bad = [p for p, *_ in procs if p.poll() not in (None, 0)]
+        if bad:
+            failed = f"a rank exited {bad[0].returncode}"
+            break
+        time.sleep(0.2)
+    for p, _, log in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        log.close()
+    if failed is None and any(p.returncode for p, *_ in procs):
+        failed = "a rank failed"
+    if failed:
+        tails = "\n".join(f"--- {Path(log.name).name}:\n"
+                          + Path(log.name).read_text()[-4000:]
+                          for _, _, log in procs)
+        fail(f"mesh: {failed}\n{tails}")
+    for _, _, log in procs:
+        for line in Path(log.name).read_text().splitlines():
+            if line.startswith("rank "):
+                print(f"mesh: {line}", flush=True)
+    return [json.loads(Path(out).read_text()) for _, out, _ in procs]
+
+
+def rank_part(x, spec: tuple, rank: int, n: int):
+    """Model rank ``rank``'s slice (of ``n``) of a full leaf ``x`` by its
+    ``param_pspecs`` tuple (on a mesh of one data rank)."""
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            step = x.shape[dim] // n
+            x = x.narrow(dim, rank * step, step)
+    return x
+
+
+def phase_mesh(torch, ops):
+    """Phase 23: qwen3_moe_30b_a3b at full width (MESH_LAYERS, bf16, the
+    params drawn while nvcc built) on a (data 1, model 2) mesh of two
+    gloo ranks that share cuda:0, beside one NCCL rank (a (1, 1) mesh
+    that prefills and decodes one step), then a local partner in this
+    process on the same params and batches.  Each gloo rank, through
+    ``launch/train.py``'s rank path and the model API with a ctx, takes
+    step 1's gradients on MESH_TRAIN's first batch (saved with its
+    router picks), trains MESH_TRAIN's steps through ``train.run`` and
+    generates MESH_INFER's greedy tokens (its router picks recorded);
+    the partner then does the same in one process.  Its step-1 gradients
+    and one of its generations take the gloo ranks' router picks, and
+    its own picks are printed beside them: a bf16 rounding may flip a
+    near-tied pick, which moves an expert's gradient or a token's logits
+    by far more than rounding; its other generation, on its own picks,
+    is the NCCL rank's partner.  Held: each rank's losses within
+    FAMILY_LOSS_RTOL of the partner's; step 1's gradients of every leaf
+    (the router's included) within FAMILY_GRAD_RTOL of its largest |g|;
+    the greedy tokens identical (the tie rule), the NCCL rank's first
+    two too; the logits of the prefill and of every decode step within
+    HALF_RTOL of the partner's largest |logit|; each router call's
+    differing picks within MESH_FLIP_SHARE of its tokens; every rank's
+    and the partner's kernel launches as
+    ``mesh_expected`` derives them.  Returns the launches of the phase's
+    kernel runs, summed over the ranks and the partner."""
+    import numpy as np
+    from repro_torch.checkpoint.partition import from_jax_params, tree_leaves
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model, param_pspecs
+    t_phase = time.perf_counter()
+    cfg = mesh_config()
+    tree = mesh_params()
+    names = list(flat_names(tree))
+    n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
+    state_bytes = sum(int(np.prod(a.shape)) * (2 * a.dtype.itemsize + 8)
+                      for a in tree_leaves(tree))
+    tb, ts, steps = (MESH_TRAIN["batch"], MESH_TRAIN["seq"],
+                     MESH_TRAIN["steps"])
+    m = MESH_MODEL_AXIS
+    print(f"mesh: {cfg.name} d={cfg.d_model}, {cfg.num_layers} layers, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads, vocab {cfg.vocab_size} -> "
+          f"{cfg.padded_vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params} "
+          f"params; mesh (data 1, model {m})", flush=True)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def count(got: dict, label: str, what: str) -> None:
+        check_launches(f"mesh: {label} {what}", got,
+                       mesh_expected(cfg, what))
+        for k, v in got.items():
+            total[k] += v
+    # ---- the ranks: two gloo ranks on cuda:0 and one NCCL rank
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = wait_ranks(start_ranks("gloo", m, m) + start_ranks("nccl", 1, 1),
+                       MESH_WALL_S)
+    ranks_wall = time.perf_counter() - t0
+    gloo, nccl = ranks[:-1], ranks[-1]
+    if nccl["backend"] != "nccl" or any(r["backend"] != "gloo"
+                                        for r in gloo):
+        fail(f"mesh: backends {[r['backend'] for r in ranks]}, expected "
+             f"gloo x {m} and nccl")
+    for r in gloo:
+        label = f"gloo rank {r['rank']}"
+        for what in ("grad", "train", "prefill", "decode"):
+            count(r[f"{what}_launches"], label, what)
+        print(f"mesh: {label} ({r['device']}, mesh {r['mesh']}): step 1 "
+              f"loss {r['grad_loss']}; train losses {r['losses']}; step ms "
+              f"{[round(t * 1e3, 3) for t in r['step_s']]}; "
+              f"torch.cuda.max_memory_allocated {r['train_peak']} B; "
+              f"prefill "
+              f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms per "
+              f"step; launches grad {json.dumps(r['grad_launches'])}, train "
+              f"{json.dumps(r['train_launches'])}, prefill "
+              f"{json.dumps(r['prefill_launches'])}, decode "
+              f"{json.dumps(r['decode_launches'])}; rank seconds: load "
+              f"{r['load_s']:.1f}, step 1 {r['grad_s']:.1f}, saving its "
+              f"gradients {r['save_s']:.1f}, generate {r['gen_s']:.1f}, "
+              f"train {r['train_s']:.1f}, wall {r['wall_s']:.1f}",
+              flush=True)
+    count(nccl["prefill_launches"], "nccl rank", "prefill")
+    count(nccl["decode_launches"], "nccl rank", "decode1")
+    print(f"mesh: nccl rank ({nccl['device']}, mesh {nccl['mesh']}): "
+          f"prefill {nccl['prefill_ms']:.3f} ms, decode "
+          f"{nccl['decode_ms']:.3f} ms; launches prefill "
+          f"{json.dumps(nccl['prefill_launches'])}, decode "
+          f"{json.dumps(nccl['decode_launches'])}; rank wall "
+          f"{nccl['wall_s']:.1f}s", flush=True)
+    # ---- the local partner, on the ranks' step-1 router picks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    api = build_model(cfg)
+    params = from_jax_params(tree, "cuda")
+    batch = {k: v.cuda() for k, v in make_batch(cfg, tb, ts,
+                                                seed=0).items()}
+    partner_loss, grads, launched, picks = step1_grads(
+        torch, ops, build_model(cfg.with_(remat=False)), params, batch,
+        forced=gloo[0]["picks"])
+    count(launched, "partner", "grad")
+    flips = picks_differ(gloo[0]["picks"], picks)
+    print(f"mesh: step 1 router picks, ranks vs the partner's own: "
+          f"{flips} of {len(picks[0])} tokens differ per layer (the "
+          f"partner's gradients are taken on the ranks' picks; limit "
+          f"{MESH_FLIP_SHARE} of a call's tokens)", flush=True)
+    check_flips("step 1", flips, picks)
+    specs = tree_leaves(param_pspecs(tree, {"data": 1, "model": m}))
+    worst = {}
+    for r in gloo:
+        mine = torch.load(MESH_DIR / f"gloo_grads{r['rank']}.pt", mmap=True)
+        for name, g, spec in zip(names, grads, specs):
+            want = rank_part(g.detach(), spec, r["rank"], m).float()
+            diff = (mine[name].cuda().float() - want).abs().max().item()
+            ref = want.abs().max().item()
+            d0, r0 = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(d0, diff), max(r0, ref))
+    del grads, mine
+    rel = {n: d / max(g, 1e-30) for n, (d, g) in worst.items()}
+    name = max(rel, key=rel.get)
+    router = max(v for n, v in rel.items() if "router" in n)
+    print(f"mesh: step 1 gradients, ranks vs partner: worst leaf max "
+          f"|delta| / max |g| = {rel[name]:.3e} ({name}) over {len(rel)} "
+          f"leaves, the router's {router:.3e} (limit {FAMILY_GRAD_RTOL})",
+          flush=True)
+    if not rel[name] <= FAMILY_GRAD_RTOL:
+        fail(f"mesh: step 1 gradient of {name} differs by {rel[name]} of "
+             f"its largest |g|")
+    # generation on its own routing (the NCCL rank's partner), then on
+    # the gloo ranks'
+    gens = {}
+    for how, forced in (("own", None), ("ranks'", gloo[0]["gen_picks"])):
+        gens[how] = mesh_generate(torch, ops, api, params, None,
+                                  MESH_INFER["new_tokens"], forced)
+        count(gens[how][4], f"partner ({how} routing)", "prefill")
+        count(gens[how][5], f"partner ({how} routing)", "decode")
+    ptoks, plogs, pre_ms, dec_ms = gens["ranks'"][:4]
+    flips = picks_differ(gloo[0]["gen_picks"], gens["own"][6])
+    print(f"mesh: generation router picks, gloo ranks vs the partner's own: "
+          f"{sum(flips)} of {sum(len(c) for c in gens['own'][6])} token "
+          f"rows differ over {len(flips)} router calls (per call {flips}); "
+          f"the partner's own-routing tokens {gens['own'][0].tolist()}",
+          flush=True)
+    check_flips("generation", flips, gens["own"][6])
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    ops.reset_launches()
+    losses = train.run(cfg, steps=steps, batch=tb, seq=ts, device="cuda",
+                       log_every=steps, step_seconds=secs, params=tree)
+    count(dict(ops.LAUNCHES), "partner", "train")
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    partner_wall = time.perf_counter() - t0
+    print(f"mesh: partner (one process, no mesh): step 1 loss "
+          f"{partner_loss}; train losses {losses}; step ms "
+          f"{[round(t * 1e3, 3) for t in secs]}; "
+          f"torch.cuda.max_memory_allocated {peak} B (ranks "
+          f"{[r['train_peak'] for r in gloo]} B) against params + grads + "
+          f"two fp32 moments {state_bytes} B; prefill B={tb} x "
+          f"{MESH_INFER['prompt_len']} {pre_ms:.3f} ms, decode "
+          f"{dec_ms:.3f} ms per step; tokens {ptoks.tolist()}; wall "
+          f"{partner_wall:.1f}s", flush=True)
+    for r in gloo:
+        label = f"gloo rank {r['rank']}"
+        for i, (lr, lp) in enumerate(zip([r["grad_loss"]] + r["losses"],
+                                         [partner_loss] + losses)):
+            if not abs(lr - lp) <= FAMILY_LOSS_RTOL * abs(lp):
+                fail(f"mesh: {label} loss {i} {lr} vs the partner's {lp}")
+        if r["tokens"] != ptoks.tolist():
+            mesh_ties(torch, label, r["tokens"], ptoks, plogs)
+    otoks, ologs = gens["own"][:2]
+    if nccl["tokens"] != otoks[:, :2].tolist():
+        mesh_ties(torch, "nccl rank", nccl["tokens"], otoks[:, :2], ologs)
+    # the logits of the prefill and of every decode step, each row's up
+    # to the step after its first token that differs (a tie; later steps
+    # take other inputs), within HALF_RTOL of the partner's largest |logit|
+    for label, tokens, plogs, ptoks in (
+            ("gloo ranks", gloo[0]["tokens"], plogs, ptoks),
+            ("nccl rank", nccl["tokens"], ologs, otoks)):
+        logs = torch.load(MESH_DIR / f"{label.split()[0]}_logits.pt")
+        same = (torch.tensor(tokens) == ptoks[:, :len(tokens[0])]).int()
+        errs = []
+        for i, (a, b) in enumerate(zip(logs, plogs)):
+            rows = same[:, :i].prod(1).bool()
+            errs.append((a[rows].float() - b[rows].float()).abs().max()
+                        .item() if rows.any() else 0.0)
+        lim = HALF_RTOL["bfloat16"] * max(p.abs().max().item()
+                                          for p in plogs[:len(logs)])
+        print(f"mesh: {label} logits vs the partner's, prefill then each "
+              f"decode step: max |delta| {[f'{e:.3e}' for e in errs]} "
+              f"(limit {lim:.3e})", flush=True)
+        bad = [i for i, e in enumerate(errs) if not e <= lim]
+        if bad:
+            fail(f"mesh: {label} logits of steps {bad} (0 the prefill) "
+                 f"differ by {[errs[i] for i in bad]}, limit {lim}")
+    print(f"mesh: losses within {FAMILY_LOSS_RTOL} relative of the "
+          f"partner's, tokens as the partner's; ranks' wall "
+          f"{ranks_wall:.1f}s, phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s; kernel launches "
+          f"{json.dumps(total)}", flush=True)
+    return total
+
+
+def mesh_ties(torch, label: str, tokens, ptoks, plogs) -> None:
+    """Fail unless each row's tokens equal the partner's or first differ
+    where the partner's top-2 logits sit within TIE_RTOL_BF16 of its
+    largest |logit|."""
+    got = torch.tensor(tokens)
+    for row in range(ptoks.shape[0]):
+        diff = (got[row] != ptoks[row]).nonzero()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        top2 = torch.topk(plogs[i][row].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        limit = TIE_RTOL_BF16 * plogs[i][row].abs().max().item()
+        print(f"mesh: {label} row {row} tokens differ first at step {i}; "
+              f"partner's top-2 logit gap there {gap:.3e} (tie below "
+              f"{limit:.3e})", flush=True)
+        if gap >= limit:
+            fail(f"mesh: {label} row {row} greedy tokens differ at step {i} "
+                 f"(gap {gap:.3e})")
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
@@ -3586,7 +4239,10 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-2 only: build, check and time every "
                     "kernel; prints no result line")
+    ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the repo's src/repro_torch is not beside this "
               "script", file=sys.stderr)
@@ -3716,6 +4372,9 @@ def main() -> int:
     # ---- phase 22: the enc-dec, xLSTM and Zamba2 families
     family_launches = timed("22", phase_families, torch, ops)
 
+    # ---- phase 23: the device mesh
+    mesh_launches = timed("23", phase_mesh, torch, ops)
+
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, TPU kernel, launch key, the path's launches, stats);
@@ -3789,6 +4448,7 @@ def main() -> int:
             "mla_quant_serve_launches": mla_q_serve[key],
             "train_launches": train_launches[key],
             "families_launches": family_launches[key],
+            "mesh_launches": mesh_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -3822,6 +4482,7 @@ def main() -> int:
         replaces="src/repro/models/attention.py:192",
         launches=train_launches["flash_attention_bwd"],
         families_launches=family_launches["flash_attention_bwd"],
+        mesh_launches=mesh_launches["flash_attention_bwd"],
         sass_hmma=build.sass_counts("flash_attention_bwd", ("HMMA",))["HMMA"],
         train_step_ms=trained["step_ms"],
         train_alloc_peak=trained["peak"],

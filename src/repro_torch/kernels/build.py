@@ -93,6 +93,12 @@ def build_all() -> Dict[str, Path]:
     return paths
 
 
+def is_built(name: str) -> bool:
+    """Whether kernel ``name``'s library for the current sources exists,
+    so that ``library`` loads it without building."""
+    return _lib_path(name).exists()
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library for kernel ``name``, building every
     kernel on first use."""

@@ -131,6 +131,18 @@ def decode_gqa(q, k, v, valid):
     return out
 
 
+def decode_gqa_partial(q, k, v, valid):
+    """Grouped unnormalised partials: q (B, KV, G, dh), cache (B, S, KV,
+    dh), valid (B, S) -> fp32 (o (B, KV, G, dh), m, l (B, KV, G)), the
+    reference's ``_decode_partial`` on a slice of a sequence-sharded
+    cache (``models/attention.py``'s decode under a mesh merges them)."""
+    if not _on_cuda(q, k, v, valid):
+        return ref.decode_gqa_partial_ref(q, k, v, valid)
+    out = flash_decode_gqa(q, k, v, valid, normalize=False)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
 def decode_latent(q, c, kr, valid):
     """MLA's absorbed decode over the latent cache: q (B, 1, G, dc + dr),
     c (B, S, dc), kr (B, S, dr), valid (B, S) -> (B, 1, G, dc); key rows

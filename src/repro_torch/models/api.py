@@ -20,17 +20,33 @@ Every family is ported: DENSE, MOE and VLM (GQA or MLA attention, in
 ``dense_lm``), ENCDEC (``encdec_lm``), XLSTM and MAMBA_HYBRID
 (``recurrent_lm``).  The passes run the hand-written kernels when their
 tensors lie on a CUDA device (``attn_impl="auto"``), their plain versions
-on the CPU or with ``attn_impl=None``.  A sharding ``ctx`` raises; the
-reference's parameter partition specs belong to sharding and are not
-ported either.
+on the CPU or with ``attn_impl=None``.
+
+A sharding ``ctx`` (``repro_torch.sharding.ShardingCtx``) runs the DENSE,
+MOE and VLM families with GQA attention on a device mesh: each rank
+passes the parameter slices ``shard_params`` gives it and the global
+batch, of which it takes its rows; ``loss`` returns the global loss and
+``prefill`` / ``decode`` the global logits.  ``prefill`` returns this
+rank's rows of the cache (every head, every prompt slot) and ``decode``
+takes the decode layout ``shard_cache`` makes: this rank's rows and its
+slice of the sequence on the model axis.  MLA attention and the ENCDEC,
+XLSTM and MAMBA_HYBRID families raise under a ctx.
+
+``param_pspecs`` gives the reference's storage layout (its ``_NAME_RULES``
+and ``_MOE_RULES``): per leaf a tuple of mesh axes (or None) per
+dimension, as ``tuple(PartitionSpec)`` reads.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
-from repro_torch.checkpoint.partition import from_jax_params
+import torch
+
+from repro_torch import sharding as sh
+from repro_torch.checkpoint.partition import from_jax_params, tree_map
 from repro_torch.core.modules import resolve_attn_impl
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models import attention, dense_lm, encdec_lm, recurrent_lm
 from repro_torch.models.config import (ENCDEC, MAMBA_HYBRID, XLSTM,
                                        ModelConfig)
@@ -62,10 +78,21 @@ class ModelAPI:
     empty_cache: Callable[..., Any]   # (batch, seq, dtype?, device) -> cache
 
 
-def _no_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("a sharding ctx (the device mesh) is not "
-                                  "yet ported in repro_torch")
+def _ctx_kw(cfg: ModelConfig, ctx) -> dict:
+    """The passes' ``ctx`` keyword ({} without one); refuses a ctx where
+    this slice leaves the mesh out: MLA attention and the ENCDEC, XLSTM
+    and MAMBA_HYBRID families."""
+    if ctx is None:
+        return {}
+    if cfg.family in _FAMILIES or cfg.attention == "mla":
+        what = ("MLA attention" if cfg.family not in _FAMILIES
+                else f"the {cfg.family} family")
+        raise NotImplementedError(f"a sharding ctx (the device mesh) with "
+                                  f"{what} ({cfg.name}) is not yet ported "
+                                  f"in repro_torch")
+    if not isinstance(ctx, sh.ShardingCtx):
+        raise TypeError(f"ctx must be a ShardingCtx, got {type(ctx)}")
+    return {"ctx": ctx}
 
 
 def build_model(cfg: ModelConfig,
@@ -82,19 +109,131 @@ def build_model(cfg: ModelConfig,
         return from_jax_params(init_fn(rng, cfg), device)
 
     def loss(p, b, ctx=None):
-        _no_ctx(ctx)
-        return loss_fn(p, b, cfg, impl(p))
+        return loss_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx))
 
     def prefill(p, b, ctx=None):
-        _no_ctx(ctx)
-        return prefill_fn(p, b, cfg, impl(p))
+        return prefill_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx))
 
     def decode(p, t, c, pos, ctx=None):
-        _no_ctx(ctx)
-        return decode_fn(p, t, c, pos, cfg, impl(p))
+        return decode_fn(p, t, c, pos, cfg, impl(p), **_ctx_kw(cfg, ctx))
 
     def empty_cache(b, s, dt=None, device="cuda"):
         return cache_fn(cfg, b, s, dt, device)
 
     return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill,
                     decode=decode, empty_cache=empty_cache)
+
+
+# ===========================================================================
+# Partition specs for parameters (and optimizer state, which mirrors them)
+# ===========================================================================
+# rule: leaf-name -> (base_ndim, spec for the unstacked leaf)
+_NAME_RULES = {
+    "embed": (2, ("model", None)),
+    "lm_head": (2, (None, "model")),
+    "w_q": (2, (None, "model")),
+    "w_k": (2, (None, "model")),
+    "w_v": (2, (None, "model")),
+    "w_o": (2, ("model", None)),
+    "b_q": (1, ("model",)),
+    "b_k": (1, ("model",)),
+    "b_v": (1, ("model",)),
+    "w_up": (2, (None, "model")),
+    "w_gate": (2, (None, "model")),
+    "w_down": (2, ("model", None)),
+    # MLA up-projections (low-rank downs stay replicated by default)
+    "w_uq_nope": (2, (None, "model")),
+    "w_uq_rope": (2, (None, "model")),
+    "w_uk": (2, (None, "model")),
+    "w_uv": (2, (None, "model")),
+}
+# 3D expert weights (E, D, F): shard the expert dim on the model axis
+_MOE_RULES = {
+    "w_gate": (3, ("model", None, None)),
+    "w_up": (3, ("model", None, None)),
+    "w_down": (3, ("model", None, None)),
+}
+
+
+def _spec_for_leaf(path, leaf) -> tuple:
+    """The storage spec of the leaf at ``path`` (its dict keys, root
+    first): the rule for its name, with None for the stacked dims ahead
+    of it; () (replicated) without a rule.  In an MoE block only the
+    expert weights have rules (the router is replicated)."""
+    if not path:
+        return ()
+    name = path[-1]
+    rule = (_MOE_RULES if "moe" in path else _NAME_RULES).get(name)
+    if rule is None:
+        return ()
+    base_ndim, spec = rule
+    extra = len(leaf.shape) - base_ndim
+    if extra < 0:
+        return ()
+    return (None,) * extra + spec
+
+
+def _shard_size_ok(leaf, spec: tuple, shape: Mapping[str, int]) -> bool:
+    return all(ax is None or dim % shape.get(ax, 1) == 0
+               for dim, ax in zip(leaf.shape, spec))
+
+
+def param_pspecs(params, mesh=None):
+    """Tree of per-leaf specs matching ``params`` (tensors, numpy arrays or
+    anything with ``shape``): the reference's ``param_pspecs``, each
+    ``PartitionSpec`` as its tuple.  ``mesh`` (a ``DeviceMesh``, a ctx or
+    {axis: size}) replicates a leaf whose sharded dimension does not
+    divide its axis."""
+    if isinstance(mesh, sh.ShardingCtx):
+        mesh = mesh.mesh
+    shape = mesh_shape(mesh) if mesh is not None else None
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        spec = _spec_for_leaf(path, tree)
+        if shape is not None and not _shard_size_ok(tree, spec, shape):
+            return ()
+        return spec
+    return walk(params, ())
+
+
+def _shard_leaf(x, spec: tuple, ctx: sh.ShardingCtx):
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            x = sh.local_slice(ctx, x, ax, dim)
+    return x
+
+
+def shard_params(params, ctx: Optional[sh.ShardingCtx]):
+    """This rank's slices of the full parameters (numpy arrays or tensors,
+    views where the input allows), by ``param_pspecs`` on ``ctx``'s mesh:
+    the counterpart of ``jax.device_put(params, named(mesh, pspecs))``.
+    The optimiser's moments mirror them (``adamw_init`` of the result)."""
+    if ctx is None:
+        return params
+    specs = param_pspecs(params, ctx)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return _shard_leaf(tree, spec, ctx)
+    return walk(params, specs)
+
+
+def shard_cache(cache, ctx: Optional[sh.ShardingCtx], total: int):
+    """The decode layout of the stacked KV cache {leaf: (L, B, S, KV, dh)}
+    that ``prefill`` under ``ctx`` returns (this rank's rows of B, every
+    head): S padded with zero slots to the decode's length ``total``, then
+    this rank's slice of S on the model axis, as the reference places its
+    cache (``P(None, batch, model)``)."""
+    if ctx is None:
+        raise ValueError("shard_cache needs a ShardingCtx")
+
+    def leaf(x):
+        if total > x.shape[2]:
+            pad = list(x.shape)
+            pad[2] = total - x.shape[2]
+            x = torch.cat([x, x.new_zeros(pad)], dim=2)
+        return sh.local_slice(ctx, x, ctx.model_axis, 2).contiguous()
+    return tree_map(leaf, cache)

@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.checkpoint.quant import QuantizedTensor
 from repro_torch.kernels import ops, ref
 from repro_torch.models import common
@@ -205,40 +206,103 @@ def prefill_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def gqa_prefill(params, x, cfg: ModelConfig, positions, *, causal=True,
-                make_cache=True, attn_impl: Optional[str] = None):
-    """x: (B,S,D) -> (out (B,S,D), cache | None)."""
-    b, s, _ = x.shape
-    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, attn_impl)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(b, s, kv, g, dh)
-    out = prefill_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=causal, window=cfg.sliding_window,
-                            impl=attn_impl)
-    out = common.linear(out.reshape(b, s, kv * g * dh), params["w_o"],
-                        attn_impl)
-    cache = {"k": k, "v": v} if make_cache else None
-    return out, cache
+                make_cache=True, attn_impl: Optional[str] = None, ctx=None):
+    """x: (B,S,D) -> (out (B,S,D), cache | None).  Under a ``ctx``, see
+    ``_prefill_heads``."""
+    def rotate(t):
+        return common.apply_rope(t, positions, cfg.rope_theta)
+    return _prefill_heads(params, x, cfg, rotate, causal, make_cache,
+                          attn_impl, ctx)
 
 
 def gqa_mrope_prefill(params, x, cfg: ModelConfig, positions3, *,
-                      make_cache=True, attn_impl: Optional[str] = None):
+                      make_cache=True, attn_impl: Optional[str] = None,
+                      ctx=None):
     """Qwen2-VL style prefill with 3-section M-RoPE positions (3, B, S):
     ``gqa_prefill`` with ``common.apply_mrope`` in place of RoPE."""
+    def rotate(t):
+        return common.apply_mrope(t, positions3, cfg.mrope_sections,
+                                  cfg.rope_theta)
+    return _prefill_heads(params, x, cfg, rotate, True, make_cache,
+                          attn_impl, ctx)
+
+
+def _prefill_heads(params, x, cfg: ModelConfig, rotate, causal: bool,
+                   make_cache: bool, impl: Optional[str], ctx):
+    """GQA prefill with ``rotate`` applied to q and k.  Under a ``ctx``
+    whose model axis holds whole KV heads per rank (``_local_heads``),
+    each rank attends over its own heads and one all-reduce joins the
+    row-split output projection (Megatron); otherwise the split
+    projections are gathered and every rank attends over all heads.  The
+    cache holds every head (gathered over the model axis)."""
     b, s, _ = x.shape
-    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, attn_impl)
-    q = common.apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
-    k = common.apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
-    qg = q.reshape(b, s, kv, g, dh)
+    dh = cfg.head_dim
+    local = _local_heads(params, cfg, ctx)
+    q, k, v = _project_qkv_ctx(params, x, cfg, ctx, impl, local)
+    q, k = rotate(q), rotate(k)
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, q.shape[2] // kv, dh)
     out = prefill_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True, window=cfg.sliding_window,
-                            impl=attn_impl)
-    out = common.linear(out.reshape(b, s, kv * g * dh), params["w_o"],
-                        attn_impl)
-    cache = {"k": k, "v": v} if make_cache else None
+                            causal=causal, window=cfg.sliding_window,
+                            impl=impl)
+    out = _out_proj(params["w_o"], out.reshape(b, s, -1), ctx, local, impl)
+    cache = None
+    if make_cache:
+        if local:
+            k = sh.all_gather(ctx, k, ctx.model_axis, 2)
+            v = sh.all_gather(ctx, v, ctx.model_axis, 2)
+        cache = {"k": k, "v": v}
     return out, cache
+
+
+def _local_heads(params, cfg: ModelConfig, ctx) -> bool:
+    """Whether each model rank holds whole heads: w_q / w_k / w_v
+    column-split and w_o row-split (``param_pspecs``) with the KV heads
+    divisible by the model axis."""
+    if ctx is None or ctx.model_size == 1 or cfg.n_kv_heads % ctx.model_size:
+        return False
+    m, dh = ctx.model_size, cfg.head_dim
+    hd, kvd = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    return (params["w_q"].shape[-1] * m == hd
+            and params["w_k"].shape[-1] * m == kvd
+            and params["w_v"].shape[-1] * m == kvd
+            and params["w_o"].shape[0] * m == hd)
+
+
+def _project_qkv_ctx(params, x, cfg: ModelConfig, ctx, impl, local: bool):
+    """q, k, v (B, S, heads, dh) under a ctx: this rank's heads when
+    ``local``, else every head, a column-split projection's parts gathered
+    over the model axis (a replicated one computed whole)."""
+    if ctx is None:
+        return _project_qkv(params, x, cfg, impl)
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    xf = sh.copy_to_model(ctx, x)
+    out = []
+    for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                        ("v", cfg.n_kv_heads)):
+        w = params["w_" + name]
+        split = ctx.model_size > 1 and w.shape[-1] != heads * dh
+        y = common.linear(xf if split else x, w, impl)
+        if cfg.qkv_bias:
+            y = y + params["b_" + name]
+        if split and not local:
+            y = sh.gather_from_model(ctx, y, -1)
+        out.append(y.reshape(b, s, -1, dh))
+    return tuple(out)
+
+
+def _out_proj(w_o, o, ctx, local: bool, impl):
+    """The output projection of the heads ``o`` (..., heads * dh): this
+    rank's heads on its rows of w_o (``local``), or every head's output,
+    of which a row-split w_o takes this rank's part; the partial products
+    summed over the model axis."""
+    if local:
+        return sh.reduce_from_model(ctx, common.linear(o, w_o, impl))
+    if ctx is not None and w_o.shape[0] != o.shape[-1]:
+        part = common.linear(sh.scatter_to_model(ctx, o, -1), w_o, impl)
+        return sh.reduce_from_model(ctx, part)
+    return common.linear(o, w_o, impl)
 
 
 def _pos_column(pos, b: int, device) -> torch.Tensor:
@@ -262,22 +326,20 @@ def decode_valid(cfg: ModelConfig, pos_b: torch.Tensor, s_cache: int):
 
 
 def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
-               mrope_positions3=None, attn_impl: Optional[str] = None):
+               mrope_positions3=None, attn_impl: Optional[str] = None,
+               ctx=None):
     """x: (B,1,D); cache{k,v}: (B,S,KV,dh); pos: int or RAGGED (B,) device
     vector of per-row cache positions -> (out, cache).  A VLM's text token
-    takes its (3, B, 1) M-RoPE ids as ``mrope_positions3``."""
+    takes its (3, B, 1) M-RoPE ids as ``mrope_positions3``.  Under a
+    ``ctx`` see ``_decode_sharded``."""
+    if ctx is not None:
+        return _decode_sharded(params, x, cfg, cache, pos, mrope_positions3,
+                               attn_impl, ctx)
     b = x.shape[0]
     kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
     pos_b = _pos_column(pos, b, x.device)
     q, k, v = _project_qkv(params, x, cfg, attn_impl)
-    if mrope_positions3 is not None:
-        q = common.apply_mrope(q, mrope_positions3, cfg.mrope_sections,
-                               cfg.rope_theta)
-        k = common.apply_mrope(k, mrope_positions3, cfg.mrope_sections,
-                               cfg.rope_theta)
-    else:
-        q = common.apply_rope(q, pos_b, cfg.rope_theta)
-        k = common.apply_rope(k, pos_b, cfg.rope_theta)
+    q, k = _rotate_decode(cfg, q, k, pos_b, mrope_positions3)
     s_cache = cache["k"].shape[1]
     write_idx = pos % s_cache                       # ring buffer for windows
     k_cache = cache_update(cache["k"], k[:, 0], write_idx)
@@ -288,6 +350,66 @@ def gqa_decode(params, x, cfg: ModelConfig, cache, pos, *,
     out = common.linear(out.reshape(b, 1, kv * g * dh), params["w_o"],
                         attn_impl)
     return out, {"k": k_cache, "v": v_cache}
+
+
+def _rotate_decode(cfg: ModelConfig, q, k, pos_b, mrope_positions3):
+    if mrope_positions3 is not None:
+        return (common.apply_mrope(q, mrope_positions3, cfg.mrope_sections,
+                                   cfg.rope_theta),
+                common.apply_mrope(k, mrope_positions3, cfg.mrope_sections,
+                                   cfg.rope_theta))
+    return (common.apply_rope(q, pos_b, cfg.rope_theta),
+            common.apply_rope(k, pos_b, cfg.rope_theta))
+
+
+def decode_partial(q, k_cache, v_cache, valid, impl: Optional[str] = None):
+    """Unnormalised fp32 partials (o, m, l) over a cache slice: the
+    flash-decoding kernel's (``impl=KERNEL``; its plain version for CPU
+    tensors) or the reference's ``_decode_partial``."""
+    if impl == KERNEL:
+        return ops.decode_gqa_partial(q, k_cache, v_cache, valid)
+    return ref.decode_gqa_partial_ref(q, k_cache, v_cache, valid)
+
+
+def _decode_sharded(params, x, cfg: ModelConfig, cache, pos, mrope3, impl,
+                    ctx):
+    """One token per row against a cache whose sequence is split over the
+    model axis (``api.shard_cache``: slots [r S_loc, (r + 1) S_loc) on
+    model rank r, every head).  q, k and v are gathered over the heads;
+    the rank that owns ``pos`` writes the new row (a masked write, as the
+    reference's ``cache_update`` under a mesh); each rank takes the
+    flash-decoding partials of its slice, merged by the max of m and the
+    sums of l w and o w over the model axis (``flash_decode`` under a
+    mesh).  ``pos`` is one slot for every row: ragged positions raise, as
+    in the reference."""
+    if torch.is_tensor(pos) and pos.ndim:
+        raise NotImplementedError(
+            "ragged per-row cache positions are single-device only "
+            "(the seq-sharded serving cache keeps one slot per step)")
+    pos = int(pos)
+    b = x.shape[0]
+    kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
+    pos_b = _pos_column(pos, b, x.device)
+    q, k, v = _project_qkv_ctx(params, x, cfg, ctx, impl, local=False)
+    q, k = _rotate_decode(cfg, q, k, pos_b, mrope3)
+    s_loc = cache["k"].shape[1]
+    s_cache = s_loc * ctx.model_size
+    start = ctx.model_rank * s_loc
+    slot = pos % s_cache - start
+    if 0 <= slot < s_loc:
+        cache_update(cache["k"], k[:, 0], slot)
+        cache_update(cache["v"], v[:, 0], slot)
+    valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache)
+    valid = valid[:, start:start + s_loc].contiguous()
+    o, m, l = decode_partial(q.reshape(b, kv, g, dh).contiguous(),
+                             cache["k"], cache["v"], valid, impl)
+    m_star = sh.pmax(ctx, m, ctx.model_axis)
+    w = torch.exp(m - m_star)
+    ol = sh.all_reduce(ctx, torch.cat([o * w[..., None], (l * w)[..., None]],
+                                      -1), ctx.model_axis)
+    out = (ol[..., :dh] / torch.clamp(ol[..., dh], min=1e-30)[..., None])
+    out = out.to(cache["v"].dtype).reshape(b, 1, kv * g * dh)
+    return _out_proj(params["w_o"], out, ctx, False, impl), cache
 
 
 # ===========================================================================

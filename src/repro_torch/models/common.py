@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as sh
 from repro_torch.checkpoint.quant import BF16, QuantizedTensor, narrow_bf16
 from repro_torch.kernels import ops, ref
 
@@ -204,24 +205,47 @@ def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
     return torch.sum(lse - gold)
 
 
+def _xent_chunk_split(h: torch.Tensor, lm_head: torch.Tensor,
+                      y: torch.Tensor, ctx) -> torch.Tensor:
+    """``_xent_chunk`` with the head's vocabulary split over the model axis
+    (``lm_head`` this rank's (D, V / m) columns): the max and the sum of
+    exponentials reduced over the ranks, the gold logit taken by the rank
+    that holds the label."""
+    logits = (sh.copy_to_model(ctx, h) @ lm_head).float()  # (B, s/c, V/m)
+    v_loc = logits.shape[-1]
+    m = sh.pmax(ctx, logits.detach().amax(-1), ctx.model_axis)
+    total = sh.reduce_from_model(ctx, torch.exp(logits - m[..., None]).sum(-1))
+    local = y.long() - ctx.model_rank * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+    gold = sh.reduce_from_model(ctx, torch.where(ok, gold[..., 0],
+                                                 torch.zeros_like(m)))
+    return torch.sum(m + torch.log(total) - gold)
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
-                         labels: torch.Tensor,
-                         n_chunks: int = 8) -> torch.Tensor:
+                         labels: torch.Tensor, n_chunks: int = 8,
+                         ctx=None) -> torch.Tensor:
     """hidden (B, S, D); lm_head (D, V); labels (B, S) -> mean token loss
     (fp32), over the reference's sequence chunks.  While autograd records,
     each chunk runs under ``torch.utils.checkpoint``: the backward
     recomputes the chunk's logits instead of keeping (B, S, V) alive, as
-    the reference's ``jax.checkpoint`` does."""
+    the reference's ``jax.checkpoint`` does.  With a ``ctx`` ``lm_head``
+    is this rank's slice of a vocabulary split over the model axis."""
     b, s, _ = hidden.shape
     while s % n_chunks:
         n_chunks //= 2
     c = s // n_chunks
+    fn = _xent_chunk
+    if ctx is not None:
+        def fn(h, w, y):
+            return _xent_chunk_split(h, w, y, ctx)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
         h, y = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
-            part = checkpoint(_xent_chunk, h, lm_head, y, use_reentrant=False)
+            part = checkpoint(fn, h, lm_head, y, use_reentrant=False)
         else:
-            part = _xent_chunk(h, lm_head, y)
+            part = fn(h, lm_head, y)
         total = total + part
     return total / (b * s)

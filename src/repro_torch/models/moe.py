@@ -12,8 +12,14 @@ k contributions in the reference's scan order, so the sums round alike.
 The expert products are library calls (``torch.bmm``), as the reference's
 are ``jnp.einsum`` outside any Pallas kernel.
 
-Not yet ported: the expert-parallel ``shard_map`` path (a sharding ctx),
-which waits for the port's device mesh.
+Under a sharding ctx (``repro_torch.sharding``) the experts are split
+over the model axis, as the reference's ``shard_map`` splits them: model
+rank r runs experts [r E / m, (r + 1) E / m) on its rows of the batch,
+the ranks' outputs are summed, and the routing statistics are averaged
+over the batch axes before the aux product.  The router is replicated;
+the combine weights and the dispatched tokens pass ``copy_to_model``, so
+their gradients (each rank's experts' share) are summed over the model
+axis inside the backward and every rank's router gradient is whole.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -113,11 +120,13 @@ def combine(buf: torch.Tensor, slots: torch.Tensor,
 
 
 def _moe_local(params, x_flat: torch.Tensor, cfg: ModelConfig, cap: int,
-               e0: int, e_local: int) -> Tuple[torch.Tensor, tuple]:
+               e0: int, e_local: int, ctx=None) -> Tuple[torch.Tensor, tuple]:
     """Dispatch + expert compute for experts [e0, e0 + e_local).
 
     x_flat: (T, D).  Returns (out (T, D) holding only these experts'
-    contributions, the load-balance statistics over all experts)."""
+    contributions, the load-balance statistics over all experts).  With a
+    ``ctx`` the dispatched tokens and the combine weights pass
+    ``copy_to_model`` (see the module docstring)."""
     t, d = x_flat.shape
     k, e = cfg.top_k, cfg.n_experts
     logits = router_logits(params["router"], x_flat)           # (T, E)
@@ -133,11 +142,12 @@ def _moe_local(params, x_flat: torch.Tensor, cfg: ModelConfig, cap: int,
 
     slots = _dispatch_indices(top_ids, k, e, cap, e0, e_local)  # (T, K)
     n = e_local * cap
+    top_w = sh.copy_to_model(ctx, top_w)
     # scatter pairs into the capacity buffer; dropped pairs land in a sink
     # row past the end
     buf = x_flat.new_zeros((n + 1, d))
     tok = torch.arange(t, device=x_flat.device).repeat_interleave(k)
-    buf[slots.reshape(-1)] = x_flat[tok]
+    buf[slots.reshape(-1)] = sh.copy_to_model(ctx, x_flat)[tok]
     out = _expert_ffn(buf[:n].reshape(e_local, cap, d), params["w_gate"],
                       params["w_up"], params["w_down"]).reshape(n, d)
     return combine(out, slots, top_w), stats
@@ -150,12 +160,23 @@ def _aux_from_stats(cfg: ModelConfig, stats) -> torch.Tensor:
 
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux scalar)."""
-    if ctx is not None:
-        raise NotImplementedError("expert-parallel moe_apply (a sharding "
-                                  "ctx) is not yet ported in repro_torch")
+    """x: (B, S, D) -> (out (B, S, D), aux scalar).  Under a ``ctx``, x is
+    this rank's rows of the batch and the experts are split over the
+    model axis (the module docstring); the capacity follows the rows this
+    rank holds, as the reference's ``t_local``."""
     b, s, d = x.shape
-    cap = capacity(cfg, b * s)
-    out, stats = _moe_local(params, x.reshape(-1, d), cfg, cap, 0,
-                            cfg.n_experts)
+    msize, rank = (1, 0) if ctx is None else (ctx.model_size, ctx.model_rank)
+    if cfg.n_experts % msize:
+        raise ValueError(f"expert-parallel moe_apply: the model axis "
+                         f"({msize} ranks) does not divide n_experts "
+                         f"({cfg.n_experts})")
+    e_local = cfg.n_experts // msize
+    out, stats = _moe_local(params, x.reshape(-1, d), cfg,
+                            capacity(cfg, b * s), rank * e_local, e_local,
+                            ctx)
+    out = sh.reduce_from_model(ctx, out)
+    if ctx is not None and ctx.shard_batch:
+        # average the per-shard routing statistics BEFORE forming the
+        # product so the sharded loss equals the global-view loss
+        stats = tuple(sh.pmean(ctx, a, ctx.batch_axes) for a in stats)
     return out.reshape(b, s, d), _aux_from_stats(cfg, stats)

@@ -483,6 +483,56 @@ def test_cuda_decode_half(cuda, dtype, b, s, kv, g, dh):
     torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
 
 
+def test_decode_gqa_partial_matches_reference_partials():
+    """``ops.decode_gqa_partial`` (a sequence-sharded decode's per-rank
+    partials) against the reference's ``_decode_partial`` on a cache slice
+    holding no valid slot and on one holding some; merged, the whole."""
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    rng = np.random.default_rng(11)
+    b, s, kv, g, dh = 2, 24, 2, 4, 32
+    q, k, v = (_rand(rng, (b, kv, g, dh)), _rand(rng, (b, s, kv, dh)),
+               _rand(rng, (b, s, kv, dh)))
+    valid = np.arange(s)[None] <= np.array([[5], [9]])
+    parts = []
+    for sl in (slice(0, 12), slice(12, s)):
+        got = ops.decode_gqa_partial(_t(q), _t(k[:, sl]), _t(v[:, sl]),
+                                     _t(valid[:, sl].copy()))
+        want = jattn._decode_partial(jnp.asarray(q), jnp.asarray(k[:, sl]),
+                                     jnp.asarray(v[:, sl]),
+                                     jnp.asarray(valid[:, sl]))
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+        parts.append(got)
+    comb = ref.combine_partials(*(torch.stack([p[i] for p in parts])
+                                  for i in range(3)))
+    np.testing.assert_allclose(comb.numpy(), ref.decode_gqa_ref(
+        _t(q), _t(k), _t(v), _t(valid)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_decode_gqa_partial_matches_plain(cuda, dtype):
+    """The grouped partials at phase 23's shape: qwen3_moe's decode on one
+    rank's half of a 72-slot cache (B=2, KV=4, G=8, dh=128), one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    b, s, kv, g, dh = 2, 36, 4, 8, 128
+    q = torch.randn((b, kv, g, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=cuda).to(dtype)
+    valid = torch.arange(s, device=cuda)[None] < torch.tensor(
+        [[30], [7]], device=cuda)
+    before = ops.LAUNCHES["flash_decode"]
+    o, m, l = ops.decode_gqa_partial(q, k, v, valid)
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+    ro, rm, rl = ref.decode_gqa_partial_ref(q, k, v, valid)
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else HALF_RTOL[dtype]
+    torch.testing.assert_close(m, rm, atol=tol, rtol=tol)
+    torch.testing.assert_close(o / l[..., None], ro / rl[..., None],
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 @pytest.mark.parametrize("sq,kv,g,dh,causal,window", [

@@ -170,7 +170,16 @@ def test_init_is_seeded_with_reference_shapes():
 
 
 def test_sharded_ctx_not_ported():
+    """A mesh whose model axis does not divide the experts is refused,
+    naming both numbers, as the reference's assert refuses it (the
+    expert-parallel path itself is ``test_torch_sharding.py``'s)."""
+    from types import SimpleNamespace
+
+    from repro_torch.sharding import ShardingCtx
     params, x = _setup(CFG)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    mesh = SimpleNamespace(mesh=torch.zeros(1, 3), mesh_dim_names=(
+        "data", "model"), get_coordinate=lambda: [0, 0])
+    with pytest.raises(ValueError, match=rf"model axis \(3 ranks\) does not "
+                       rf"divide n_experts \({CFG.n_experts}\)"):
         moe.moe_apply(_torch(params), torch.from_numpy(x), CFG,
-                      ctx=object())
+                      ctx=ShardingCtx(mesh=mesh))

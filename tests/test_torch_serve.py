@@ -188,7 +188,8 @@ def test_import_leaves_out_jax_and_repro():
             "repro_torch.optim.adamw, repro_torch.data.synthetic, "
             "repro_torch.kernels.flash_attention_bwd, "
             "repro_torch.models.ssm, repro_torch.models.recurrent_lm, "
-            "repro_torch.models.encdec_lm\n"
+            "repro_torch.models.encdec_lm, repro_torch.sharding, "
+            "repro_torch.launch.mesh\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
