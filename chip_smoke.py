@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # one CUDA card, about seventeen minutes
+    python3 chip_smoke.py        # one CUDA card, about eighteen minutes
 
 Phases, in order; any failure exits non-zero:
 
@@ -45,8 +45,13 @@ Phases, in order; any failure exits non-zero:
    fp32 and fp16 (SDPA on ``concat(c, kr)`` built beforehand, not timed);
    the grouped partials (``ops.decode_gqa_partial``) at phase 23's decode
    shape in bf16 (B=2, each model rank's 36 of 72 slots, KV=4, G=8,
-   head_dim 128): each slice's o / l, m and l against the plain partials,
-   and the two slices merged against the plain decode of the whole;
+   head_dim 128), the latent partials (``ops.decode_latent_partial``) at
+   phase 24's MLA decode (bf16, B=2, each rank's 34 of 68 slots, G=40,
+   c 256 + kr 32; timed, library SDPA's normalised decode over the slice)
+   and the grouped partials over seamless_m4t_medium's cross cache (bf16,
+   B=2, 512 of 1024 slots, KV=16, G=1, head_dim 64): each slice's o / l,
+   m and l against the plain partials, and the two slices merged against
+   the plain decode of the whole;
    flash_attention, flash_decode and paged_flash_decode at the VLM's
    G = 6, head_dim 128, in fp16.  quantized_matmul's batched entry at
    phase 20's absorbed products (2 rows, 40 heads, 64 -> 256 and 256 ->
@@ -154,10 +159,12 @@ Phases, in order; any failure exits non-zero:
    rounds.  Both walls are printed; no speed-up is claimed.
 15. The SLO multi-tenant tier: phase 3's checkpoint through
    ``serve.run(tenants=2, requests=12, prompt_len=192, new_tokens=16,
-   shared_prefix=32, arrival_rate=0.5, page_size=16, chunk_prefill=64,
+   shared_prefix=32, arrival_rate=1.0, page_size=16, chunk_prefill=64,
    max_inflight=4)`` under 900 MiB with ``slo_ttft_ms`` 4.5 rounds of the
-   plan's predicted round latency and shedding on (``SLO_PATH``).  It
-   must serve page size 16 with 64-token chunks, preempt a request in a
+   plan's predicted round latency and shedding on (``SLO_PATH``; the
+   arrivals come at 1.0 per round, cut from 0.5 to keep the script inside
+   its time limit: fewer rounds).  It must serve page size
+   16 with 64-token chunks, preempt a request in a
    round in which a higher class is admitted, shed one request and let
    one meet its TTFT target, hit a tenant's prefix, and keep the tenants
    apart at every round boundary (no page mapped by two tenants' requests
@@ -300,6 +307,30 @@ Phases, in order; any failure exits non-zero:
    ``HALF_RTOL`` of the partner's largest, and every rank's ``flash_attention``, ``flash_attention_bwd`` and
    ``flash_decode`` launches (the decode's grouped partials on the
    rank's cache slice) as the layer layout derives them.
+24. The device mesh for every family: minicpm3_4b (MLA attention, full
+   width cut to 2 of 62 layers), and phase 22's seamless_m4t_medium,
+   xlstm_1_3b and zamba2_1_2b on its params, in their configs' bf16
+   (xlstm_1_3b in fp32 on its bf16 params widened: its bf16 gradients
+   are rounding noise, ``FAMILY_MESH_FP32``; the params saved as ``.npy``
+   under ``build/chip_smoke_mesh`` while nvcc builds), on phase 23's
+   (data 1, model 2) mesh: phase 23's two gloo
+   ranks go on to phase 24 in the same launch.  Each rank keeps its
+   slices (heads, MLP columns, mLSTM heads, vocabulary; Mamba2 and sLSTM
+   whole), takes step 1's gradients and trains 2 AdamW steps at B=2 x
+   128 through ``train.run``, and generates 4 greedy tokens after a B=2
+   x 64 prefill on its half of the sequence-sharded caches (MLA's latent
+   cache through the latent partials, the enc-dec's self and cross
+   caches, Zamba2's site).  A local partner in this process then does
+   the same on the same params (its generation of phase 22's models is
+   phase 22's kernel run, on the same prompts; minicpm3_4b's its own),
+   with phase 23's limits: each rank's losses within a quarter of
+   ``HALF_RTOL`` relative, step 1's gradients of every leaf within 4 x
+   ``HALF_RTOL`` of its largest |g|, the greedy tokens identical (tie
+   rule), the logits of the prefill and of every decode step within
+   ``HALF_RTOL`` of the partner's largest, and every rank's and the
+   partner's ``flash_attention``, ``flash_attention_bwd`` and
+   ``flash_decode`` launches as the layer layout derives them.  Its
+   rank time lies inside phase 23's wall (printed apart).
 
 Budgets go through ``Hermes`` (``serve.run`` too), whose planner and
 ledger take the budget less cuBLAS's 32 MiB workspace
@@ -342,11 +373,12 @@ paged kernel runs together), phase 19's (``vlm_launches``,
 ``vlm_serve_launches``), phase 20's (``mla_quant_launches``,
 ``mla_quant_serve_launches``; quantized_matmul too), phase 21's
 (``train_launches``), phase 22's (``families_launches``: its kernel
-runs', training and generation) and phase 23's (``mesh_launches``: the
-ranks' and the partner's).  flash_attention_bwd's row (the counterpart
-of the JAX package's jnp custom VJP, not of a Pallas kernel) takes its launches
-from phase 21 (phase 22's and 23's as ``families_launches`` and
-``mesh_launches``), its numbers at
+runs', training and generation), phase 23's (``mesh_launches``: the
+ranks' and the partner's) and phase 24's (``family_mesh_launches``).
+flash_attention_bwd's row (the counterpart of the JAX package's jnp
+custom VJP, not of a Pallas kernel) takes its launches from phase 21
+(phase 22's, 23's and 24's as ``families_launches``, ``mesh_launches``
+and ``family_mesh_launches``), its numbers at
 phase 21's shape, and adds that phase's mean step ms after the first
 (``train_step_ms``) and allocator peak.
 Before them, each phase's wall.
@@ -433,16 +465,17 @@ SPEC = dict(requests=4, draft_layers=2, budget_mb=1450, acceptance=1.0,
 SELF = dict(layers=4, budget_mb=1150, new_tokens=32, schedule=(1, 0),
             requests=4)
 # phase 15, the SLO tier on phase 3's checkpoint and budget: two tenants'
-# 12 requests from a seeded trace (Poisson arrivals at 0.5 per round,
+# 12 requests from a seeded trace (Poisson arrivals at 1.0 per round,
 # lognormal prompts of mean 96 clipped to [4, 192], geometric outputs of
 # mean 8 up to 16, priority classes 0-2, a 32-token system prompt per
 # tenant reused by 60% of its requests), paged at 16 with 64-token chunks,
 # at most 4 in flight, a TTFT target of 4.5 rounds of the plan's round
-# latency (4 rounds) with shedding.  Trace seed 2: served at tiny width on
-# the CPU at 2, 3 and 4 in flight, it preempts for a higher class, sheds,
-# meets the target and hits each tenant's prefix
+# latency (4 rounds) with shedding.  Trace seed 2: on the card it preempts
+# for a higher class, sheds, lets some meet the target and hits a tenant's
+# prefix (as it did at 0.5 per round, the rate before the script's time was
+# cut, in more rounds)
 SLO_PATH = dict(tenants=2, requests=12, prompt_len=192, new_tokens=16,
-                shared_prefix=32, arrival_rate=0.5, page_size=16,
+                shared_prefix=32, arrival_rate=1.0, page_size=16,
                 chunk_prefill=64, max_inflight=4, seed=2)
 SLO_TTFT_ROUNDS = 4
 # phase 16, qwen3_moe_30b_a3b at full width, depth cut to 2 of 48 layers,
@@ -538,12 +571,32 @@ MESH_TRAIN = dict(batch=2, seq=128, steps=3)
 MESH_INFER = dict(batch=2, prompt_len=64, new_tokens=8)
 MESH_MODEL_AXIS = 2
 MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
-MESH_WALL_S = 300
+MESH_WALL_S = 480                # phases 23 and 24 on the ranks
 # a router call's tokens whose top-k sets may differ between the ranks and
 # the partner, rounded up: bf16 near-ties only (measured on an H100 80GB
 # HBM3 at 700 W: 5 and 11 of 256 in step 1's calls, at most 10 of 128 in
 # a prefill's and 1 of 2 in a decode step's)
 MESH_FLIP_SHARE = 0.08
+# phase 24: the device mesh for every family.  Phase 22's three models
+# (its params, saved as .npy under MESH_DIR while nvcc builds) and
+# minicpm3_4b's MLA at full width cut to MESH_MLA_LAYERS of 62 (~503M
+# params), in their configs' bf16, on phase 23's (data 1, model 2) mesh:
+# the same two gloo ranks run phase 24 after phase 23 (one launch), then a
+# local partner in this process.  Step 1's gradients and train.run's
+# steps at FAMILY_MESH_TRAIN, a prefill of B=2 x 64 and greedy decode
+# steps at FAMILY_MESH_INFER, whose prompts are phase 22's generation's,
+# so the partner takes phase 22's kernel run's first steps there
+MESH_MLA_LAYERS = 2
+FAMILY_MESH_TRAIN = dict(batch=2, seq=128, steps=2)
+FAMILY_MESH_INFER = dict(batch=2, prompt_len=64, new_tokens=4)
+FAMILY_GENERATIONS = {}          # label -> phase 22's kernel generation
+# xlstm_1_3b runs phase 24 in fp32 (TF32 off) on phase 22's bf16 params
+# widened: in bf16 its step-1 gradients are rounding noise (at 8 layers a
+# one-unit change of one w_up element moves the loss 0.6% and a leaf's
+# gradient by 1.5x its largest |g|, on the CPU; the mLSTM / sLSTM gates'
+# clamps switch), so two bf16 runs that round apart (the ranks' split
+# products against the partner's whole ones) cannot meet phase 23's limits
+FAMILY_MESH_FP32 = ("xlstm",)
 VLM_LAYERS = 4
 VLM = dict(requests=4, prompt_len=64, new_tokens=8, max_inflight=4,
            shared_prefix=48)
@@ -732,50 +785,134 @@ def partial_case(torch, fd, ref, gen):
     return [combined, timed]
 
 
-def mesh_partial_cases(torch, ops, ref):
-    """``ops.decode_gqa_partial`` at phase 23's decode shape in its bf16:
-    each model rank's slice of the S-sharded cache (every KV head), one
-    row at its last decode step and one at its first; each slice's
-    partials against the plain version's, and the slices' partials merged
-    as the mesh merges them against the plain decode of the whole."""
-    cfg = mesh_config()
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    b, new = MESH_INFER["batch"], MESH_INFER["new_tokens"]
-    total = MESH_INFER["prompt_len"] + new
-    s_loc, kv = total // MESH_MODEL_AXIS, cfg.n_kv_heads
-    g, dh, dt = cfg.n_heads // kv, cfg.head_dim, torch.bfloat16
-    q = torch.randn((b, kv, g, dh), generator=gen, device="cuda").to(dt)
-    k = torch.randn((b, total, kv, dh), generator=gen, device="cuda").to(dt)
-    v = torch.randn((b, total, kv, dh), generator=gen, device="cuda").to(dt)
-    lens = torch.tensor([[total], [total - new + 1]], device="cuda")
-    valid = torch.arange(total, device="cuda")[None] < lens
+def sliced_partials(torch, ref, shape: str, partial, plain_partial,
+                    plain_whole, q, caches, valid, s_loc: int,
+                    timed: bool = False) -> list:
+    """A sequence-sharded decode's partials on the card: ``partial`` (the
+    kernel's wrapper) over each model rank's slice of ``s_loc`` slots of
+    the caches (and of ``valid``), its o / l, m and l against
+    ``plain_partial``'s, and the slices' partials merged as the mesh
+    merges them against ``plain_whole`` over every slot (bf16 limits:
+    HALF_RTOL of each plain value's largest magnitude).  ``timed`` adds the
+    first slice's times beside the plain partials' and SDPA's normalised
+    decode over the slice (library; its inputs built beforehand)."""
     errs = {"o / l": [0.0, 0.0], "m": [0.0, 0.0], "l": [0.0, 0.0]}
-    parts = []
-    for r in range(MESH_MODEL_AXIS):
+    parts, times = [], {}
+    for r in range(valid.shape[1] // s_loc):
         sl = slice(r * s_loc, (r + 1) * s_loc)
-        args = (q, k[:, sl].contiguous(), v[:, sl].contiguous(),
-                valid[:, sl].contiguous())
-        o, m, l = ops.decode_gqa_partial(*args)
-        ro, rm, rl = ref.decode_gqa_partial_ref(*args)
+        args = (q,) + tuple(c[:, sl].contiguous() for c in caches) + (
+            valid[:, sl].contiguous(),)
+        o, m, l = partial(*args)
+        ro, rm, rl = plain_partial(*args)
         for key, got, want in (("o / l", o / l[..., None],
                                 ro / rl[..., None]), ("m", m, rm),
                                ("l", l, rl)):
             errs[key][0] = max(errs[key][0], (got - want).abs().max().item())
             errs[key][1] = max(errs[key][1], want.abs().max().item())
         parts.append((o, m, l))
+        if timed and r == 0:
+            times = timings(torch, lambda: partial(*args),
+                            lambda: plain_partial(*args), sdpa_of(torch,
+                                                                  *args))
+            # bound: q, the valid slots' cache rows, the fp32 partials and
+            # the mask; or 2 operations per multiply-add of the valid
+            # (head, slot) pairs' scores (dq) and values (dv)
+            n_valid = int(args[-1].sum().item())
+            heads = q.numel() // (q.shape[0] * q.shape[-1])
+            rows = sum(c.numel() // (c.shape[0] * c.shape[1])
+                       for c in args[1:-1])
+            nbytes = (q.element_size() * (q.numel() + n_valid * rows)
+                      + 4 * (o.numel() + m.numel() + l.numel())
+                      + args[-1].numel())
+            flops = 2 * n_valid * heads * (q.shape[-1] + o.shape[-1])
+            times["bound_ms"], times["bound_by"] = bound(nbytes, flops,
+                                                         "bfloat16")
+    dt = caches[0].dtype
     merged = ref.combine_partials(*(torch.stack([p[i] for p in parts])
                                     for i in range(3))).to(dt)
-    err, limit = error(merged, ref.decode_gqa_ref(q, k, v, valid))
+    err, limit = error(merged, plain_whole(q, *caches, valid))
     torch.cuda.synchronize()
-    shape = (f"mesh decode B={b} S_loc={s_loc} KV={kv} G={g} dh={dh} "
-             "bf16")
     cases = [dict(kernel="flash_decode_partial", dtype="bfloat16",
                   case=f"{shape} {key}", max_abs_err=e,
                   limit=HALF_RTOL["bfloat16"] * big)
              for key, (e, big) in errs.items()]
+    cases[0].update(times)
     cases.append(dict(kernel="flash_decode_partial", dtype="bfloat16",
                       case=f"{shape} merged vs whole", max_abs_err=err,
                       limit=limit))
+    return cases
+
+
+def sdpa_of(torch, q, *rest):
+    """SDPA's normalised decode over a cache slice (the partials' library
+    yardstick), its inputs built now: a grouped q (B, KV, G, dh) against
+    k, v (B, S, KV, dh), or the latent q (B, 1, G, dc + dr) against
+    ``concat(c, kr)`` and c."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    *caches, valid = rest
+    if len(caches) == 2 and caches[0].ndim == 4:
+        b, kv, g, dh = q.shape
+        qs = q.reshape(b, kv * g, 1, dh)
+        ks, vs = (c.transpose(1, 2).repeat_interleave(g, dim=1)
+                  for c in caches)
+    else:
+        c, kr = caches
+        b, _, g, _ = q.shape
+        qs = q.transpose(1, 2)
+        ks = torch.cat([c, kr], -1)[:, None].expand(b, g, -1, -1).contiguous()
+        vs = c[:, None].expand(b, g, -1, -1).contiguous()
+    mask = valid[:, None, None, :]
+    return lambda: sdpa(qs, ks, vs, attn_mask=mask)
+
+
+def mesh_partial_cases(torch, ops, ref):
+    """The decode partials a mesh merges, on each model rank's slice of an
+    S-sharded cache in bf16: ``ops.decode_gqa_partial`` at phase 23's
+    decode shape (every KV head; one row at its last decode step and one
+    at its first); ``ops.decode_latent_partial`` at phase 24's MLA decode
+    (minicpm3_4b's 40 heads on the latent cache, timed); and
+    ``ops.decode_gqa_partial`` over seamless_m4t_medium's cross cache
+    (1024 encoder slots, every one valid, 512 a rank)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    dt, m = torch.bfloat16, MESH_MODEL_AXIS
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def lengths(total, new):
+        lens = torch.tensor([[total], [total - new + 1]], device="cuda")
+        return torch.arange(total, device="cuda")[None] < lens
+    cfg = mesh_config()
+    b, new = MESH_INFER["batch"], MESH_INFER["new_tokens"]
+    total = MESH_INFER["prompt_len"] + new
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kv
+    cases = sliced_partials(
+        torch, ref, f"mesh decode B={b} S_loc={total // m} KV={kv} G={g} "
+        f"dh={dh} bf16", ops.decode_gqa_partial, ref.decode_gqa_partial_ref,
+        ref.decode_gqa_ref, randn(b, kv, g, dh),
+        (randn(b, total, kv, dh), randn(b, total, kv, dh)),
+        lengths(total, new), total // m)
+    mla = family_mesh_configs()["minicpm3"]
+    b, new = FAMILY_MESH_INFER["batch"], FAMILY_MESH_INFER["new_tokens"]
+    total = FAMILY_MESH_INFER["prompt_len"] + new
+    dc, dr = mla.kv_lora_rank, mla.rope_head_dim
+    cases += sliced_partials(
+        torch, ref, f"MLA mesh decode B={b} S_loc={total // m} G="
+        f"{mla.n_heads} {dc} + {dr} bf16", ops.decode_latent_partial,
+        ref.decode_latent_partial_ref, ref.decode_latent_ref,
+        randn(b, 1, mla.n_heads, dc + dr),
+        (randn(b, total, dc), randn(b, total, dr)), lengths(total, new),
+        total // m, timed=True)
+    enc = family_configs()["seamless"]
+    s_enc, kv, dh = enc.enc_seq_len, enc.n_kv_heads, enc.head_dim
+    cases += sliced_partials(
+        torch, ref, f"cross mesh decode B={b} S_loc={s_enc // m} KV={kv} "
+        f"G=1 dh={dh} bf16", ops.decode_gqa_partial,
+        ref.decode_gqa_partial_ref, ref.decode_gqa_ref, randn(b, kv, 1, dh),
+        (randn(b, s_enc, kv, dh), randn(b, s_enc, kv, dh)),
+        torch.ones((b, s_enc), dtype=torch.bool, device="cuda"),
+        s_enc // m)
     return cases
 
 
@@ -1902,7 +2039,8 @@ def write_checkpoints() -> str:
     writers = [threading.Thread(target=write_parallel, args=(group,))
                for group in PARALLEL_CHECKPOINTS]
     writers += [threading.Thread(target=draw, args=(fn,))
-                for fn in (draw_family_params, draw_mesh_params)]
+                for fn in (draw_family_params, draw_mesh_params,
+                           draw_mla_mesh_params)]
     for w in writers:
         w.start()
     apart = {label for group in PARALLEL_CHECKPOINTS for label in group}
@@ -3377,10 +3515,34 @@ def family_configs() -> dict:
             "zamba2": get("zamba2_1_2b").with_(num_layers=8)}
 
 
+def family_mesh_configs() -> dict:
+    """Phase 24's models: minicpm3_4b at full width cut to MESH_MLA_LAYERS
+    (its config's bf16), then phase 22's three (FAMILY_MESH_FP32's in
+    fp32)."""
+    from repro_torch.configs import get
+    cfgs = {"minicpm3": get("minicpm3_4b").with_(num_layers=MESH_MLA_LAYERS),
+            **family_configs()}
+    for label in FAMILY_MESH_FP32:
+        cfgs[label] = cfgs[label].with_(dtype="float32")
+    return cfgs
+
+
+def family_mesh_params(label: str) -> dict:
+    """Phase 24's numpy tree of ``label``, memory-mapped from its saved
+    files; FAMILY_MESH_FP32's bf16 leaves widened to fp32 (exactly)."""
+    from repro_torch.checkpoint.partition import tree_map
+    from repro_torch.checkpoint.quant import is_bf16, widen_bf16
+    tree = load_tree(family_params_dir(label))
+    if label in FAMILY_MESH_FP32:
+        tree = tree_map(lambda a: widen_bf16(a) if is_bf16(a) else a, tree)
+    return tree
+
+
 def draw_family_params() -> str:
     """Draw phase 22's three numpy parameter trees from seed 0 as the
-    model API's ``init`` draws them (``main`` runs this while nvcc builds);
-    returns the seconds each took."""
+    model API's ``init`` draws them, and save each for phase 24's ranks
+    (``save_tree``; ``main`` runs this while nvcc builds); returns the
+    seconds each took."""
     import numpy as np
     from repro_torch.models import encdec_lm, recurrent_lm
     inits = {"seamless": encdec_lm.init_params,
@@ -3390,8 +3552,43 @@ def draw_family_params() -> str:
     for label, cfg in family_configs().items():
         t0 = time.perf_counter()
         FAMILY_PARAMS[label] = inits[label](np.random.default_rng(0), cfg)
+        save_tree(FAMILY_PARAMS[label], family_params_dir(label))
         took.append(f"{label} params {time.perf_counter() - t0:.1f}s")
     return ", ".join(took)
+
+
+def draw_mla_mesh_params() -> str:
+    """Draw phase 24's minicpm3_4b params from seed 0 (the model API's
+    ``init``) and save them (``save_tree``), while nvcc builds."""
+    import numpy as np
+    from repro_torch.models.dense_lm import init_params
+    t0 = time.perf_counter()
+    save_tree(init_params(np.random.default_rng(0),
+                          family_mesh_configs()["minicpm3"]),
+              family_params_dir("minicpm3"))
+    return f"minicpm3 mesh params {time.perf_counter() - t0:.1f}s"
+
+
+def family_params_dir(label: str) -> Path:
+    return MESH_DIR / f"{label}_params"
+
+
+def save_tree(tree, out: Path) -> None:
+    """Each leaf of a numpy tree as ``.npy`` under ``out`` (``load_tree``
+    maps them back)."""
+    import numpy as np
+    from repro_torch.checkpoint.partition import tree_leaves
+    out.mkdir(parents=True, exist_ok=True)
+    for name, leaf in zip(flat_names(tree), tree_leaves(tree)):
+        np.save(out / f"{name.replace('/', '.')}.npy", leaf)
+
+
+def load_tree(out: Path) -> dict:
+    """A tree ``save_tree`` wrote, each leaf memory-mapped from its file."""
+    import numpy as np
+    files = sorted(out.glob("*.npy"))
+    return unflatten({f.name[:-len(".npy")].replace(".", "/"):
+                      np.load(f, mmap_mode="r") for f in files})
 
 
 def flat_names(tree, prefix: str = ""):
@@ -3407,8 +3604,11 @@ def family_attention(cfg):
     """(flash_attention launches per forward pass, flash_decode launches
     per decode step), from the layer layout: the enc-dec's encoder layers
     and its decoder's self and cross attention; Zamba2's shared sites (one
-    after each full group); none in xLSTM."""
+    after each full group); none in xLSTM; one per MLA layer (its latent
+    decode, or under a mesh the latent partials of a rank's slots)."""
     from repro_torch.models.config import ENCDEC, MAMBA_HYBRID
+    if cfg.attention == "mla":
+        return cfg.num_layers, cfg.num_layers
     if cfg.family == ENCDEC:
         return cfg.enc_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
     if cfg.family == MAMBA_HYBRID:
@@ -3438,17 +3638,19 @@ def family_decode_cache(api, cfg, cache, b: int, total: int):
     """The prefill's cache as the decode cache of ``total`` slots: xLSTM's
     state as it is; the KV caches copied into the head of ``empty_cache``'s
     (the enc-dec's self and cross caches, Zamba2's sites beside its Mamba2
-    states)."""
-    from repro_torch.models.config import MAMBA_HYBRID, XLSTM
+    states, a decoder's GQA or MLA cache)."""
+    from repro_torch.models.config import ENCDEC, MAMBA_HYBRID, XLSTM
     if cfg.family == XLSTM:
         return cache
     full = api.empty_cache(b, total, device="cuda")
     if cfg.family == MAMBA_HYBRID:
         full["mamba"] = cache["mamba"]
         pairs = [(full["attn"], cache["attn"])]
-    else:
+    elif cfg.family == ENCDEC:
         pairs = [(full["self"], cache["self"]), (full["cross"],
                                                  cache["cross"])]
+    else:
+        pairs = [(full, cache)]
     for dst, src in pairs:
         for k in dst:
             dst[k][:, :, :src[k].shape[2]] = src[k]
@@ -3647,6 +3849,7 @@ def phase_families(torch, ops):
         gens = {impl: family_generate(torch, ops, cfg, params, impl)
                 for impl in ("auto", None)}
         ktoks, ksteps, pre_ms, dec_ms, pre_l, dec_l = gens["auto"]
+        FAMILY_GENERATIONS[label] = (ktoks, ksteps)     # phase 24's partner
         check_launches(f"{label} prefill (kernels)", pre_l,
                        {"flash_attention": per_pass})
         check_launches(f"{label} decode (kernels)", dec_l,
@@ -3692,23 +3895,16 @@ def draw_mesh_params() -> str:
     MESH_DIR / "params" (``main`` runs this while nvcc builds; the ranks
     map the files and read their slices)."""
     import numpy as np
-    from repro_torch.checkpoint.partition import tree_leaves
     from repro_torch.models.dense_lm import init_params
     t0 = time.perf_counter()
-    params = init_params(np.random.default_rng(0), mesh_config())
-    out = MESH_DIR / "params"
-    out.mkdir(parents=True, exist_ok=True)
-    for name, leaf in zip(flat_names(params), tree_leaves(params)):
-        np.save(out / f"{name.replace('/', '.')}.npy", leaf)
+    save_tree(init_params(np.random.default_rng(0), mesh_config()),
+              MESH_DIR / "params")
     return f"mesh params {time.perf_counter() - t0:.1f}s"
 
 
 def mesh_params() -> dict:
     """Phase 23's numpy tree, each leaf memory-mapped from its file."""
-    import numpy as np
-    files = sorted((MESH_DIR / "params").glob("*.npy"))
-    return unflatten({f.name[:-len(".npy")].replace(".", "/"):
-                      np.load(f, mmap_mode="r") for f in files})
+    return load_tree(MESH_DIR / "params")
 
 
 def mesh_expected(cfg, what: str) -> dict:
@@ -3787,19 +3983,19 @@ def step1_grads(torch, ops, api, params, batch, ctx=None, forced=None):
     return loss.item(), grads, dict(ops.LAUNCHES), picks
 
 
-def mesh_generate(torch, ops, api, params, ctx, steps: int, forced=None):
-    """Prefill MESH_INFER's prompts (make_batch seed 1) and ``steps``
-    greedy decode steps through the step functions, with ``ctx`` (the
-    cache then this rank's shard, ``api.shard_cache``) or without, the
-    routers' picks recorded (``routed``; ``forced`` routes on another
-    run's): (tokens (B, 1 + steps), each step's logits on the host,
-    prefill ms, decode ms per step, launches of the prefill and of the
-    decode steps, picks)."""
+def mesh_generate(torch, ops, api, params, ctx, steps: int, forced=None,
+                  infer=MESH_INFER):
+    """Prefill ``infer``'s prompts (make_batch seed 1) and ``steps`` greedy
+    decode steps through the step functions, with ``ctx`` (the cache then
+    this rank's shard, ``api.shard_cache``) or without, the routers' picks
+    recorded (``routed``; ``forced`` routes on another run's): (tokens
+    (B, 1 + steps), each step's logits on the host, prefill ms, decode ms
+    per step, launches of the prefill and of the decode steps, picks)."""
     from repro_torch.data.synthetic import make_batch
     from repro_torch.launch.stepfns import make_prefill_step, make_serve_step
     from repro_torch.models.api import shard_cache
-    b, s = MESH_INFER["batch"], MESH_INFER["prompt_len"]
-    total = s + MESH_INFER["new_tokens"]
+    b, s = infer["batch"], infer["prompt_len"]
+    total = s + infer["new_tokens"]
     batch = {k: v.cuda() for k, v in make_batch(api.cfg, b, s,
                                                 seed=1).items()
              if k != "labels"}
@@ -3812,10 +4008,7 @@ def mesh_generate(torch, ops, api, params, ctx, steps: int, forced=None):
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         prefill_launches = dict(ops.LAUNCHES)
         if ctx is None:
-            full = api.empty_cache(b, total, device="cuda")
-            for k in full:
-                full[k][:, :, :s] = cache[k]
-            cache = full
+            cache = family_decode_cache(api, api.cfg, cache, b, total)
         else:
             cache = shard_cache(cache, ctx, total)
         serve_step = make_serve_step(api, ctx)
@@ -3915,10 +4108,74 @@ def mesh_rank(job: str) -> int:
         out["train_peak"] = torch.cuda.max_memory_allocated()
     if rank == 0:
         torch.save(logs, MESH_DIR / f"{spec['role']}_logits.pt")
+    if gloo:
+        t0 = time.perf_counter()
+        out["families"] = family_mesh_rank(torch, ops, train, mesh, dev,
+                                           rank)
+        out["families_s"] = time.perf_counter() - t0
     out["wall_s"] = time.perf_counter() - t_start
     Path(spec["out"] % rank).write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
+
+
+def family_mesh_rank(torch, ops, train, mesh, dev, rank: int) -> dict:
+    """Phase 24 on one gloo rank, after phase 23: for each model of
+    ``family_mesh_configs``, this rank's slices of its saved params (the
+    model API with a ctx), step 1's loss and gradients on
+    FAMILY_MESH_TRAIN's first batch (the gradients saved for the partner),
+    a generation at FAMILY_MESH_INFER on the sequence-sharded cache (rank
+    0 saves its logits) and train.run's steps.  Returns {label: what it
+    measured}."""
+    from repro_torch.checkpoint.partition import from_jax_params
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.api import build_model, shard_params
+    tb, ts, steps = (FAMILY_MESH_TRAIN["batch"], FAMILY_MESH_TRAIN["seq"],
+                     FAMILY_MESH_TRAIN["steps"])
+    ctx = train.make_ctx(mesh, tb)
+    torch.cuda.empty_cache()
+    res = {}
+    for label, cfg in family_mesh_configs().items():
+        t_model = time.perf_counter()
+        tree = family_mesh_params(label)
+        api = build_model(cfg)
+        params = from_jax_params(shard_params(tree, ctx), dev)
+        batch = {k: v.to(dev) for k, v in make_batch(cfg, tb, ts,
+                                                     seed=0).items()}
+        r = {}
+        t0 = time.perf_counter()
+        r["grad_loss"], grads, r["grad_launches"], _ = step1_grads(
+            torch, ops, api, params, batch, ctx)
+        r["grad_s"] = time.perf_counter() - t0
+        torch.save({n: g.detach().cpu() for n, g in zip(flat_names(tree),
+                                                        grads)},
+                   MESH_DIR / f"{label}_grads{rank}.pt")
+        del grads
+        t0 = time.perf_counter()
+        toks, logs, r["prefill_ms"], r["decode_ms"], r["prefill_launches"], \
+            r["decode_launches"], _ = mesh_generate(
+                torch, ops, api, params, ctx,
+                FAMILY_MESH_INFER["new_tokens"], infer=FAMILY_MESH_INFER)
+        r["tokens"] = toks.tolist()
+        r["gen_s"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(logs, MESH_DIR / f"{label}_logits.pt")
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r["losses"] = train.run(cfg, steps=steps, batch=tb, seq=ts,
+                                device=str(dev), log_every=steps,
+                                step_seconds=secs, params=tree, ctx=ctx)
+        r["train_s"] = time.perf_counter() - t0
+        r.update(train_launches=dict(ops.LAUNCHES), step_s=secs,
+                 train_peak=torch.cuda.max_memory_allocated(),
+                 wall_s=time.perf_counter() - t_model)
+        torch.cuda.empty_cache()
+        res[label] = r
+    return res
 
 
 def unflatten(flat: dict) -> dict:
@@ -4180,31 +4437,197 @@ def phase_mesh(torch, ops):
     otoks, ologs = gens["own"][:2]
     if nccl["tokens"] != otoks[:, :2].tolist():
         mesh_ties(torch, "nccl rank", nccl["tokens"], otoks[:, :2], ologs)
-    # the logits of the prefill and of every decode step, each row's up
-    # to the step after its first token that differs (a tie; later steps
-    # take other inputs), within HALF_RTOL of the partner's largest |logit|
     for label, tokens, plogs, ptoks in (
             ("gloo ranks", gloo[0]["tokens"], plogs, ptoks),
             ("nccl rank", nccl["tokens"], ologs, otoks)):
-        logs = torch.load(MESH_DIR / f"{label.split()[0]}_logits.pt")
-        same = (torch.tensor(tokens) == ptoks[:, :len(tokens[0])]).int()
-        errs = []
-        for i, (a, b) in enumerate(zip(logs, plogs)):
-            rows = same[:, :i].prod(1).bool()
-            errs.append((a[rows].float() - b[rows].float()).abs().max()
-                        .item() if rows.any() else 0.0)
-        lim = HALF_RTOL["bfloat16"] * max(p.abs().max().item()
-                                          for p in plogs[:len(logs)])
-        print(f"mesh: {label} logits vs the partner's, prefill then each "
-              f"decode step: max |delta| {[f'{e:.3e}' for e in errs]} "
-              f"(limit {lim:.3e})", flush=True)
-        bad = [i for i, e in enumerate(errs) if not e <= lim]
-        if bad:
-            fail(f"mesh: {label} logits of steps {bad} (0 the prefill) "
-                 f"differ by {[errs[i] for i in bad]}, limit {lim}")
+        held_logits(torch, f"mesh: {label}", tokens, torch.load(
+            MESH_DIR / f"{label.split()[0]}_logits.pt"), ptoks, plogs)
     print(f"mesh: losses within {FAMILY_LOSS_RTOL} relative of the "
           f"partner's, tokens as the partner's; ranks' wall "
-          f"{ranks_wall:.1f}s, phase wall "
+          f"{ranks_wall:.1f}s (phase 24's part on the ranks "
+          f"{max(r['families_s'] for r in gloo):.1f}s), phase wall "
+          f"{time.perf_counter() - t_phase:.1f}s; kernel launches "
+          f"{json.dumps(total)}", flush=True)
+    return total, gloo
+
+
+def held_logits(torch, label: str, tokens, logs, ptoks, plogs) -> None:
+    """The logits of the prefill and of every decode step, each row's up to
+    the step after its first token that differs from the partner's (a
+    tie; later steps take other inputs), within HALF_RTOL of the
+    partner's largest |logit|; fails otherwise."""
+    same = (torch.tensor(tokens) == ptoks[:, :len(tokens[0])]).int()
+    errs = []
+    for i, (a, b) in enumerate(zip(logs, plogs)):
+        rows = same[:, :i].prod(1).bool()
+        errs.append((a[rows].float() - b[rows].float()).abs().max().item()
+                    if rows.any() else 0.0)
+    lim = HALF_RTOL["bfloat16"] * max(p.abs().max().item()
+                                      for p in plogs[:len(logs)])
+    print(f"{label} logits vs the partner's, prefill then each decode "
+          f"step: max |delta| {[f'{e:.3e}' for e in errs]} (limit "
+          f"{lim:.3e})", flush=True)
+    bad = [i for i, e in enumerate(errs) if not e <= lim]
+    if bad:
+        fail(f"{label} logits of steps {bad} (0 the prefill) differ by "
+             f"{[errs[i] for i in bad]}, limit {lim}")
+
+
+def family_mesh_expected(cfg, what: str) -> dict:
+    """Kernel launches of one rank (or the partner) per phase-24 step, from
+    the layer layout (``family_attention``): under the mesh each rank runs
+    each attention call on its heads (or, over a sequence-sharded cache,
+    its slots) in one launch, as the partner runs it whole."""
+    per_pass, per_decode = family_attention(cfg)
+    return {"grad": family_train_launches(cfg, 1),
+            "train": family_train_launches(cfg, FAMILY_MESH_TRAIN["steps"]),
+            "prefill": {"flash_attention": per_pass},
+            "decode": {"flash_decode":
+                       per_decode * FAMILY_MESH_INFER["new_tokens"]}}[what]
+
+
+def phase_family_mesh(torch, ops, gloo) -> dict:
+    """Phase 24: each model of ``family_mesh_configs`` on phase 23's two
+    gloo ranks (``family_mesh_rank``, run in the same launch), held
+    against a local partner in this process on the same params and
+    batches: each rank's step-1 loss and train.run losses within
+    FAMILY_LOSS_RTOL of the partner's; step 1's gradients of every leaf
+    within FAMILY_GRAD_RTOL of its largest |g|; the greedy tokens
+    identical (the tie rule) and the logits of the prefill and of every
+    decode step within HALF_RTOL of the partner's largest |logit|; every
+    rank's and the partner's launches as ``family_mesh_expected`` derives
+    them.  The partner's generation of phase 22's models is phase 22's
+    kernel run (the same params, prompts and kernels; its first steps),
+    minicpm3_4b's its own.  Returns the launches of the ranks and the
+    partner, summed."""
+    import numpy as np
+    from repro_torch.checkpoint.partition import from_jax_params, tree_leaves
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model, param_pspecs
+    t_phase = time.perf_counter()
+    tb, ts, steps = (FAMILY_MESH_TRAIN["batch"], FAMILY_MESH_TRAIN["seq"],
+                     FAMILY_MESH_TRAIN["steps"])
+    new, m = FAMILY_MESH_INFER["new_tokens"], MESH_MODEL_AXIS
+    assert all(FAMILY_MESH_INFER[k] == FAMILY_INFER[k]
+               for k in ("batch", "prompt_len"))
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for label, cfg in family_mesh_configs().items():
+        def count(got: dict, who: str, what: str) -> None:
+            check_launches(f"families mesh: {label} {who} {what}", got,
+                           family_mesh_expected(cfg, what))
+            for k, v in got.items():
+                total[k] += v
+        tree = family_mesh_params(label)
+        names = list(flat_names(tree))
+        leaves = tree_leaves(tree)
+        state_bytes = sum(int(np.prod(a.shape)) * (2 * a.dtype.itemsize + 8)
+                          for a in leaves)
+        print(f"families mesh: {label}: {cfg.name} d={cfg.d_model}, "
+              f"{cfg.num_layers} layers"
+              + (f" + {cfg.enc_layers} encoder layers"
+                 if cfg.enc_layers else "")
+              + f", {cfg.attention} attention, vocab {cfg.vocab_size} -> "
+              f"{cfg.padded_vocab}, {cfg.dtype}, remat {cfg.remat}; "
+              f"{sum(int(np.prod(a.shape)) for a in leaves)} params; mesh "
+              f"(data 1, model {m})", flush=True)
+        ranks = [r["families"][label] for r in gloo]
+        for r, rr in zip(gloo, ranks):
+            who = f"gloo rank {r['rank']}"
+            for what in ("grad", "train", "prefill", "decode"):
+                count(rr[f"{what}_launches"], who, what)
+            print(f"families mesh: {label} {who}: step 1 loss "
+                  f"{rr['grad_loss']}; train losses {rr['losses']}; step ms "
+                  f"{[round(t * 1e3, 3) for t in rr['step_s']]}; "
+                  f"torch.cuda.max_memory_allocated {rr['train_peak']} B; "
+                  f"prefill {rr['prefill_ms']:.3f} ms, decode "
+                  f"{rr['decode_ms']:.3f} ms per step; launches grad "
+                  f"{json.dumps(rr['grad_launches'])}, train "
+                  f"{json.dumps(rr['train_launches'])}, prefill "
+                  f"{json.dumps(rr['prefill_launches'])}, decode "
+                  f"{json.dumps(rr['decode_launches'])}; rank seconds: step "
+                  f"1 {rr['grad_s']:.1f}, generate {rr['gen_s']:.1f}, train "
+                  f"{rr['train_s']:.1f}, model wall {rr['wall_s']:.1f}",
+                  flush=True)
+        # the partner: step 1's gradients, held against the ranks' slices
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        api = build_model(cfg)
+        params = from_jax_params(tree, "cuda")
+        batch = {k: v.cuda() for k, v in make_batch(cfg, tb, ts,
+                                                    seed=0).items()}
+        partner_loss, grads, launched, _ = step1_grads(torch, ops, api,
+                                                       params, batch)
+        count(launched, "partner", "grad")
+        specs = tree_leaves(param_pspecs(tree, {"data": 1, "model": m}))
+        worst = {}
+        for r in gloo:
+            mine = torch.load(MESH_DIR / f"{label}_grads{r['rank']}.pt",
+                              mmap=True)
+            for name, g, spec in zip(names, grads, specs):
+                want = rank_part(g.detach(), spec, r["rank"], m).float()
+                diff = (mine[name].cuda().float() - want).abs().max().item()
+                d0, r0 = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(d0, diff),
+                               max(r0, want.abs().max().item()))
+        del grads, mine
+        rel = {n: d / max(g, 1e-30) for n, (d, g) in worst.items()}
+        name = max(rel, key=rel.get)
+        print(f"families mesh: {label} step 1 gradients, ranks vs partner: "
+              f"worst leaf max |delta| / max |g| = {rel[name]:.3e} ({name}) "
+              f"over {len(rel)} leaves (limit {FAMILY_GRAD_RTOL})",
+              flush=True)
+        if not rel[name] <= FAMILY_GRAD_RTOL:
+            fail(f"families mesh: {label} step 1 gradient of {name} differs "
+                 f"by {rel[name]} of its largest |g|")
+        # the partner's generation: phase 22's kernel run's first steps
+        # where phase 22 ran this config
+        reuse = FAMILY_GENERATIONS.pop(label, None)
+        if reuse is not None and cfg == family_configs()[label]:
+            ptoks, plogs = reuse[0][:, :new + 1], reuse[1][:new + 1]
+            gen_note = "phase 22's kernel run"
+        else:
+            gen = mesh_generate(torch, ops, api, params, None, new,
+                                infer=FAMILY_MESH_INFER)
+            ptoks, plogs = gen[:2]
+            count(gen[4], "partner", "prefill")
+            count(gen[5], "partner", "decode")
+            gen_note = (f"prefill {gen[2]:.3f} ms, decode {gen[3]:.3f} ms "
+                        f"per step")
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        ops.reset_launches()
+        losses = train.run(cfg, steps=steps, batch=tb, seq=ts, device="cuda",
+                           log_every=steps, step_seconds=secs, params=tree)
+        count(dict(ops.LAUNCHES), "partner", "train")
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        print(f"families mesh: {label} partner (one process, no mesh): step "
+              f"1 loss {partner_loss}; train losses {losses}; step ms "
+              f"{[round(t * 1e3, 3) for t in secs]}; "
+              f"torch.cuda.max_memory_allocated {peak} B (ranks "
+              f"{[rr['train_peak'] for rr in ranks]} B) against params + "
+              f"grads + two fp32 moments {state_bytes} B; generation: "
+              f"{gen_note}; tokens {ptoks.tolist()}; wall "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for r, rr in zip(gloo, ranks):
+            who = f"families mesh: {label} gloo rank {r['rank']}"
+            for i, (lr, lp) in enumerate(zip([rr["grad_loss"]]
+                                             + rr["losses"],
+                                             [partner_loss] + losses)):
+                if not abs(lr - lp) <= FAMILY_LOSS_RTOL * abs(lp):
+                    fail(f"{who} loss {i} {lr} vs the partner's {lp}")
+            if rr["tokens"] != ptoks.tolist():
+                mesh_ties(torch, f"{label} gloo rank {r['rank']}",
+                          rr["tokens"], ptoks, plogs)
+        held_logits(torch, f"families mesh: {label} gloo ranks",
+                    ranks[0]["tokens"],
+                    torch.load(MESH_DIR / f"{label}_logits.pt"), ptoks, plogs)
+    print(f"families mesh: losses within {FAMILY_LOSS_RTOL} relative of the "
+          f"partner's, tokens as the partner's; partner wall "
           f"{time.perf_counter() - t_phase:.1f}s; kernel launches "
           f"{json.dumps(total)}", flush=True)
     return total
@@ -4372,8 +4795,10 @@ def main() -> int:
     # ---- phase 22: the enc-dec, xLSTM and Zamba2 families
     family_launches = timed("22", phase_families, torch, ops)
 
-    # ---- phase 23: the device mesh
-    mesh_launches = timed("23", phase_mesh, torch, ops)
+    # ---- phase 23: the device mesh; 24: every family on it (the ranks
+    # run both phases in one launch, so phase 23's wall holds theirs)
+    mesh_launches, gloo = timed("23", phase_mesh, torch, ops)
+    family_mesh_launches = timed("24", phase_family_mesh, torch, ops, gloo)
 
     # ---- the kernels line: each kernel's launches from the path it serves
     csrc = "src/repro_torch/kernels/csrc/"
@@ -4449,6 +4874,7 @@ def main() -> int:
             "train_launches": train_launches[key],
             "families_launches": family_launches[key],
             "mesh_launches": mesh_launches[key],
+            "family_mesh_launches": family_mesh_launches[key],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -4483,6 +4909,7 @@ def main() -> int:
         launches=train_launches["flash_attention_bwd"],
         families_launches=family_launches["flash_attention_bwd"],
         mesh_launches=mesh_launches["flash_attention_bwd"],
+        family_mesh_launches=family_mesh_launches["flash_attention_bwd"],
         sass_hmma=build.sass_counts("flash_attention_bwd", ("HMMA",))["HMMA"],
         train_step_ms=trained["step_ms"],
         train_alloc_peak=trained["peak"],

@@ -543,17 +543,19 @@ int launch_decode(const Src& src, const typename Src::T* q, void* out,
 }
 
 // Launches decode_kernel on MLA's latent cache (LatentLanes): one virtual
-// KV head, G query heads, normalised output (B, 1, G, DC).  q, c and kr
-// must be 16-byte aligned (the wrapper checks).
+// KV head, G query heads; out (B, 1, G, DC) normalised in T when out_m and
+// out_l are NULL, else fp32 unnormalised o with fp32 m, l (B, 1, G), the
+// partials of the slots given (a model rank's slice of a sequence-sharded
+// cache).  q, c and kr must be 16-byte aligned (the wrapper checks).
 template <class Src>
 int launch_latent_decode(const Src& src, const typename Src::T* q, void* out,
-                         float* work, int* counters, int B, int G,
-                         int n_split, int chunk, float scale,
-                         cudaStream_t st) {
-  if (!decode_args_ok(G, n_split, chunk, work, counters, nullptr, nullptr))
+                         float* out_m, float* out_l, float* work,
+                         int* counters, int B, int G, int n_split, int chunk,
+                         float scale, cudaStream_t st) {
+  if (!decode_args_ok(G, n_split, chunk, work, counters, out_m, out_l))
     return (int)cudaErrorInvalidValue;
   return launch_decode_lanes<Src, LatentLanes>(
-      src, q, out, nullptr, nullptr, work, counters, B, 1, G,
+      src, q, out, out_m, out_l, work, counters, B, 1, G,
       LatentLanes<typename Src::T, 1>::DC, n_split, chunk, scale, st);
 }
 

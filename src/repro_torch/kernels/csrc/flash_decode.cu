@@ -39,7 +39,12 @@
 //    and the rope cache kr (B, S, 32) where they are, through its own lane
 //    layout (attn_tiles.cuh's LatentLanes: one read of c serves the score
 //    and the value), with no concatenated copy; its 40 heads run as 5
-//    blocks of 8 per (b, split), each reading the rows once.
+//    blocks of 8 per (b, split), each reading the rows once.  Like the
+//    dense entry it returns the normalised output or the unnormalised
+//    fp32 (o, m, l) (flash_decode_partial on the latent layout): under a
+//    device mesh the latent cache is split by sequence over the model
+//    ranks, each rank takes the partials of its slots, and the ranks
+//    merge them (repro/models/attention.py::flash_decode under a ctx).
 // This file supplies the dense and the latent caches' addressing and valid
 // mask.
 #include "attn_tiles.cuh"
@@ -99,20 +104,25 @@ extern "C" int repro_flash_decode(
   });
 }
 
-// q (B, 1, G, 288); c (B, S, 256); kr (B, S, 32); valid (B, S) bytes; out
-// (B, 1, G, 256), normalised; all contiguous; q, c, kr and out of the
-// storage type `dtype`, q, c and kr 16-byte aligned.  n_split, chunk, work
-// and counters as for repro_flash_decode at KV = 1, dh = 256.
+// q (B, 1, G, 288); c (B, S, 256); kr (B, S, 32); valid (B, S) bytes; all
+// contiguous, q, c and kr of the storage type `dtype` and 16-byte aligned.
+// out_o (B, 1, G, 256) of that type, normalised, when out_m and out_l are
+// both NULL; else fp32 unnormalised o with fp32 m, l (B, 1, G) over the S
+// slots given (the partials a sequence-sharded cache's ranks merge).
+// n_split, chunk, work and counters as for repro_flash_decode at KV = 1,
+// dh = 256.
 extern "C" int repro_flash_decode_latent(
     const void* q, const void* c, const void* kr, const uint8_t* valid,
-    void* out, float* work, int* counters, int B, int S, int G, int n_split,
-    int chunk, float scale, int dtype, void* stream) {
+    void* out_o, float* out_m, float* out_l, float* work, int* counters,
+    int B, int S, int G, int n_split, int chunk, float scale, int dtype,
+    void* stream) {
   return elem::with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     const LatentKV<T> src{static_cast<const T*>(c), static_cast<const T*>(kr),
                           valid, S};
-    return attn::launch_latent_decode(src, static_cast<const T*>(q), out, work,
-                                      counters, B, G, n_split, chunk, scale,
+    return attn::launch_latent_decode(src, static_cast<const T*>(q), out_o,
+                                      out_m, out_l, work, counters, B, G,
+                                      n_split, chunk, scale,
                                       static_cast<cudaStream_t>(stream));
   });
 }

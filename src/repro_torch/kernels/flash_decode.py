@@ -16,7 +16,9 @@ fp32 partials, kept in a workspace cached per (device, stream)
 ``flash_decode_latent`` is the same kernel body on MLA's latent cache:
 q (B, 1, G, 288) against the latent rows c (B, S, 256) and the rope rows kr
 (B, S, 32), key row ``[c, kr]`` and value row ``c``, read in place (no
-concatenated copy), one launch per call, normalised (B, 1, G, 256).
+concatenated copy), one launch per call, normalised (B, 1, G, 256) or, with
+``normalize=False``, the fp32 partials (o, m, l) over the slots given (a
+model rank's slice of a sequence-sharded latent cache).
 
 Inputs are fp32, fp16 or bf16 (one type for q, k and v), head_dim up to
 256; the kernel computes in fp32 and returns the normalised output in the
@@ -64,7 +66,7 @@ def _lib():
 def _lib_latent():
     fn = build.library("flash_decode").repro_flash_decode_latent
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
@@ -204,11 +206,12 @@ def flash_decode_gqa(q, k, v, valid, *, normalize: bool = True):
     return o if normalize else (o, m, l)
 
 
-def flash_decode_latent(q, c, kr, valid):
+def flash_decode_latent(q, c, kr, valid, *, normalize: bool = True):
     """MLA's absorbed decode over the latent cache: q (B, 1, G, dc + dr);
     c (B, S, dc); kr (B, S, dr); valid (B, S) bool, (dc, dr) =
-    ``LATENT_DIMS`` -> (B, 1, G, dc) in the cache's dtype, the scores
-    scaled by 1 / sqrt(dc + dr)."""
+    ``LATENT_DIMS``, the scores scaled by 1 / sqrt(dc + dr).
+    ``normalize`` -> (B, 1, G, dc) in the cache's dtype; else fp32
+    unnormalised partials (o (B, 1, G, dc), m, l (B, 1, G))."""
     tag = check_cuda("flash_decode", q, c, kr)
     b, one, g, dq = q.shape
     s = c.shape[1]
@@ -226,15 +229,23 @@ def flash_decode_latent(q, c, kr, valid):
     n_split, chunk = splits(b, 1, g, s, dc)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     work, cnt = workspace(q.device, stream, b, 1, g, dc, n_split)
-    out = torch.empty((b, 1, g, dc), device=q.device, dtype=c.dtype)
+    if normalize:
+        o = torch.empty((b, 1, g, dc), device=q.device, dtype=c.dtype)
+        m = l = None
+    else:   # one buffer: o, then m, then l
+        out = torch.empty(b * g * (dc + 2), device=q.device,
+                          dtype=torch.float32)
+        o = out[:b * g * dc].view(b, 1, g, dc)
+        m = out[b * g * dc:b * g * (dc + 1)].view(b, 1, g)
+        l = out[b * g * (dc + 1):].view(b, 1, g)
     err = _lib_latent()(q.data_ptr(), c.data_ptr(), kr.data_ptr(),
-                        valid.data_ptr(), out.data_ptr(), _ptr(work),
-                        _ptr(cnt), b, s, g, n_split, chunk,
+                        valid.data_ptr(), o.data_ptr(), _ptr(m), _ptr(l),
+                        _ptr(work), _ptr(cnt), b, s, g, n_split, chunk,
                         1.0 / (dq ** 0.5), tag, stream)
     if err:
         raise RuntimeError(f"flash_decode latent kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return o if normalize else (o, m, l)
 
 
 def flash_decode_partial(q, k, v, valid):

@@ -155,6 +155,19 @@ def decode_latent(q, c, kr, valid):
     return out
 
 
+def decode_latent_partial(q, c, kr, valid):
+    """``decode_latent``'s unnormalised fp32 partials over the slots given:
+    (o (B, 1, G, dc), m, l (B, 1, G)), the reference's ``_decode_partial``
+    on ``concat(c, kr)``; MLA's decode under a mesh merges the model
+    ranks' partials of their cache slices.  Counted under
+    ``flash_decode``."""
+    if not _on_cuda(q, c, kr, valid):
+        return ref.decode_latent_partial_ref(q, c, kr, valid)
+    out = flash_decode_latent(q, c, kr, valid, normalize=False)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
 def attention(q, k, v, *, causal: bool = True,
               window: Optional[int] = None):
     """BH-flat causal attention (``ops.attention``)."""

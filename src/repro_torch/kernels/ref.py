@@ -80,6 +80,15 @@ def decode_gqa_ref(q, k, v, valid):
     return combine_partials(o[None], m[None], l[None]).to(v.dtype)
 
 
+def decode_latent_partial_ref(q, c, kr, valid):
+    """The unnormalised partials of ``decode_latent_ref``: q (B, 1, G,
+    dc + dr); c (B, S, dc); kr (B, S, dr); valid (B, S) -> fp32 (o (B, 1,
+    G, dc), m, l (B, 1, G)), ``_decode_partial`` on key rows ``concat(c,
+    kr)`` and value rows ``c``."""
+    return decode_gqa_partial_ref(q, torch.cat([c, kr], -1)[:, :, None],
+                                  c[:, :, None], valid)
+
+
 def decode_latent_ref(q, c, kr, valid):
     """MLA's absorbed decode as the reference's ``mla_decode`` computes it:
     one virtual KV head with key rows ``concat(c, kr)`` and value rows

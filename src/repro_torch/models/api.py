@@ -22,15 +22,16 @@ Every family is ported: DENSE, MOE and VLM (GQA or MLA attention, in
 tensors lie on a CUDA device (``attn_impl="auto"``), their plain versions
 on the CPU or with ``attn_impl=None``.
 
-A sharding ``ctx`` (``repro_torch.sharding.ShardingCtx``) runs the DENSE,
-MOE and VLM families with GQA attention on a device mesh: each rank
-passes the parameter slices ``shard_params`` gives it and the global
-batch, of which it takes its rows; ``loss`` returns the global loss and
-``prefill`` / ``decode`` the global logits.  ``prefill`` returns this
-rank's rows of the cache (every head, every prompt slot) and ``decode``
-takes the decode layout ``shard_cache`` makes: this rank's rows and its
-slice of the sequence on the model axis.  MLA attention and the ENCDEC,
-XLSTM and MAMBA_HYBRID families raise under a ctx.
+A sharding ``ctx`` (``repro_torch.sharding.ShardingCtx``) runs every
+family on a device mesh: DENSE, MOE and VLM with GQA or MLA attention,
+ENCDEC, XLSTM and MAMBA_HYBRID.  Each rank passes the parameter slices
+``shard_params`` gives it and the global batch, of which it takes its
+rows; ``loss`` returns the global loss and ``prefill`` / ``decode`` the
+global logits.  ``prefill`` returns this rank's rows of the cache (every
+head, every prompt slot) and ``decode`` takes the decode layout
+``shard_cache`` makes: this rank's rows, and the sequence of the
+attention caches split over the model axis.  int8 / int4 parameters
+(``QuantizedTensor`` leaves) raise under a ctx.
 
 ``param_pspecs`` gives the reference's storage layout (its ``_NAME_RULES``
 and ``_MOE_RULES``): per leaf a tuple of mesh axes (or None) per
@@ -44,7 +45,9 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from repro_torch import sharding as sh
-from repro_torch.checkpoint.partition import from_jax_params, tree_map
+from repro_torch.checkpoint.partition import (from_jax_params, tree_leaves,
+                                              tree_map)
+from repro_torch.checkpoint.quant import QuantizedTensor
 from repro_torch.core.modules import resolve_attn_impl
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models import attention, dense_lm, encdec_lm, recurrent_lm
@@ -78,20 +81,18 @@ class ModelAPI:
     empty_cache: Callable[..., Any]   # (batch, seq, dtype?, device) -> cache
 
 
-def _ctx_kw(cfg: ModelConfig, ctx) -> dict:
-    """The passes' ``ctx`` keyword ({} without one); refuses a ctx where
-    this slice leaves the mesh out: MLA attention and the ENCDEC, XLSTM
-    and MAMBA_HYBRID families."""
+def _ctx_kw(cfg: ModelConfig, ctx, params) -> dict:
+    """The passes' ``ctx`` keyword ({} without one).  Raises ``TypeError``
+    for a ctx that is not a ``ShardingCtx``, and ``NotImplementedError``
+    for quantized parameters under one (not yet ported)."""
     if ctx is None:
         return {}
-    if cfg.family in _FAMILIES or cfg.attention == "mla":
-        what = ("MLA attention" if cfg.family not in _FAMILIES
-                else f"the {cfg.family} family")
-        raise NotImplementedError(f"a sharding ctx (the device mesh) with "
-                                  f"{what} ({cfg.name}) is not yet ported "
-                                  f"in repro_torch")
     if not isinstance(ctx, sh.ShardingCtx):
         raise TypeError(f"ctx must be a ShardingCtx, got {type(ctx)}")
+    if any(isinstance(t, QuantizedTensor) for t in tree_leaves(params)):
+        raise NotImplementedError(f"int8 / int4 parameters under a sharding "
+                                  f"ctx ({cfg.name}) are not yet ported in "
+                                  f"repro_torch")
     return {"ctx": ctx}
 
 
@@ -109,13 +110,13 @@ def build_model(cfg: ModelConfig,
         return from_jax_params(init_fn(rng, cfg), device)
 
     def loss(p, b, ctx=None):
-        return loss_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx))
+        return loss_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx, p))
 
     def prefill(p, b, ctx=None):
-        return prefill_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx))
+        return prefill_fn(p, b, cfg, impl(p), **_ctx_kw(cfg, ctx, p))
 
     def decode(p, t, c, pos, ctx=None):
-        return decode_fn(p, t, c, pos, cfg, impl(p), **_ctx_kw(cfg, ctx))
+        return decode_fn(p, t, c, pos, cfg, impl(p), **_ctx_kw(cfg, ctx, p))
 
     def empty_cache(b, s, dt=None, device="cuda"):
         return cache_fn(cfg, b, s, dt, device)
@@ -222,18 +223,41 @@ def shard_params(params, ctx: Optional[sh.ShardingCtx]):
 
 
 def shard_cache(cache, ctx: Optional[sh.ShardingCtx], total: int):
-    """The decode layout of the stacked KV cache {leaf: (L, B, S, KV, dh)}
-    that ``prefill`` under ``ctx`` returns (this rank's rows of B, every
-    head): S padded with zero slots to the decode's length ``total``, then
-    this rank's slice of S on the model axis, as the reference places its
-    cache (``P(None, batch, model)``)."""
+    """The decode layout of the stacked cache that ``prefill`` under
+    ``ctx`` returns (this rank's rows of B, every head, every prompt
+    slot), as the reference's ``cache_pspecs`` places it:
+
+    * attention caches, (L, B, S, ...): GQA's {k, v}, MLA's latent {c, kr},
+      an enc-dec's self cache and Zamba2's site caches {"attn": {k, v}}:
+      S padded with zero slots to the decode's length ``total``, then this
+      rank's slice of S on the model axis (``P(None, batch, model)``);
+    * an enc-dec's cross cache {"cross": {k, v}} (L, B, S_enc, ...): this
+      rank's slice of S_enc when the model axis divides it, else whole
+      (``attention.cross_seq_sharded`` reads the same rule from the
+      config's ``enc_seq_len``, which S_enc must equal);
+    * recurrent states (Mamba2's {"mamba": ...}, xLSTM's mLSTM / sLSTM):
+      as they are, this rank's rows with every head."""
     if ctx is None:
         raise ValueError("shard_cache needs a ShardingCtx")
 
-    def leaf(x):
-        if total > x.shape[2]:
+    def seq(x, pad_to):
+        if pad_to > x.shape[2]:
             pad = list(x.shape)
-            pad[2] = total - x.shape[2]
+            pad[2] = pad_to - x.shape[2]
             x = torch.cat([x, x.new_zeros(pad)], dim=2)
         return sh.local_slice(ctx, x, ctx.model_axis, 2).contiguous()
-    return tree_map(leaf, cache)
+
+    def attn_cache(tree):
+        return tree_map(lambda x: seq(x, total), tree)
+
+    if "self" in cache:                                     # ENCDEC
+        cross = cache["cross"]
+        if cross["k"].shape[2] % ctx.model_size == 0:
+            cross = tree_map(lambda x: seq(x, 0), cross)
+        return {"self": attn_cache(cache["self"]), "cross": cross}
+    if "mamba" in cache:                                    # MAMBA_HYBRID
+        return {"mamba": cache["mamba"],
+                "attn": cache["attn"] and attn_cache(cache["attn"])}
+    if "mlstm" in cache:                                    # XLSTM
+        return cache
+    return attn_cache(cache)

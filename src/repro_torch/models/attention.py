@@ -275,21 +275,29 @@ def _project_qkv_ctx(params, x, cfg: ModelConfig, ctx, impl, local: bool):
     over the model axis (a replicated one computed whole)."""
     if ctx is None:
         return _project_qkv(params, x, cfg, impl)
+    xf = sh.copy_to_model(ctx, x)
+    return tuple(_project_ctx(params, x, xf, name, heads, cfg, ctx, impl,
+                              local)
+                 for name, heads in (("q", cfg.n_heads),
+                                     ("k", cfg.n_kv_heads),
+                                     ("v", cfg.n_kv_heads)))
+
+
+def _project_ctx(params, x, xf, name: str, heads: int, cfg: ModelConfig,
+                 ctx, impl, local: bool):
+    """One of ``_project_qkv_ctx``'s projections (``name`` "q", "k" or
+    "v" of ``heads`` heads) of ``x`` (B, S, D) under a ctx; ``xf`` is
+    ``copy_to_model(x)``, the input of a column-split weight."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    xf = sh.copy_to_model(ctx, x)
-    out = []
-    for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
-                        ("v", cfg.n_kv_heads)):
-        w = params["w_" + name]
-        split = ctx.model_size > 1 and w.shape[-1] != heads * dh
-        y = common.linear(xf if split else x, w, impl)
-        if cfg.qkv_bias:
-            y = y + params["b_" + name]
-        if split and not local:
-            y = sh.gather_from_model(ctx, y, -1)
-        out.append(y.reshape(b, s, -1, dh))
-    return tuple(out)
+    w = params["w_" + name]
+    split = ctx.model_size > 1 and w.shape[-1] != heads * dh
+    y = common.linear(xf if split else x, w, impl)
+    if cfg.qkv_bias:
+        y = y + params["b_" + name]
+    if split and not local:
+        y = sh.gather_from_model(ctx, y, -1)
+    return y.reshape(b, s, -1, dh)
 
 
 def _out_proj(w_o, o, ctx, local: bool, impl):
@@ -393,32 +401,54 @@ def _decode_sharded(params, x, cfg: ModelConfig, cache, pos, mrope3, impl,
     q, k, v = _project_qkv_ctx(params, x, cfg, ctx, impl, local=False)
     q, k = _rotate_decode(cfg, q, k, pos_b, mrope3)
     s_loc = cache["k"].shape[1]
-    s_cache = s_loc * ctx.model_size
-    start = ctx.model_rank * s_loc
-    slot = pos % s_cache - start
+    start, valid = _seq_slice(cfg, ctx, pos_b, s_loc)
+    slot = pos % (s_loc * ctx.model_size) - start
     if 0 <= slot < s_loc:
         cache_update(cache["k"], k[:, 0], slot)
         cache_update(cache["v"], v[:, 0], slot)
-    valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache)
-    valid = valid[:, start:start + s_loc].contiguous()
-    o, m, l = decode_partial(q.reshape(b, kv, g, dh).contiguous(),
-                             cache["k"], cache["v"], valid, impl)
+    out = merge_partials(ctx, *decode_partial(
+        q.reshape(b, kv, g, dh).contiguous(), cache["k"], cache["v"], valid,
+        impl))
+    out = out.to(cache["v"].dtype).reshape(b, 1, kv * g * dh)
+    return _out_proj(params["w_o"], out, ctx, False, impl), cache
+
+
+def merge_partials(ctx, o, m, l):
+    """The normalised attention output from each model rank's fp32
+    partials (o (..., d), m, l (...)) over its slice of the keys: the max
+    of m, then one all-reduce of o w and l w (w = exp(m - max)), as the
+    reference's ``flash_decode`` under a mesh merges them."""
     m_star = sh.pmax(ctx, m, ctx.model_axis)
     w = torch.exp(m - m_star)
     ol = sh.all_reduce(ctx, torch.cat([o * w[..., None], (l * w)[..., None]],
                                       -1), ctx.model_axis)
-    out = (ol[..., :dh] / torch.clamp(ol[..., dh], min=1e-30)[..., None])
-    out = out.to(cache["v"].dtype).reshape(b, 1, kv * g * dh)
-    return _out_proj(params["w_o"], out, ctx, False, impl), cache
+    return ol[..., :-1] / torch.clamp(ol[..., -1], min=1e-30)[..., None]
+
+
+def _seq_slice(cfg: ModelConfig, ctx, pos_b, s_loc: int):
+    """(this model rank's first slot, its (B, s_loc) valid mask) of a
+    decode cache whose sequence is split over the model axis."""
+    start = ctx.model_rank * s_loc
+    valid = decode_valid(cfg, pos_b, s_loc * ctx.model_size)
+    valid = valid.expand(pos_b.shape[0], -1)
+    return start, valid[:, start:start + s_loc].contiguous()
 
 
 # ===========================================================================
 # Cross attention (encoder-decoder)
 # ===========================================================================
 def cross_attn_prefill_kv(params, enc_out, cfg: ModelConfig,
-                          attn_impl: Optional[str] = None) -> dict:
+                          attn_impl: Optional[str] = None, ctx=None) -> dict:
     """The static cross-attention cache {k, v} (B, S_enc, KV, dh) from the
-    encoder's output (no rotary: cross attention carries no positions)."""
+    encoder's output (no rotary: cross attention carries no positions).
+    Under a ``ctx`` whose model ranks hold whole heads (``_local_heads``)
+    this rank's heads, else every head (``gather_heads`` makes the
+    cache's every head of it)."""
+    if ctx is not None:
+        local = _local_heads(params, cfg, ctx)
+        xf = sh.copy_to_model(ctx, enc_out)
+        return {n: _project_ctx(params, enc_out, xf, n, cfg.n_kv_heads, cfg,
+                                ctx, attn_impl, local) for n in ("k", "v")}
     b, s, _ = enc_out.shape
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     k = common.linear(enc_out, params["w_k"], attn_impl).reshape(b, s, kv, dh)
@@ -429,32 +459,77 @@ def cross_attn_prefill_kv(params, enc_out, cfg: ModelConfig,
     return {"k": k, "v": v}
 
 
+def gather_heads(ctx, cache: dict, cfg: ModelConfig) -> dict:
+    """A cache {k, v} (B, S, heads, dh) with every KV head: one that holds
+    this rank's heads is gathered over the model axis."""
+    if ctx is None or cache["k"].shape[2] == cfg.n_kv_heads:
+        return cache
+    return {n: sh.all_gather(ctx, t, ctx.model_axis, 2)
+            for n, t in cache.items()}
+
+
+def cross_seq_sharded(cfg: ModelConfig, ctx) -> bool:
+    """Whether the decode's cross cache is split by sequence over the model
+    axis: when the encoder's ``enc_seq_len`` divides it, else it stays
+    whole (the reference's ``cache_pspecs``)."""
+    return (ctx is not None and ctx.model_size > 1
+            and cfg.enc_seq_len % ctx.model_size == 0)
+
+
 def cross_attn_apply(params, x, kv_cache, cfg: ModelConfig,
-                     attn_impl: Optional[str] = None):
+                     attn_impl: Optional[str] = None, ctx=None):
     """x: (B, Sq, D) attends, non-causally, over the encoder's {k, v}
     (B, Sk, KV, dh).  One query token (decode) is a flash decode with every
     slot of the cross cache valid, the zero rows an ``empty_cache`` leaves
     past the frames included, as in the reference; more is non-causal
     prefill attention at Sq != Sk (the reference runs its jnp
-    ``chunked_attention`` here; the port its flash-attention kernel)."""
+    ``chunked_attention`` here; the port its flash-attention kernel).
+
+    Under a ``ctx`` the prefill attends over the heads
+    ``cross_attn_prefill_kv`` gave (this rank's, or every head), its
+    output through the row-parallel ``w_o``.  The decode takes every
+    head's query against the cross cache as ``api.shard_cache`` lays it
+    out: split by sequence (``cross_seq_sharded``), each rank's
+    flash-decoding partials over its slots merged over the model axis,
+    else whole."""
     b, sq, _ = x.shape
     kv, g, dh = cfg.n_kv_heads, cfg.q_heads_per_kv, cfg.head_dim
-    q = common.linear(x, params["w_q"], attn_impl).reshape(b, sq,
-                                                          cfg.n_heads, dh)
-    if cfg.qkv_bias:
-        q = q + params["b_q"].reshape(cfg.n_heads, dh)
     k, v = kv_cache["k"], kv_cache["v"]
+    if ctx is not None:
+        local = sq > 1 and _local_heads(params, cfg, ctx)
+        q = _project_ctx(params, x, sh.copy_to_model(ctx, x), "q",
+                         cfg.n_heads, cfg, ctx, attn_impl, local)
+    else:
+        local = False
+        q = common.linear(x, params["w_q"], attn_impl).reshape(
+            b, sq, cfg.n_heads, dh)
+        if cfg.qkv_bias:
+            q = q + params["b_q"].reshape(cfg.n_heads, dh)
+    kvh = k.shape[2]
     if sq == 1:
         valid = torch.ones((b, k.shape[1]), dtype=torch.bool, device=x.device)
-        out = flash_decode(q.reshape(b, kv, g, dh).contiguous(),
-                           k.contiguous(), v.contiguous(), valid,
-                           impl=attn_impl)
+        qh = q.reshape(b, kv, g, dh).contiguous()
+        if cross_seq_sharded(cfg, ctx):
+            if k.shape[1] * ctx.model_size != cfg.enc_seq_len:
+                raise ValueError(
+                    f"cross cache of {k.shape[1]} slots on each of "
+                    f"{ctx.model_size} model ranks, expected enc_seq_len "
+                    f"{cfg.enc_seq_len} split over them (api.shard_cache)")
+            out = merge_partials(ctx, *decode_partial(
+                qh, k.contiguous(), v.contiguous(), valid, attn_impl))
+            out = out.to(v.dtype)
+        else:
+            out = flash_decode(qh, k.contiguous(), v.contiguous(), valid,
+                               impl=attn_impl)
     else:
-        out = prefill_attention(q.reshape(b, sq, kv, g, dh).contiguous(),
-                                k.contiguous(), v.contiguous(), causal=False,
-                                window=None, impl=attn_impl)
-    return common.linear(out.reshape(b, sq, kv * g * dh), params["w_o"],
-                         attn_impl)
+        out = prefill_attention(
+            q.reshape(b, sq, kvh, q.shape[2] // kvh, dh).contiguous(),
+            k.contiguous(), v.contiguous(), causal=False, window=None,
+            impl=attn_impl)
+    out = out.reshape(b, sq, -1)
+    if ctx is not None:
+        return _out_proj(params["w_o"], out, ctx, local, attn_impl)
+    return common.linear(out, params["w_o"], attn_impl)
 
 
 # ===========================================================================
@@ -553,35 +628,87 @@ def gqa_verify_paged(params, x, cfg: ModelConfig, pools, tables, pos, *,
 # ===========================================================================
 # MLA (multi-head latent attention): prefill + absorbed-matrix decode
 # ===========================================================================
+# MLA's head-split weights (``param_pspecs``): the up-projections
+# column-split on heads, ``w_o`` row-split; w_dq, w_dkv, w_kr and the norms
+# whole.  name -> (the dim the model axis splits, the head width)
+_MLA_SPLIT = {"w_uq_nope": (1, "v_head_dim"), "w_uq_rope": (1, "rope_head_dim"),
+              "w_uk": (1, "v_head_dim"), "w_uv": (1, "v_head_dim"),
+              "w_o": (0, "v_head_dim")}
+
+
+def _mla_params(params, cfg: ModelConfig, ctx):
+    """(params, local) of MLA under a ``ctx``: each model rank on its heads
+    (``local``) when every weight of ``_MLA_SPLIT`` holds this rank's
+    whole heads, else every weight whole (a split one gathered over the
+    model axis; its gradient is this rank's part of the replicated one)."""
+    if ctx is None or ctx.model_size == 1:
+        return params, False
+    m, h = ctx.model_size, cfg.n_heads
+    split = {n: params[n].shape[d] != h * getattr(cfg, width)
+             for n, (d, width) in _MLA_SPLIT.items()}
+    if all(split.values()) and h % m == 0:
+        return params, True
+    whole = dict(params)
+    for n, (d, _) in _MLA_SPLIT.items():
+        if split[n]:
+            whole[n] = sh.gather_from_model(ctx, params[n], d)
+    return whole, False
+
+
+def _mla_queries(p, x, cfg: ModelConfig, positions, impl, split_in):
+    """(q_nope (B,S,h,dn), q_rope (B,S,h,dr), rotated) of the heads ``p``'s
+    up-projections hold; ``split_in`` passes their input
+    (``copy_to_model`` on a rank's heads)."""
+    b, s, _ = x.shape
+    qc = split_in(common.rms_norm(common.linear(x, p["w_dq"], impl),
+                                  p["q_norm"], cfg.norm_eps))
+    q_nope = common.linear(qc, p["w_uq_nope"], impl).reshape(
+        b, s, -1, cfg.v_head_dim)
+    q_rope = common.apply_rope(common.linear(qc, p["w_uq_rope"], impl).reshape(
+        b, s, -1, cfg.rope_head_dim), positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions, impl):
+    """(c (B,S,dc), k_rope (B,S,1,dr) rotated): the latent and rope rows
+    the cache keeps."""
+    b, s, _ = x.shape
+    c = common.rms_norm(common.linear(x, p["w_dkv"], impl), p["kv_norm"],
+                        cfg.norm_eps)
+    k_rope = common.apply_rope(common.linear(x, p["w_kr"], impl).reshape(
+        b, s, 1, cfg.rope_head_dim), positions, cfg.rope_theta)
+    return c, k_rope
+
+
 def mla_prefill(params, x, cfg: ModelConfig, positions, *, make_cache=True,
-                attn_impl: Optional[str] = None):
+                attn_impl: Optional[str] = None, ctx=None):
     """x: (B,S,D) -> (out (B,S,D), cache {c (B,S,dc), kr (B,S,dr)} | None).
     Per-head q / k of width dn + dr (the rope half shared by every head's
     key) against v of width dv: one causal ``prefill_attention`` over
-    n_heads KV heads of one query each, scaled by 1/sqrt(dn + dr)."""
+    n_heads KV heads of one query each, scaled by 1/sqrt(dn + dr).  Under
+    a ``ctx`` (``_mla_params``) each model rank attends over its heads and
+    one all-reduce joins the row-split ``w_o``; the latent cache is whole
+    on every rank."""
     b, s, _ = x.shape
-    h, dn, dr, dv = (cfg.n_heads, cfg.v_head_dim, cfg.rope_head_dim,
-                     cfg.v_head_dim)
-    qc = common.rms_norm(common.linear(x, params["w_dq"], attn_impl),
-                         params["q_norm"], cfg.norm_eps)
-    q_nope = common.linear(qc, params["w_uq_nope"], attn_impl).reshape(
-        b, s, h, dn)
-    q_rope = common.apply_rope(common.linear(
-        qc, params["w_uq_rope"], attn_impl).reshape(b, s, h, dr), positions,
-        cfg.rope_theta)
-    c = common.rms_norm(common.linear(x, params["w_dkv"], attn_impl),
-                        params["kv_norm"], cfg.norm_eps)
-    k_rope = common.apply_rope(common.linear(
-        x, params["w_kr"], attn_impl).reshape(b, s, 1, dr), positions,
-        cfg.rope_theta)
-    k_nope = common.linear(c, params["w_uk"], attn_impl).reshape(b, s, h, dn)
-    v = common.linear(c, params["w_uv"], attn_impl).reshape(b, s, h, dv)
-    q_full = torch.cat([q_nope, q_rope], -1)               # (B,S,H,dn+dr)
-    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], -1)
+    dn, dr, dv = cfg.v_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    p, local = _mla_params(params, cfg, ctx)
+
+    def split_in(t):
+        return sh.copy_to_model(ctx, t) if local else t
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions, attn_impl, split_in)
+    c, k_rope = _mla_latent(p, x, cfg, positions, attn_impl)
+    h = q_nope.shape[2]
+    c_in = split_in(c)
+    k_nope = common.linear(c_in, p["w_uk"], attn_impl).reshape(b, s, h, dn)
+    v = common.linear(c_in, p["w_uv"], attn_impl).reshape(b, s, h, dv)
+    q_full = torch.cat([q_nope, q_rope], -1)               # (B,S,h,dn+dr)
+    k_full = torch.cat([k_nope, split_in(k_rope).expand(b, s, h, dr)], -1)
     out = prefill_attention(q_full.reshape(b, s, h, 1, dn + dr), k_full,
                             v.contiguous(), causal=True, window=None,
                             impl=attn_impl)
-    out = common.linear(out.reshape(b, s, h * dv), params["w_o"], attn_impl)
+    out = common.linear(out.reshape(b, s, h * dv), p["w_o"], attn_impl)
+    if local:
+        out = sh.reduce_from_model(ctx, out)
     cache = {"c": c, "kr": k_rope[:, :, 0]} if make_cache else None
     return out, cache
 
@@ -616,42 +743,76 @@ def absorb_heads(x, w, n: int, *, trans: bool,
                                         trans=trans)
 
 
+def latent_partial(q, c_cache, kr_cache, valid,
+                   impl: Optional[str] = None):
+    """``latent_decode``'s unnormalised fp32 partials (o (B,1,G,dc), m, l
+    (B,1,G)) over a slice of the latent cache: the flash-decoding kernel's
+    (``impl=KERNEL``; its plain version for CPU tensors) or the plain
+    version."""
+    if impl == KERNEL:
+        return ops.decode_latent_partial(q, c_cache, kr_cache, valid)
+    return ref.decode_latent_partial_ref(q, c_cache, kr_cache, valid)
+
+
 def mla_decode(params, x, cfg: ModelConfig, cache, pos, *,
-               attn_impl: Optional[str] = None):
+               attn_impl: Optional[str] = None, ctx=None):
     """Absorbed-matrix MLA decode over the latent cache: x (B,1,D); cache
     {c (B,S,dc), kr (B,S,dr)}, written IN PLACE at ``pos`` (an int or a
     RAGGED (B,) device vector) -> (out, cache).  The latent cache is one
     virtual KV head of width dc + dr attended by all n_heads queries;
     W_uk is absorbed into the query and W_uv into the output, so decode
-    never expands per-head K/V."""
+    never expands per-head K/V.
+
+    Under a ``ctx`` the cache's sequence is split over the model axis
+    (``api.shard_cache``) and every rank needs every head's query: each
+    absorbs ``W_uk`` on its heads (``_mla_params``), the absorbed queries
+    are gathered over the model axis, each rank takes the latent partials
+    of its slots (the rank that owns ``pos`` writes the new row), the
+    partials are merged as GQA's (``merge_partials``), and each rank
+    un-absorbs ``W_uv`` on its heads before the row-split ``w_o``.  ``pos``
+    is then one slot for every row."""
     b = x.shape[0]
-    h, dn, dr = cfg.n_heads, cfg.v_head_dim, cfg.rope_head_dim
     dc, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    if ctx is not None and torch.is_tensor(pos) and pos.ndim:
+        raise NotImplementedError(
+            "ragged per-row cache positions are single-device only "
+            "(the seq-sharded serving cache keeps one slot per step)")
     pos_b = _pos_column(pos, b, x.device)
-    qc = common.rms_norm(common.linear(x, params["w_dq"], attn_impl),
-                         params["q_norm"], cfg.norm_eps)
-    q_nope = common.linear(qc, params["w_uq_nope"], attn_impl).reshape(
-        b, 1, h, dn)
-    q_rope = common.apply_rope(common.linear(
-        qc, params["w_uq_rope"], attn_impl).reshape(b, 1, h, dr), pos_b,
-        cfg.rope_theta)
+    p, local = _mla_params(params, cfg, ctx)
+    q_nope, q_rope = _mla_queries(p, x, cfg, pos_b, attn_impl,
+                                  lambda t: t)
     # absorb W_uk: q_abs[h] = q_nope[h] @ W_uk[h].T, into the latent space
-    q_abs = absorb_heads(q_nope[:, 0], params["w_uk"], dc, trans=True,
-                         impl=attn_impl)                       # (B,H,dc)
-    q_eff = torch.cat([q_abs, q_rope[:, 0]], -1)               # (B,H,dc+dr)
-    c_new = common.rms_norm(common.linear(x, params["w_dkv"], attn_impl),
-                            params["kv_norm"], cfg.norm_eps)[:, 0]
-    kr_new = common.apply_rope(common.linear(
-        x, params["w_kr"], attn_impl).reshape(b, 1, 1, dr), pos_b,
-        cfg.rope_theta)[:, 0, 0]
-    c_cache = cache_update(cache["c"], c_new, pos)
-    kr_cache = cache_update(cache["kr"], kr_new, pos)
-    s_cache = c_cache.shape[1]
-    valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache).contiguous()
-    o_lat = latent_decode(q_eff[:, None].contiguous(), c_cache, kr_cache,
-                          valid, impl=attn_impl)               # (B,1,H,dc)
+    q_abs = absorb_heads(q_nope[:, 0], p["w_uk"], dc, trans=True,
+                         impl=attn_impl)                       # (B,h,dc)
+    q_eff = torch.cat([q_abs, q_rope[:, 0]], -1)               # (B,h,dc+dr)
+    c_new, kr_new = _mla_latent(p, x, cfg, pos_b, attn_impl)
+    c_new, kr_new = c_new[:, 0], kr_new[:, 0, 0]
+    if ctx is None:
+        c_cache = cache_update(cache["c"], c_new, pos)
+        kr_cache = cache_update(cache["kr"], kr_new, pos)
+        s_cache = c_cache.shape[1]
+        valid = decode_valid(cfg, pos_b, s_cache).expand(b, s_cache)
+        o_lat = latent_decode(q_eff[:, None].contiguous(), c_cache, kr_cache,
+                              valid.contiguous(), impl=attn_impl)
+    else:
+        c_cache, kr_cache = cache["c"], cache["kr"]
+        if local:
+            q_eff = sh.gather_from_model(ctx, q_eff, 1)        # (B,H,dc+dr)
+        s_loc = c_cache.shape[1]
+        start, valid = _seq_slice(cfg, ctx, pos_b, s_loc)
+        slot = int(pos) % (s_loc * ctx.model_size) - start
+        if 0 <= slot < s_loc:
+            cache_update(c_cache, c_new, slot)
+            cache_update(kr_cache, kr_new, slot)
+        o_lat = merge_partials(ctx, *latent_partial(
+            q_eff[:, None].contiguous(), c_cache, kr_cache, valid,
+            attn_impl)).to(c_cache.dtype)                      # (B,1,H,dc)
+        if local:
+            o_lat = sh.local_slice(ctx, o_lat, ctx.model_axis, 2)
     # un-absorb W_uv: out[h] = o_lat[h] @ W_uv[h]
-    out = absorb_heads(o_lat[:, 0], params["w_uv"], dv, trans=False,
-                       impl=attn_impl).reshape(b, 1, h * dv)
-    out = common.linear(out, params["w_o"], attn_impl)
+    out = absorb_heads(o_lat[:, 0], p["w_uv"], dv, trans=False,
+                       impl=attn_impl)
+    out = common.linear(out.reshape(b, 1, -1), p["w_o"], attn_impl)
+    if local:
+        out = sh.reduce_from_model(ctx, out)
     return out, {"c": c_cache, "kr": kr_cache}

@@ -194,6 +194,18 @@ def mlp_apply(params: dict, x: torch.Tensor,
                   params["w_down"], impl)
 
 
+def mlp_apply_ctx(params: dict, x: torch.Tensor, d_ff: int,
+                  impl: Optional[str] = None, ctx=None) -> torch.Tensor:
+    """``mlp_apply`` of an MLP of width ``d_ff`` under a sharding ``ctx``:
+    when its columns are split over the model axis (``w_up`` / ``w_gate``
+    column-, ``w_down`` row-wise, narrower than ``d_ff``) this rank's
+    columns, the partial outputs summed over the model axis (Megatron)."""
+    if ctx is None or params["w_up"].shape[-1] == d_ff:
+        return mlp_apply(params, x, impl)
+    return sh.reduce_from_model(ctx, mlp_apply(params,
+                                               sh.copy_to_model(ctx, x), impl))
+
+
 # ---------------------------------------------------------------------------
 # Chunked cross-entropy (never materialises (B, S, V) at once)
 # ---------------------------------------------------------------------------

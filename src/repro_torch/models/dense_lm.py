@@ -105,10 +105,7 @@ def _ffn_aux(p, x, cfg: ModelConfig, impl: Optional[str], ctx=None):
         out, aux = moe.moe_apply(p["moe"], h, cfg, ctx)
         return x + out, aux
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    if ctx is not None and p["mlp"]["w_up"].shape[-1] != cfg.d_ff:
-        part = common.mlp_apply(p["mlp"], sh.copy_to_model(ctx, h), impl)
-        return x + sh.reduce_from_model(ctx, part), zero
-    return x + common.mlp_apply(p["mlp"], h, impl), zero
+    return x + common.mlp_apply_ctx(p["mlp"], h, cfg.d_ff, impl, ctx), zero
 
 
 def _ffn(p, x, cfg: ModelConfig, impl: Optional[str], ctx=None):
@@ -120,7 +117,7 @@ def attn_prefill(p, h, cfg: ModelConfig, positions, *, make_cache,
     """The layer's attention block on the normed input: MLA or GQA."""
     if cfg.attention == "mla":
         return attn.mla_prefill(p, h, cfg, positions, make_cache=make_cache,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, ctx=ctx)
     return attn.gqa_prefill(p, h, cfg, positions, causal=cfg.causal,
                             make_cache=make_cache, attn_impl=attn_impl,
                             ctx=ctx)
@@ -131,7 +128,8 @@ def attn_decode(p, h, cfg: ModelConfig, cache, pos, *, mrope3=None,
     """One token per row against the layer's cache: MLA or GQA (a VLM's
     text token with its M-RoPE ids ``mrope3``)."""
     if cfg.attention == "mla":
-        return attn.mla_decode(p, h, cfg, cache, pos, attn_impl=attn_impl)
+        return attn.mla_decode(p, h, cfg, cache, pos, attn_impl=attn_impl,
+                               ctx=ctx)
     return attn.gqa_decode(p, h, cfg, cache, pos, mrope_positions3=mrope3,
                            attn_impl=attn_impl, ctx=ctx)
 
@@ -312,13 +310,22 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.family == VLM:
         x = x[:, text_off:]
-    labels = sh.batch_rows(ctx, batch["labels"]).to(x.device)
+    loss = xent(params, x, batch["labels"], cfg, ctx)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+
+def xent(params, x, labels, cfg: ModelConfig, ctx=None):
+    """The mean cross-entropy of the final normed hidden rows x (B, S, D)
+    against the labels (the global batch's; under a ``ctx`` this rank
+    takes its rows, the head's vocabulary may be split, and the loss is
+    averaged over the batch axes: every rank returns the global loss)."""
+    labels = sh.batch_rows(ctx, labels).to(x.device)
     loss = common.chunked_softmax_xent(
         x, lm_head_weight(params, cfg), labels,
         ctx=ctx if _vocab_split(params, cfg, ctx) else None)
     if ctx is not None and ctx.shard_batch:
         loss = sh.pmean(ctx, loss, ctx.batch_axes)
-    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+    return loss
 
 
 def prefill_fn(params, batch: dict, cfg: ModelConfig,

@@ -15,6 +15,15 @@ the cross caches, as ``models/attention`` chooses by ``attn_impl``.  With
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` bodies).
 The caches are ``{"self": {k, v}, "cross": {k, v}}`` with the layers
 stacked on a leading axis; ``decode_fn`` writes the self cache in place.
+
+With a sharding ``ctx`` (``repro_torch.sharding``) the passes run on a
+device mesh as ``dense_lm``'s do: the batch's rows (frames, tokens,
+labels) split over the batch axes; the self, cross and encoder attention
+heads and the MLP columns over the model axis (tensor-parallel); the
+embedding, head and cross-entropy split by vocabulary
+(``dense_lm.embed`` / ``logits_of`` / ``xent``).  The decode's self cache
+is split by sequence over the model axis, its cross cache too when the
+axis divides ``enc_seq_len`` (``attention.cross_attn_apply``).
 """
 from __future__ import annotations
 
@@ -23,8 +32,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, dense_lm
 from repro_torch.models.config import ModelConfig
 
 
@@ -73,8 +83,16 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def encode(params, frames, cfg: ModelConfig,
-           impl: Optional[str] = None) -> torch.Tensor:
+def _mlp(p, h, cfg: ModelConfig, impl: Optional[str], ctx):
+    f = common.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
+    return h + common.mlp_apply_ctx(p["mlp"], f, cfg.d_ff, impl, ctx)
+
+
+def encode(params, frames, cfg: ModelConfig, impl: Optional[str] = None,
+           ctx=None) -> torch.Tensor:
+    """The encoder's output (B, S_enc, D) of this rank's rows of the
+    global ``frames`` (all of them without a ``ctx``)."""
+    frames = sh.batch_rows(ctx, frames)
     b, s_enc, _ = frames.shape
     x = frames.to(cfg.torch_dtype) @ params["frame_proj"]
     positions = _positions(b, s_enc, x.device)
@@ -82,10 +100,8 @@ def encode(params, frames, cfg: ModelConfig,
     def body(p, h):
         a = common.rms_norm(h, p["attn_norm"], cfg.norm_eps)
         a, _ = attn.gqa_prefill(p["attn"], a, cfg, positions, causal=False,
-                                make_cache=False, attn_impl=impl)
-        h = h + a
-        f = common.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
-        return h + common.mlp_apply(p["mlp"], f, impl)
+                                make_cache=False, attn_impl=impl, ctx=ctx)
+        return _mlp(p, h + a, cfg, impl, ctx)
 
     for i in range(cfg.enc_layers):
         p = common.take(params["enc_layers"], i)
@@ -94,80 +110,87 @@ def encode(params, frames, cfg: ModelConfig,
 
 
 def _dec_layer_prefill(p, h, enc_out, cfg: ModelConfig, positions,
-                       make_cache: bool, impl: Optional[str]):
+                       make_cache: bool, impl: Optional[str], ctx=None):
     a = common.rms_norm(h, p["self_norm"], cfg.norm_eps)
     a, self_cache = attn.gqa_prefill(p["self_attn"], a, cfg, positions,
                                      causal=True, make_cache=make_cache,
-                                     attn_impl=impl)
+                                     attn_impl=impl, ctx=ctx)
     h = h + a
     c = common.rms_norm(h, p["cross_norm"], cfg.norm_eps)
     cross_kv = attn.cross_attn_prefill_kv(p["cross_attn"], enc_out, cfg,
-                                          impl)
-    h = h + attn.cross_attn_apply(p["cross_attn"], c, cross_kv, cfg, impl)
-    f = common.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
-    return h + common.mlp_apply(p["mlp"], f, impl), self_cache, cross_kv
+                                          impl, ctx)
+    h = h + attn.cross_attn_apply(p["cross_attn"], c, cross_kv, cfg, impl,
+                                  ctx)
+    if make_cache:
+        cross_kv = attn.gather_heads(ctx, cross_kv, cfg)
+    return _mlp(p, h, cfg, impl, ctx), self_cache, cross_kv
 
 
 def _decoder_inputs(params, batch: dict, cfg: ModelConfig,
-                    impl: Optional[str]):
+                    impl: Optional[str], ctx):
     enc_out = encode(params, batch["frames"].to(params["embed"].device), cfg,
-                     impl)
-    tokens = batch["tokens"].long()
+                     impl, ctx)
+    tokens = sh.batch_rows(ctx, batch["tokens"]).long()
     b, s = tokens.shape
-    return enc_out, params["embed"][tokens], _positions(b, s, enc_out.device)
+    return (enc_out, dense_lm.embed(params, tokens, cfg, ctx),
+            _positions(b, s, enc_out.device))
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig,
-            impl: Optional[str] = None) -> Tuple[torch.Tensor, dict]:
-    enc_out, x, positions = _decoder_inputs(params, batch, cfg, impl)
+            impl: Optional[str] = None, ctx=None
+            ) -> Tuple[torch.Tensor, dict]:
+    enc_out, x, positions = _decoder_inputs(params, batch, cfg, impl, ctx)
 
     def body(p, h, e):
-        return _dec_layer_prefill(p, h, e, cfg, positions, False, impl)[0]
+        return _dec_layer_prefill(p, h, e, cfg, positions, False, impl,
+                                  ctx)[0]
 
     for i in range(cfg.num_layers):
         p = common.take(params["dec_layers"], i)
         x = common.maybe_checkpoint(_remat(cfg), body, p, x, enc_out)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = common.chunked_softmax_xent(x, params["lm_head"],
-                                       batch["labels"].to(x.device))
+    loss = dense_lm.xent(params, x, batch["labels"], cfg, ctx)
     return loss, {"xent": loss}
 
 
 def prefill_fn(params, batch: dict, cfg: ModelConfig,
-               impl: Optional[str] = None):
+               impl: Optional[str] = None, ctx=None):
     """(last-token logits (B, V) fp32, the stacked caches {"self": {k, v}
-    (L, B, S, KV, dh), "cross": {k, v} (L, B, S_enc, KV, dh)})."""
-    enc_out, x, positions = _decoder_inputs(params, batch, cfg, impl)
+    (L, B, S, KV, dh), "cross": {k, v} (L, B, S_enc, KV, dh)}).  Under a
+    ``ctx`` the logits are the global batch's and the caches hold this
+    rank's rows, every head and every slot (``api.shard_cache`` lays them
+    out for ``decode_fn``)."""
+    enc_out, x, positions = _decoder_inputs(params, batch, cfg, impl, ctx)
     caches = []
     for i in range(cfg.num_layers):
         x, self_c, cross_c = _dec_layer_prefill(
             common.take(params["dec_layers"], i), x, enc_out, cfg, positions,
-            True, impl)
+            True, impl, ctx)
         caches.append({"self": self_c, "cross": cross_c})
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, -1] @ params["lm_head"]
-    return logits.float(), common.stack_trees(caches)
+    return (dense_lm.logits_of(params, x[:, -1], cfg, ctx),
+            common.stack_trees(caches))
 
 
 def decode_fn(params, tokens, cache: dict, pos, cfg: ModelConfig,
-              impl: Optional[str] = None):
+              impl: Optional[str] = None, ctx=None):
     """tokens (B, 1) at self-cache position ``pos`` -> (logits (B, V)
-    fp32, cache), the self cache written in place."""
-    x = params["embed"][tokens.long()]
+    fp32, cache), the self cache written in place.  Under a ``ctx`` the
+    tokens and logits are the global batch's and the cache this rank's
+    shard (``api.shard_cache``)."""
+    x = dense_lm.embed(params, sh.batch_rows(ctx, tokens).long(), cfg, ctx)
     for i in range(cfg.num_layers):
         p, c = common.take(params["dec_layers"], i), common.take(cache, i)
         a = common.rms_norm(x, p["self_norm"], cfg.norm_eps)
         a, _ = attn.gqa_decode(p["self_attn"], a, cfg, c["self"], pos,
-                               attn_impl=impl)
+                               attn_impl=impl, ctx=ctx)
         x = x + a
         cc = common.rms_norm(x, p["cross_norm"], cfg.norm_eps)
         x = x + attn.cross_attn_apply(p["cross_attn"], cc, c["cross"], cfg,
-                                      impl)
-        f = common.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + common.mlp_apply(p["mlp"], f, impl)
+                                      impl, ctx)
+        x = _mlp(p, x, cfg, impl, ctx)
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, -1] @ params["lm_head"]
-    return logits.float(), cache
+    return dense_lm.logits_of(params, x[:, -1], cfg, ctx), cache
 
 
 def empty_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,

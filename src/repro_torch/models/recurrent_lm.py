@@ -24,6 +24,16 @@ loss path, and each shared site, runs under ``torch.utils.checkpoint``.
 
 The passes return new recurrent states; Zamba2's decode writes the
 sites' KV caches in place, as ``attention.gqa_decode`` does.
+
+With a sharding ``ctx`` (``repro_torch.sharding``) the passes run on a
+device mesh as the reference lays them out: the batch's rows over the
+batch axes; the mLSTM heads (``w_up``, ``w_q``, ``w_k``, ``w_v`` column-,
+``w_down`` row-split) and Zamba2's shared attention and MLP over the model
+axis; the embedding, head and cross-entropy split by vocabulary
+(``dense_lm.embed`` / ``logits_of`` / ``xent``).  Mamba2 and sLSTM have
+no rule and run whole on every model rank.  Recurrent states keep every
+head on every model rank; Zamba2's site caches are split by sequence over
+the model axis in the decode (``api.shard_cache``).
 """
 from __future__ import annotations
 
@@ -32,8 +42,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.models import attention as attn
-from repro_torch.models import common, ssm
+from repro_torch.models import common, dense_lm, ssm
 from repro_torch.models.config import ModelConfig
 
 
@@ -48,16 +59,21 @@ def _broadcast(tree, lead: tuple):
     return tree.expand(lead + tuple(tree.shape)).contiguous()
 
 
-def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
-    """Last-token fp32 logits."""
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x[:, -1] @ params["lm_head"]).float()
+def _embed(params, tokens, cfg: ModelConfig, ctx):
+    """This rank's rows of the global ``tokens``, embedded."""
+    return dense_lm.embed(params, sh.batch_rows(ctx, tokens).long(), cfg,
+                          ctx)
 
 
-def _loss(params, x, cfg: ModelConfig, batch: dict):
+def _head(params, x, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """Last-token fp32 logits (the global batch's under a ctx)."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = common.chunked_softmax_xent(x, params["lm_head"],
-                                       batch["labels"].to(x.device))
+    return dense_lm.logits_of(params, x[:, -1], cfg, ctx)
+
+
+def _loss(params, x, cfg: ModelConfig, batch: dict, ctx):
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = dense_lm.xent(params, x, batch["labels"], cfg, ctx)
     return loss, {"xent": loss}
 
 
@@ -104,9 +120,11 @@ def xlstm_empty_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:
 
 
 def _xlstm_pass(params, x, cfg: ModelConfig, state: Optional[dict],
-                decode: bool):
+                decode: bool, ctx=None):
     """The stack traversal -> (x, new state); ``state=None`` starts every
-    cell from its empty state."""
+    cell from its empty state.  Under a ``ctx`` the mLSTM cells run their
+    heads on each model rank (``ssm.mlstm_prefill``); the sLSTM cells, which
+    no rule splits, run whole on every model rank."""
     n_sb, m_per = _xlstm_shape(cfg)
     remat = _remat(cfg, decode)
     m_fn = ssm.mlstm_decode if decode else ssm.mlstm_prefill
@@ -114,7 +132,8 @@ def _xlstm_pass(params, x, cfg: ModelConfig, state: Optional[dict],
 
     def inner(p, st, h):
         y, st_new = m_fn(p["cell"], common.rms_norm(h, p["norm"],
-                                                    cfg.norm_eps), cfg, st)
+                                                    cfg.norm_eps), cfg, st,
+                         ctx)
         return h + y, st_new
 
     def outer(p_m, st_m, p_s, st_s, h):
@@ -145,24 +164,24 @@ def _xlstm_pass(params, x, cfg: ModelConfig, state: Optional[dict],
 # the passes take the model API's ``impl`` like every family's; xLSTM runs
 # no attention, so it goes unused
 def xlstm_loss(params, batch: dict, cfg: ModelConfig,
-               impl: Optional[str] = None):
-    x = params["embed"][batch["tokens"].long()]
-    x, _ = _xlstm_pass(params, x, cfg, None, decode=False)
-    return _loss(params, x, cfg, batch)
+               impl: Optional[str] = None, ctx=None):
+    x = _embed(params, batch["tokens"], cfg, ctx)
+    x, _ = _xlstm_pass(params, x, cfg, None, decode=False, ctx=ctx)
+    return _loss(params, x, cfg, batch, ctx)
 
 
 def xlstm_prefill(params, batch: dict, cfg: ModelConfig,
-                  impl: Optional[str] = None):
-    x = params["embed"][batch["tokens"].long()]
-    x, state = _xlstm_pass(params, x, cfg, None, decode=False)
-    return _head(params, x, cfg), state
+                  impl: Optional[str] = None, ctx=None):
+    x = _embed(params, batch["tokens"], cfg, ctx)
+    x, state = _xlstm_pass(params, x, cfg, None, decode=False, ctx=ctx)
+    return _head(params, x, cfg, ctx), state
 
 
 def xlstm_decode(params, tokens, cache: dict, pos, cfg: ModelConfig,
-                 impl: Optional[str] = None):
-    x = params["embed"][tokens.long()]
-    x, state = _xlstm_pass(params, x, cfg, cache, decode=True)
-    return _head(params, x, cfg), state
+                 impl: Optional[str] = None, ctx=None):
+    x = _embed(params, tokens, cfg, ctx)
+    x, state = _xlstm_pass(params, x, cfg, cache, decode=True, ctx=ctx)
+    return _head(params, x, cfg, ctx), state
 
 
 # ===========================================================================
@@ -214,31 +233,37 @@ def zamba_empty_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
     }
 
 
+def _shared_mlp(shared, h, cfg: ModelConfig, impl: Optional[str], ctx):
+    f = common.rms_norm(h, shared["mlp_norm"], cfg.norm_eps)
+    return h + common.mlp_apply_ctx(shared["mlp"], f, cfg.d_ff, impl, ctx)
+
+
 def _shared_attn_prefill(shared, h, x0, positions, cfg: ModelConfig,
-                         make_cache: bool, impl: Optional[str]):
+                         make_cache: bool, impl: Optional[str], ctx=None):
     cat = common.rms_norm(torch.cat([h, x0], dim=-1), shared["norm"],
                           cfg.norm_eps)
     a, cache = attn.gqa_prefill(shared["attn"], cat, cfg, positions,
-                                make_cache=make_cache, attn_impl=impl)
-    h = h + a
-    f = common.rms_norm(h, shared["mlp_norm"], cfg.norm_eps)
-    return h + common.mlp_apply(shared["mlp"], f, impl), cache
+                                make_cache=make_cache, attn_impl=impl,
+                                ctx=ctx)
+    return _shared_mlp(shared, h + a, cfg, impl, ctx), cache
 
 
 def _shared_attn_decode(shared, h, x0, cfg: ModelConfig, cache, pos,
-                        impl: Optional[str]):
+                        impl: Optional[str], ctx=None):
     cat = common.rms_norm(torch.cat([h, x0], dim=-1), shared["norm"],
                           cfg.norm_eps)
     a, cache = attn.gqa_decode(shared["attn"], cat, cfg, cache, pos,
-                               attn_impl=impl)
-    h = h + a
-    f = common.rms_norm(h, shared["mlp_norm"], cfg.norm_eps)
-    return h + common.mlp_apply(shared["mlp"], f, impl), cache
+                               attn_impl=impl, ctx=ctx)
+    return _shared_mlp(shared, h + a, cfg, impl, ctx), cache
 
 
 def _zamba_pass(params, x, cfg: ModelConfig, cache: Optional[dict], pos,
-                decode: bool, make_cache: bool, impl: Optional[str]):
-    """Traverse the groups -> (x, new cache | None)."""
+                decode: bool, make_cache: bool, impl: Optional[str],
+                ctx=None):
+    """Traverse the groups -> (x, new cache | None).  Under a ``ctx`` the
+    shared site's attention and MLP are tensor-parallel over the model
+    axis; the Mamba2 layers, which no rule splits, run whole on every
+    model rank."""
     sizes, n_sites = _zamba_groups(cfg)
     b, s, _ = x.shape
     x0 = x
@@ -268,13 +293,14 @@ def _zamba_pass(params, x, cfg: ModelConfig, cache: Optional[dict], pos,
         if decode:
             x, a_new = _shared_attn_decode(
                 params["shared"], x, x0, cfg,
-                common.take(cache["attn"], gi), pos, impl)
+                common.take(cache["attn"], gi), pos, impl, ctx)
         else:
             # the loss path remats each shared site (its attention keeps
             # full-sequence q / k / v / out residuals otherwise)
             x, a_new = common.maybe_checkpoint(
                 remat and not make_cache, _shared_attn_prefill,
-                params["shared"], x, x0, positions, cfg, make_cache, impl)
+                params["shared"], x, x0, positions, cfg, make_cache, impl,
+                ctx)
         a_caches.append(a_new)
 
     if not (decode or make_cache):
@@ -287,24 +313,24 @@ def _zamba_pass(params, x, cfg: ModelConfig, cache: Optional[dict], pos,
 
 
 def zamba_loss(params, batch: dict, cfg: ModelConfig,
-               impl: Optional[str] = None):
-    x = params["embed"][batch["tokens"].long()]
+               impl: Optional[str] = None, ctx=None):
+    x = _embed(params, batch["tokens"], cfg, ctx)
     x, _ = _zamba_pass(params, x, cfg, None, 0, decode=False,
-                       make_cache=False, impl=impl)
-    return _loss(params, x, cfg, batch)
+                       make_cache=False, impl=impl, ctx=ctx)
+    return _loss(params, x, cfg, batch, ctx)
 
 
 def zamba_prefill(params, batch: dict, cfg: ModelConfig,
-                  impl: Optional[str] = None):
-    x = params["embed"][batch["tokens"].long()]
+                  impl: Optional[str] = None, ctx=None):
+    x = _embed(params, batch["tokens"], cfg, ctx)
     x, cache = _zamba_pass(params, x, cfg, None, 0, decode=False,
-                           make_cache=True, impl=impl)
-    return _head(params, x, cfg), cache
+                           make_cache=True, impl=impl, ctx=ctx)
+    return _head(params, x, cfg, ctx), cache
 
 
 def zamba_decode(params, tokens, cache: dict, pos, cfg: ModelConfig,
-                 impl: Optional[str] = None):
-    x = params["embed"][tokens.long()]
+                 impl: Optional[str] = None, ctx=None):
+    x = _embed(params, tokens, cfg, ctx)
     x, new_cache = _zamba_pass(params, x, cfg, cache, pos, decode=True,
-                               make_cache=True, impl=impl)
-    return _head(params, x, cfg), new_cache
+                               make_cache=True, impl=impl, ctx=ctx)
+    return _head(params, x, cfg, ctx), new_cache

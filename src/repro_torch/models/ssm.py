@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -286,6 +287,93 @@ def _mlstm_gates(params, xi, nh):
     return torch.exp(torch.clamp(i_raw, max=I_CLIP)), F.logsigmoid(f_raw)
 
 
+# mLSTM's weights the reference's rules split (``param_pspecs``): name ->
+# the dim the model axis splits (w_up, w_q, w_k, w_v column-, w_down
+# row-wise; w_if, if_bias and out_norm stay whole)
+_MLSTM_SPLIT = {"w_q": 1, "w_k": 1, "w_v": 1, "w_down": 0}
+
+
+def _mlstm_params(params, cfg: ModelConfig, d_model: int, ctx):
+    """(params, local) of an mLSTM cell under a sharding ``ctx``: each model
+    rank on its heads (``local``) when w_q, w_k, w_v and w_down hold this
+    rank's whole heads, else those weights whole (a split one gathered
+    over the model axis)."""
+    if ctx is None or ctx.model_size == 1:
+        return params, False
+    d_inner, nh, dk, dv = _mlstm_dims(cfg, d_model)
+    full = {"w_q": nh * dk, "w_k": nh * dk, "w_v": nh * dv,
+            "w_down": d_inner}
+    split = {n: params[n].shape[d] != full[n] for n, d in _MLSTM_SPLIT.items()}
+    if all(split.values()) and nh % ctx.model_size == 0:
+        return params, True
+    whole = dict(params)
+    for n, d in _MLSTM_SPLIT.items():
+        if split[n]:
+            whole[n] = sh.gather_from_model(ctx, params[n], d)
+    return whole, False
+
+
+def _mlstm_in(params, x, cfg: ModelConfig, d_model: int, ctx):
+    """(p, local, xi, gate, q, k, v, i_gate, log_f) of an mLSTM cell on x
+    (..., D): the up-projection's halves, whole (``w_up``'s column-split
+    output gathered over the model axis: over 2 ranks one rank holds all of
+    xi, the other all of the gate); q / k / v fp32 (..., h, dk | dv) and
+    the gates (..., h) of the heads this rank runs (``_mlstm_params``)."""
+    d_inner, nh, dk, dv = _mlstm_dims(cfg, d_model)
+    w_up = params["w_up"]
+    if ctx is not None and w_up.shape[-1] != 2 * d_inner:
+        up = sh.gather_from_model(ctx, sh.copy_to_model(ctx, x) @ w_up, -1)
+    else:
+        up = x @ w_up
+    xi, gate = up[..., :d_inner], up[..., d_inner:]
+    p, local = _mlstm_params(params, cfg, d_model, ctx)
+    xh = sh.copy_to_model(ctx, xi) if local else xi
+    lead = tuple(xi.shape[:-1])
+    qm = (xh @ p["w_q"]).reshape(lead + (-1, dk)).float() * (
+        1.0 / math.sqrt(dk))
+    km = (xh @ p["w_k"]).reshape(lead + (-1, dk)).float()
+    vm = (xh @ p["w_v"]).reshape(lead + (-1, dv)).float()
+    i_gate, log_f = _mlstm_gates(p, xi, nh)
+    if local:
+        i_gate = sh.scatter_to_model(ctx, i_gate, -1)
+        log_f = sh.scatter_to_model(ctx, log_f, -1)
+    return p, local, xi, gate, qm, km, vm, i_gate, log_f
+
+
+def _mlstm_out(p, y, gate, cfg: ModelConfig, ctx, local: bool):
+    """The cell's output from its heads' rows y (..., h * dv): gated, normed
+    over the whole d_inner and down-projected.  A rank that runs its heads
+    holds part of each row: the norm's sum of squares is summed over the
+    model axis (forward and backward: each rank's loss sees only its part
+    of the norm's use), and the row-split w_down's partial outputs too."""
+    if not local:
+        y = y * F.silu(gate)
+        return common.rms_norm(y, p["out_norm"], cfg.norm_eps) @ p["w_down"]
+    y = y * F.silu(sh.scatter_to_model(ctx, gate, -1))
+    yf = y.float()
+    ss = sh.copy_to_model(ctx, sh.reduce_from_model(
+        ctx, (yf * yf).sum(-1, keepdim=True)))
+    y = yf * torch.rsqrt(ss / gate.shape[-1] + cfg.norm_eps)
+    y = (y * sh.scatter_to_model(ctx, p["out_norm"], -1).float()).to(
+        gate.dtype)
+    return sh.reduce_from_model(ctx, y @ p["w_down"])
+
+
+def _heads(ctx, state: dict, local: bool) -> dict:
+    """This rank's heads (dim 1) of an mLSTM state that holds every head."""
+    if not local:
+        return state
+    return {k: sh.scatter_to_model(ctx, v, 1) for k, v in state.items()}
+
+
+def _all_heads(ctx, state: dict, local: bool) -> dict:
+    """``_heads``' inverse: every head, gathered over the model axis (the
+    reference keeps recurrent states whole on every model rank)."""
+    if not local:
+        return state
+    return {k: sh.gather_from_model(ctx, v, 1) for k, v in state.items()}
+
+
 def _mlstm_chunk(c_n, qk, kk, vk, ik, fk):
     c_st, n_st = c_n
     cum = torch.cumsum(fk, dim=1)                             # (B,Q,H)
@@ -310,57 +398,45 @@ def _mlstm_chunk(c_n, qk, kk, vk, ik, fk):
 
 
 def mlstm_prefill(params, x, cfg: ModelConfig,
-                  state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+                  state: Optional[dict] = None,
+                  ctx=None) -> Tuple[torch.Tensor, dict]:
+    """Under a sharding ``ctx`` each model rank runs its heads
+    (``_mlstm_in`` / ``_mlstm_out``); the state, in and out, holds every
+    head."""
     b, s, d_model = x.shape
-    d_inner, nh, dk, dv = _mlstm_dims(cfg, d_model)
     q_len = _chunk_len(cfg, s)
     nc = s // q_len
-
-    up = x @ params["w_up"]
-    xi, gate = up[..., :d_inner], up[..., d_inner:]
-    scale = 1.0 / math.sqrt(dk)
-    qm = (xi @ params["w_q"]).reshape(b, s, nh, dk).float() * scale
-    km = (xi @ params["w_k"]).reshape(b, s, nh, dk).float()
-    vm = (xi @ params["w_v"]).reshape(b, s, nh, dv).float()
-    i_gate, log_f = _mlstm_gates(params, xi, nh)              # (B,S,H)
-
+    p, local, xi, gate, qm, km, vm, i_gate, log_f = _mlstm_in(
+        params, x, cfg, d_model, ctx)
+    nh, dk, dv = qm.shape[2], qm.shape[3], vm.shape[3]
     xs = (qm.reshape(b, nc, q_len, nh, dk), km.reshape(b, nc, q_len, nh, dk),
           vm.reshape(b, nc, q_len, nh, dv), i_gate.reshape(b, nc, q_len, nh),
           log_f.reshape(b, nc, q_len, nh))
     if state is None:
-        st = mlstm_empty_state(cfg, d_model, b, x.device)
-        c0, n0 = st["c"], st["n"]
-    else:
-        c0, n0 = state["c"], state["n"]
-    (c_f, n_f), ych = _scan_chunks(_mlstm_chunk, (c0, n0), xs)
-    y = ych.reshape(b, s, d_inner).to(x.dtype)
-    y = y * F.silu(gate)
-    y = common.rms_norm(y, params["out_norm"], cfg.norm_eps)
-    return y @ params["w_down"], {"c": c_f, "n": n_f}
+        state = mlstm_empty_state(cfg, d_model, b, x.device)
+    st = _heads(ctx, state, local)
+    (c_f, n_f), ych = _scan_chunks(_mlstm_chunk, (st["c"], st["n"]), xs)
+    y = ych.reshape(b, s, nh * dv).to(x.dtype)
+    return (_mlstm_out(p, y, gate, cfg, ctx, local),
+            _all_heads(ctx, {"c": c_f, "n": n_f}, local))
 
 
-def mlstm_decode(params, x, cfg: ModelConfig,
-                 state: dict) -> Tuple[torch.Tensor, dict]:
+def mlstm_decode(params, x, cfg: ModelConfig, state: dict,
+                 ctx=None) -> Tuple[torch.Tensor, dict]:
     b, _, d_model = x.shape
-    d_inner, nh, dk, dv = _mlstm_dims(cfg, d_model)
-    up = x[:, 0] @ params["w_up"]
-    xi, gate = up[..., :d_inner], up[..., d_inner:]
-    scale = 1.0 / math.sqrt(dk)
-    qv = (xi @ params["w_q"]).reshape(b, nh, dk).float() * scale
-    kv = (xi @ params["w_k"]).reshape(b, nh, dk).float()
-    vv = (xi @ params["w_v"]).reshape(b, nh, dv).float()
-    i_gate, log_f = _mlstm_gates(params, xi, nh)              # (B,H)
+    p, local, xi, gate, qv, kv, vv, i_gate, log_f = _mlstm_in(
+        params, x[:, 0], cfg, d_model, ctx)
+    st = _heads(ctx, state, local)
     f = torch.exp(log_f)
-    c_new = (f[..., None, None] * state["c"]
+    c_new = (f[..., None, None] * st["c"]
              + i_gate[..., None, None] * kv[..., :, None] * vv[..., None, :])
-    n_new = f[..., None] * state["n"] + i_gate[..., None] * kv
+    n_new = f[..., None] * st["n"] + i_gate[..., None] * kv
     num = torch.einsum("bhd,bhdv->bhv", qv, c_new)
     den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", qv, n_new)),
                       min=1.0)
-    y = (num / den[..., None]).reshape(b, d_inner).to(x.dtype)
-    y = y * F.silu(gate)
-    y = common.rms_norm(y, params["out_norm"], cfg.norm_eps)
-    return (y @ params["w_down"])[:, None], {"c": c_new, "n": n_new}
+    y = (num / den[..., None]).reshape(b, -1).to(x.dtype)
+    return (_mlstm_out(p, y, gate, cfg, ctx, local)[:, None],
+            _all_heads(ctx, {"c": c_new, "n": n_new}, local))
 
 
 # ---------------------------------------------------------------------------

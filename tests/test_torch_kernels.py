@@ -202,6 +202,10 @@ def test_cpu_path_counts_no_launches():
     ops.decode_latent(torch.zeros((1, 1, 2, 48)), torch.zeros((1, 8, 32)),
                       torch.zeros((1, 8, 16)),
                       torch.ones((1, 8), dtype=torch.bool))
+    ops.decode_latent_partial(torch.zeros((1, 1, 2, 48)),
+                              torch.zeros((1, 8, 32)),
+                              torch.zeros((1, 8, 16)),
+                              torch.ones((1, 8), dtype=torch.bool))
     qa = torch.zeros((1, 4, 1, 2, 32))
     ka = torch.zeros((1, 4, 1, 32))
     out, lse = ops.attention_gqa_lse(qa, ka, ka)
@@ -529,6 +533,71 @@ def test_cuda_decode_gqa_partial_matches_plain(cuda, dtype):
     assert o.dtype == m.dtype == l.dtype == torch.float32
     tol = 1e-4 if dtype == torch.float32 else HALF_RTOL[dtype]
     torch.testing.assert_close(m, rm, atol=tol, rtol=tol)
+    torch.testing.assert_close(o / l[..., None], ro / rl[..., None],
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dc,dr,lengths", [(32, 16, [5, 16, 9]),
+                                           (256, 32, [40, 1, 33])])
+def test_latent_partials_merged_match_attention_module(dc, dr, lengths):
+    """``ops.decode_latent_partial`` (MLA's sequence-sharded decode: each
+    model rank's partials over its slice of the latent cache) on the two
+    halves of a latent cache, each against the reference's
+    ``_decode_partial`` on ``concat(c, kr)``, and merged against its
+    ``flash_decode`` with ``ctx=None`` over the whole (the call
+    ``mla_decode`` makes), within 1e-5."""
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    rng = np.random.default_rng(dc + 1)
+    b, s, g = 3, 40, 5
+    q = _rand(rng, (b, 1, g, dc + dr))
+    c, kr = _rand(rng, (b, s, dc)), _rand(rng, (b, s, dr))
+    valid = np.arange(s)[None] < np.asarray(lengths)[:, None]
+    k = np.concatenate([c, kr], -1)[:, :, None]
+    parts = []
+    for sl in (slice(0, s // 2), slice(s // 2, s)):
+        got = ops.decode_latent_partial(_t(q), _t(c[:, sl].copy()),
+                                        _t(kr[:, sl].copy()),
+                                        _t(valid[:, sl].copy()))
+        assert tuple(got[0].shape) == (b, 1, g, dc)
+        want = jattn._decode_partial(jnp.asarray(q), jnp.asarray(k[:, sl]),
+                                     jnp.asarray(c[:, sl, None]),
+                                     jnp.asarray(valid[:, sl]))
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+        parts.append(got)
+    merged = ref.combine_partials(*(torch.stack([p[i] for p in parts])
+                                    for i in range(3)))
+    want = jattn.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(c[:, :, None]), jnp.asarray(valid),
+                              None)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("b,s,g,lengths", [
+    (2, 36, 40, [30, 0]),       # one rank's 36 of 72 slots, minicpm3_4b
+    (3, 500, 40, [500, 17, 260]), (2, 37, 1, [1, 37])])
+def test_cuda_latent_partial_matches_plain(cuda, dtype, b, s, g, lengths):
+    """The latent layout's unnormalised partials (o, m, l) against the
+    plain version, one launch; a row with no valid slot (a rank whose
+    slice the decode has not reached) included."""
+    gen = torch.Generator(device=cuda).manual_seed(s + g)
+    q = torch.randn((b, 1, g, 288), generator=gen, device=cuda).to(dtype)
+    c = torch.randn((b, s, 256), generator=gen, device=cuda).to(dtype)
+    kr = torch.randn((b, s, 32), generator=gen, device=cuda).to(dtype)
+    valid = torch.arange(s, device=cuda)[None] < torch.tensor(
+        lengths, device=cuda)[:, None]
+    before = ops.LAUNCHES["flash_decode"]
+    o, m, l = ops.decode_latent_partial(q, c, kr, valid)
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+    ro, rm, rl = ref.decode_latent_partial_ref(q, c, kr, valid)
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    assert tuple(o.shape) == (b, 1, g, 256) and tuple(m.shape) == (b, 1, g)
+    tol = 1e-4 if dtype == torch.float32 else HALF_RTOL[dtype]
+    torch.testing.assert_close(m, rm, atol=tol, rtol=tol)
+    torch.testing.assert_close(l, rl, atol=tol, rtol=tol)
     torch.testing.assert_close(o / l[..., None], ro / rl[..., None],
                                atol=tol, rtol=tol)
 

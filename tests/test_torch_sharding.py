@@ -20,7 +20,19 @@ each mesh's errors to a file of their own:
   leaf's largest |g|); the reduced VLM backbone's prefill and one decode;
 * meshes (1, 4) and (pod 2, data 1, model 2), MoE (the helper's 8-expert
   ``cfg``, capacity factor 16, so no pair drops differently): the loss
-  (1e-4) and every gradient, the router's included (1e-5).
+  (1e-4) and every gradient, the router's included (1e-5);
+* the other families (``FAMILIES``), reduced: MLA attention
+  (``minicpm3_4b``) and the enc-dec (``seamless_m4t_medium``) on (data 2,
+  model 2), each model rank on its heads; xLSTM (``xlstm_1_3b``: its
+  mLSTM heads split, over 4 ranks one rank's up-projection columns all
+  input, another's all gate) and Zamba2 (``zamba2_1_2b``: its shared
+  site's 2 KV heads over 4 ranks gathered) on (data 1, model 4), and MLA
+  again on (data 1, model 4), its 2 heads over 4 ranks gathered.  Each
+  against the port's and the JAX package's local runs: the prefill's
+  logits and two decode steps' on the ``shard_cache`` layout (the
+  sequence-sharded latent, self, cross and site caches, the recurrent
+  states whole) (1e-4), three train steps' losses (1e-4) and every leaf's
+  step-1 gradient slice (1e-5 of its largest |g|).
 """
 import datetime
 import json
@@ -48,7 +60,20 @@ MOE = dict(family="moe", num_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
            d_ff=0, vocab_size=500, head_dim=32, n_experts=8, top_k=2,
            expert_d_ff=64, capacity_factor=16.0, vocab_pad_to=4,
            dtype="float32", remat=False)
-MESHES = {"dense_2x2": (2, 2), "moe_1x4": (1, 4), "moe_2x1x2": (2, 1, 2)}
+MESHES = {"dense_2x2": (2, 2), "moe_1x4": (1, 4), "moe_2x1x2": (2, 1, 2),
+          "mla_2x2": (2, 2), "mla_1x4": (1, 4), "encdec_2x2": (2, 2),
+          "xlstm_1x4": (1, 4), "zamba2_1x4": (1, 4)}
+# mesh -> the reduced arch it runs (the families beyond dense / MoE / VLM);
+# the reduced minicpm3_4b's 2 heads over 4 ranks take MLA's gathered path
+FAMILIES = {"mla_2x2": "minicpm3_4b", "mla_1x4": "minicpm3_4b",
+            "encdec_2x2": "seamless_m4t_medium", "xlstm_1x4": "xlstm_1_3b",
+            "zamba2_1x4": "zamba2_1_2b"}
+FAMILY_PROMPT, FAMILY_TOTAL = 8, 12   # prefill slots, decode cache slots
+# the recurrent families' gradients against the JAX package's: their fp32
+# floor (``tests/test_torch_recurrent.py``'s docstring: the two packages'
+# local gradients lie up to 2.5e-5 of a leaf's largest apart); against
+# the port's local run, LEAF_TOL
+JAX_LEAF_TOL = {"xlstm_1_3b": 5e-5, "zamba2_1_2b": 5e-5}
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +133,8 @@ def _jax_dense(out: dict) -> None:
     import jax.numpy as jnp
 
     from repro.data.synthetic import make_batch
-    from repro.launch.stepfns import make_train_step
     from repro.models.api import build_model
     from repro.models.config import ModelConfig
-    from repro.optim import adamw_init
     cfg = ModelConfig("d", **DENSE)
     api = build_model(cfg)
     params = api.init(jax.random.PRNGKey(1))
@@ -130,15 +153,30 @@ def _jax_dense(out: dict) -> None:
     out.update(_flat(dcache, "dense/cache/"))
     b3 = make_batch(cfg, 4, 16, seed=2)
     out.update(_flat(dict(b3), "dense/batch/"))
-    (_, _), grads = jax.jit(jax.value_and_grad(
-        lambda p, b: api.loss(p, b, None), has_aux=True))(params, b3)
-    out.update(_flat(grads, "dense/grads/"))
-    step = jax.jit(make_train_step(api, None))
+    _jax_steps(out, "dense", api, params, b3)
+
+
+def _jax_steps(out: dict, tag: str, api, params, batch) -> None:
+    """Step 1's gradients (``tag``/grads/) and three train steps' losses
+    (``tag``/losses) on ``batch``: ``make_train_step``'s at ``grad_accum``
+    1 composed from its parts (``value_and_grad`` of the loss,
+    ``adamw_update`` at ``cosine_lr(step + 1)``), so the loss and its
+    gradient compile once for both."""
+    import jax
+
+    from repro.optim import adamw_init, adamw_update, cosine_lr
+    value_and_grad = jax.jit(jax.value_and_grad(
+        lambda p, b: api.loss(p, b, None), has_aux=True))
+    update = jax.jit(lambda g, o, p: adamw_update(
+        g, o, p, lr=cosine_lr(o["step"] + 1)))
     p, opt, losses = params, adamw_init(params), []
-    for _ in range(3):
-        p, opt, m = step(p, opt, b3)
-        losses.append(float(m["loss"]))
-    out["dense/losses"] = np.asarray(losses)
+    for i in range(3):
+        (loss, _), grads = value_and_grad(p, batch)
+        if i == 0:
+            out.update(_flat(grads, f"{tag}/grads/"))
+        losses.append(float(loss))
+        p, opt = update(grads, opt, p)
+    out[f"{tag}/losses"] = np.asarray(losses)
 
 
 def _jax_vlm(out: dict) -> None:
@@ -185,12 +223,67 @@ def _jax_moe(out: dict) -> None:
     out.update(_flat(grads, "moe/grads/"))
 
 
+def _jax_family(out: dict, arch: str) -> None:
+    """A reduced arch's local references under its name, on the numpy
+    parameters the port's init draws (seed 5): the prefill's logits, the
+    decode cache of FAMILY_TOTAL slots the prefill's fills, two decode
+    steps (the tokens fed and their logits), step 1's gradients and three
+    train steps' losses (``_jax_steps``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.data.synthetic import make_batch
+    from repro.models.api import build_model
+    from repro.models.config import MAMBA_HYBRID, XLSTM
+    from repro_torch.checkpoint.partition import to_numpy
+    from repro_torch.configs import get
+    from repro_torch.models.api import build_model as torch_build
+    cfg = get_config(arch).reduced()
+    api = build_model(cfg)
+    numpy_params = to_numpy(torch_build(get(arch).reduced()).init(
+        np.random.default_rng(5), "cpu"))
+    params = jax.tree.map(jnp.asarray, numpy_params)
+    out.update(_flat(numpy_params, f"{arch}/params/"))
+    pb = make_batch(cfg, 4, FAMILY_PROMPT, seed=4)
+    pb.pop("labels")
+    out.update(_flat(dict(pb), f"{arch}/prefill_batch/"))
+    logits, cache = jax.jit(lambda p, b: api.prefill(p, b, None))(params, pb)
+
+    def head(e, f):
+        return e.at[:, :, :f.shape[2]].set(f)
+    if cfg.family == XLSTM:
+        dcache = cache
+    elif cfg.family == MAMBA_HYBRID:
+        dcache = api.empty_cache(4, FAMILY_TOTAL)
+        dcache = {"mamba": cache["mamba"],
+                  "attn": jax.tree.map(head, dcache["attn"], cache["attn"])}
+    else:
+        dcache = jax.tree.map(head, api.empty_cache(4, FAMILY_TOTAL), cache)
+    out.update(_flat(dcache, f"{arch}/cache/"))
+    decode = jax.jit(lambda p, t, c, pos: api.decode(p, t, c, pos, None))
+    toks, decs = [], [logits]
+    for i in range(2):
+        toks.append(jnp.argmax(decs[-1], -1)[:, None].astype(jnp.int32))
+        dec, dcache = decode(params, toks[-1], dcache, FAMILY_PROMPT + i)
+        decs.append(dec)
+    out.update({f"{arch}/prefill_logits": np.asarray(logits),
+                f"{arch}/tokens": np.stack([np.asarray(t) for t in toks]),
+                f"{arch}/decode_logits": np.stack([np.asarray(d)
+                                                  for d in decs[1:]])})
+    batch = make_batch(cfg, 4, 16, seed=5)
+    out.update(_flat(dict(batch), f"{arch}/batch/"))
+    _jax_steps(out, arch, api, params, batch)
+
+
 @pytest.fixture(scope="module")
 def references(tmp_path_factory):
     out = {}
     _jax_dense(out)
     _jax_vlm(out)
     _jax_moe(out)
+    for arch in sorted(set(FAMILIES.values())):
+        _jax_family(out, arch)
     path = tmp_path_factory.mktemp("sharding") / "references.npz"
     np.savez(path, **out)
     return path
@@ -210,7 +303,9 @@ def mesh_run(references, tmp_path_factory):
 # the tests
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["gpt2_base", "qwen3_moe_30b_a3b",
-                                  "qwen2_vl_2b"])
+                                  "qwen2_vl_2b", "minicpm3_4b",
+                                  "seamless_m4t_medium", "xlstm_1_3b",
+                                  "zamba2_1_2b"])
 @pytest.mark.parametrize("shape", [{"data": 2, "model": 4},
                                    {"data": 1, "model": 2},
                                    {"pod": 2, "data": 2, "model": 4}],
@@ -304,7 +399,7 @@ def _abs(got, want) -> float:
     return float((got.double() - torch.as_tensor(want).double()).abs().max())
 
 
-def _grad_errors(errors, grads, want, ctx, tag):
+def _grad_errors(errors, grads, want, ctx, tag, tol=LEAF_TOL):
     """Each leaf's local gradient slice against the same slice of the
     reference's, over the reference leaf's largest |g|."""
     from repro_torch.models.api import shard_params
@@ -315,7 +410,7 @@ def _grad_errors(errors, grads, want, ctx, tag):
     for name, g in got.items():
         err = float((g.double() - local[name].double()).abs().max()
                     / max(float(full[name].abs().max()), 1e-30))
-        errors[f"{tag} grad {name}"] = (err, LEAF_TOL)
+        errors[f"{tag} grad {name}"] = (err, tol)
 
 
 def _rank_dense(ctx, data, errors):
@@ -395,6 +490,55 @@ def _rank_moe(ctx, data, errors, tag):
     assert any("router" in k for k in errors)
 
 
+def _rank_family(ctx, data, errors, mesh: str) -> None:
+    """The sharded model API of ``FAMILIES[mesh]`` against the JAX
+    references (``_jax_family``) and the port's local run on the same
+    params, batches and decode tokens."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.stepfns import make_train_step
+    from repro_torch.models.api import (build_model, shard_cache,
+                                        shard_params)
+    from repro_torch.optim import adamw_init
+    arch = FAMILIES[mesh]
+    api = build_model(get(arch).reduced())
+    full = _unflat(data, f"{arch}/params/")
+    mine = _clone(shard_params(full, ctx))
+    with torch.no_grad():
+        pb = _unflat(data, f"{arch}/prefill_batch/")
+        lg, cache = api.prefill(mine, pb, ctx)
+        local_lg, _ = api.prefill(full, pb)
+        errors[f"{mesh} prefill vs jax"] = (
+            _abs(lg, data[f"{arch}/prefill_logits"]), LOGIT_TOL)
+        errors[f"{mesh} prefill vs port"] = (_abs(lg, local_lg), LOGIT_TOL)
+        local_cache = _unflat(data, f"{arch}/cache/")
+        cache = shard_cache(cache, ctx, FAMILY_TOTAL)
+        for i, tok in enumerate(data[f"{arch}/tokens"]):
+            tok = torch.from_numpy(tok)
+            local_dec, local_cache = api.decode(full, tok, local_cache,
+                                                FAMILY_PROMPT + i)
+            dec, cache = api.decode(mine, tok, cache, FAMILY_PROMPT + i, ctx)
+            errors[f"{mesh} decode {i} vs jax"] = (
+                _abs(dec, data[f"{arch}/decode_logits"][i]), LOGIT_TOL)
+            errors[f"{mesh} decode {i} vs port"] = (_abs(dec, local_dec),
+                                                    LOGIT_TOL)
+    batch = _unflat(data, f"{arch}/batch/")
+    grads = _grads(api, mine, batch, ctx)
+    _grad_errors(errors, grads, _unflat(data, f"{arch}/grads/"), ctx,
+                 f"{mesh} vs jax", JAX_LEAF_TOL.get(arch, LEAF_TOL))
+    _grad_errors(errors, grads, _grads(api, _clone(full), batch, None), ctx,
+                 f"{mesh} vs port")
+    step = make_train_step(api, ctx=ctx)
+    opt, losses = adamw_init(mine), []
+    for _ in range(3):
+        mine, opt, m = step(mine, opt, batch)
+        losses.append(float(m["loss"]))
+    for i, (got, want) in enumerate(zip(losses, data[f"{arch}/losses"])):
+        errors[f"{mesh} step {i} loss"] = (abs(got - want) / abs(want),
+                                           LOSS_TOL)
+
+
 def _grads(api, params, batch, ctx, with_loss=False):
     """Step 1's gradients, averaged over the batch axes as
     ``make_train_step`` averages them (and the global loss)."""
@@ -407,7 +551,7 @@ def _grads(api, params, batch, ctx, with_loss=False):
         p.requires_grad_(True)
     loss, _ = api.loss(params, batch, ctx)
     grads = torch.autograd.grad(loss, leaves)
-    if ctx.shard_batch:
+    if ctx is not None and ctx.shard_batch:
         grads = [sh.pmean(ctx, g, ctx.batch_axes) for g in grads]
     it = iter(grads)
     tree = tree_map(lambda _: next(it), params)
@@ -447,6 +591,8 @@ def _rank_main(job: str, npz: str, outdir: str) -> None:
         if mesh_name == "dense_2x2":
             _rank_dense(ctx, data, errors)
             _rank_vlm(ctx, data, errors)
+        elif mesh_name in FAMILIES:
+            _rank_family(ctx, data, errors, mesh_name)
         else:
             _rank_moe(ctx, data, errors, mesh_name)
         bad = {k: v for k, v in errors.items() if not v[0] <= v[1]}

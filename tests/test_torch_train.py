@@ -203,7 +203,9 @@ def test_attention_bwd_ref_matches_jax_vjp(causal, window, g, dqk, dv):
 def test_unported_families_raise(arch):
     """The enc-dec, xLSTM and Zamba2 families, once refused, now build
     (their parity with the JAX package is ``test_torch_encdec.py``'s and
-    ``test_torch_recurrent.py``'s); a sharding ctx still raises."""
+    ``test_torch_recurrent.py``'s) and run under a sharding ctx
+    (``test_torch_sharding.py``); a ctx that is not a ``ShardingCtx``
+    raises ``TypeError``."""
     api = build_model(torch_get(arch).reduced())
     params = api.init(np.random.default_rng(0), "cpu")
     batch = make_batch(api.cfg, BATCH, 16, 0)
@@ -213,8 +215,7 @@ def test_unported_families_raise(arch):
                                     api.empty_cache(BATCH, 16,
                                                     device="cpu"), 0,
                                     ctx=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported in "
-                           "repro_torch"):
+        with pytest.raises(TypeError, match="ctx must be a ShardingCtx"):
             call()
 
 
